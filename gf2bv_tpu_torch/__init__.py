@@ -1,0 +1,36 @@
+"""gf2bv_tpu_torch — the GF(2) linear-system engine on PyTorch and CUDA.
+
+The port of ``gf2bv_tpu`` (JAX on a TPU) to PyTorch with hand-written
+Hopper (sm_90a) CUDA kernels.  Write an ordinary Python function on symbolic
+bitvectors; asserted-zero bitvectors become a GF(2) system ``Ax = b`` that
+the panel-blocked solver eliminates on the device.  This slice covers the
+mode-0 path (one solution): ``LinearSystem(sizes, device=...).solve_one``,
+``solve_raw_packed`` and the device-built MT19937 system
+(``crypto.mt_torch``).
+
+``device="cuda"`` (the default) runs the four kernels in ``csrc/``, which
+are compiled by nvcc on first use; ``device="cpu"`` runs their plain
+PyTorch twins.  Importing this package imports neither JAX nor the JAX
+package, and never runs nvcc.
+"""
+
+from .core.affine import AffineSpace
+from .core.bitvec import BitVec
+from .core.system import (
+    LinearSystem,
+    QuadraticSystem,
+    Zeros,
+)
+from .core.words import torch_to_u32, u32_to_torch
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AffineSpace",
+    "BitVec",
+    "LinearSystem",
+    "QuadraticSystem",
+    "Zeros",
+    "torch_to_u32",
+    "u32_to_torch",
+]

@@ -1,0 +1,142 @@
+"""Build, load and launch the port's hand-written Hopper kernels.
+
+The CUDA sources live in ``gf2bv_tpu_torch/csrc/*.cu``.  On first use they
+are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library with a plain
+C interface (``build/`` at the repository root, named by a hash of the
+sources and flags so an edited source never reuses a stale build) and loaded
+with ``ctypes``.  Importing the package never runs ``nvcc``; only the first
+kernel launch on a CUDA tensor does.
+
+Every C entry point launches on the caller's stream and returns
+``cudaGetLastError()``; :func:`check` raises on a nonzero code.  The
+wrappers (ops/phase1.py, ops/panel_update.py) count their launches in
+:data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+# launches per kernel wrapper; reset with reset_launches()
+LAUNCHES = {"scan": 0, "reconstruct": 0, "update_full": 0, "update_seg": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
+    "gf2_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (arows, coeff, prow, tbits, pf, wp, kw, w0, stream)
+    "gf2_reconstruct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, stream)
+    "gf2_update_full": [_P, _P, _P, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, dead_tiles, stream)
+    "gf2_update_seg": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/ (once per source hash); returns the .so."""
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources + headers:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    so = BUILD_DIR / f"libgf2bv_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.gf2_error_string.argtypes = [ctypes.c_int]
+        handle.gf2_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = lib().gf2_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
+    """Validate a kernel argument: int32, contiguous, on ``device``, ``shape``."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if device.index != torch.cuda.current_device():
+        # the C entry points launch on the current device
+        raise ValueError(
+            f"{name}: on {device} but the current CUDA device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.int32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}: expected cuda or cpu")

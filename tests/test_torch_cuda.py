@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device.  This file imports
+neither JAX nor the JAX package, so it runs on a machine without them:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Tolerance 0 everywhere (integer GF(2) arithmetic).
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from gf2bv_tpu_torch import LinearSystem, torch_to_u32, u32_to_torch
+from gf2bv_tpu_torch.core import packing
+from gf2bv_tpu_torch.ops import _cuda, gauss_blocked, panel_update, phase1
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _rand(rng, shape, dev):
+    return u32_to_torch(rng.integers(0, 2**32, size=shape, dtype=np.uint32), dev)
+
+
+@pytest.mark.parametrize("rows,K,w0,cols", [
+    (512, 64, 0, 5000), (512, 64, 2, 80), (2048, 256, 8, 300),
+    (3000, 256, 0, 10**6), (20224, 256, 160, 19968),
+])
+def test_scan_kernel(dev, rows, K, w0, cols):
+    rng = np.random.default_rng(rows + K + w0)
+    bT = _rand(rng, (K // 32, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    got = phase1.scan(bT, used, w0, K, cols)
+    want = phase1.scan_plain(bT, used, w0, K, cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("consistent", [True, False])
+@pytest.mark.parametrize("K,w0,cols,wp", [(64, 2, 80, 128), (256, 8, 3000, 640)])
+def test_reconstruct_kernel(dev, K, w0, cols, wp, consistent):
+    rng = np.random.default_rng(K + w0 + wp)
+    a = _rand(rng, (1024, wp), dev)
+    bT = a[:, w0 : w0 + K // 32].T.contiguous()
+    used = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    prow, _, cT = phase1.scan(bT, used, w0, K, cols)
+    src = a if consistent else _rand(rng, (1024, wp), dev)
+    ps = prow.clamp(min=0).long()
+    arows, coeff = src[ps], cT[:, ps].T.contiguous()
+    got = phase1.reconstruct(arows, coeff, prow, w0)
+    want = phase1.reconstruct_plain(arows, coeff, prow, w0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,wp,K", [(256, 128, 64), (300, 384, 256), (20224, 640, 256)])
+def test_update_kernels(dev, rows, wp, K):
+    rng = np.random.default_rng(rows + wp)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    got = panel_update.update_full(a.clone(), sel, pf)
+    want = panel_update.update_full_plain(a.clone(), sel, pf)
+    assert torch.equal(got, want)
+    for dead in range(1, wp // 128):
+        got = panel_update.update_seg(a.clone(), sel, pf, dead)
+        want = panel_update.update_seg_plain(a.clone(), sel, pf, dead)
+        assert torch.equal(got[:, :128], want[:, :128])
+        assert torch.equal(got[:, 128 * dead :], want[:, 128 * dead :])
+    torch.cuda.synchronize()
+
+
+def test_wrapper_counts_launches(dev):
+    rng = np.random.default_rng(5)
+    a = _rand(rng, (256, 256), dev)
+    sel = _rand(rng, (256, 2), dev)
+    pf = _rand(rng, (64, 256), dev)
+    _cuda.reset_launches()
+    panel_update.update_full(a, sel, pf)
+    panel_update.update_seg(a, sel, pf, 1)
+    panel_update.update_full_plain(a, sel, pf)  # the twin is not a launch
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {"scan": 0, "reconstruct": 0, "update_full": 1, "update_seg": 1}
+
+
+@pytest.mark.parametrize("trailing", [False, True])
+def test_rref_blocked_cuda_matches_cpu(dev, trailing):
+    rng = np.random.default_rng(11)
+    cols, rows = 8190, 300  # two 128-word tiles: trailing reaches dead_tiles 1
+    bits = rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8)
+    a32 = gauss_blocked._pad(packing.pack_bits(bits, 1 + cols), 256, word_align=128)
+    got = gauss_blocked.rref_blocked(u32_to_torch(a32, dev), cols, 256, trailing)
+    want = gauss_blocked.rref_blocked(u32_to_torch(a32, "cpu"), cols, 256, trailing)
+    assert np.array_equal(torch_to_u32(got[1]), torch_to_u32(want[1]))  # pof
+    if not trailing:
+        assert np.array_equal(torch_to_u32(got[0]), torch_to_u32(want[0]))
+        assert bool(got[2]) == bool(want[2])
+    o_cuda, u_cuda = gauss_blocked.rref_origin_blocked(u32_to_torch(a32, dev), cols)
+    o_cpu, u_cpu = gauss_blocked.rref_origin_blocked(u32_to_torch(a32, "cpu"), cols)
+    assert np.array_equal(torch_to_u32(o_cuda), torch_to_u32(o_cpu))
+    assert bool(u_cuda) == bool(u_cpu)
+
+
+def test_linear_system_solve_one_cuda(dev):
+    """Public API on the card: a lazily traced system of XOR/shift relations
+    solves to the same point as on the CPU, and the point satisfies it."""
+    rnd = random.Random(3)
+    x, y = rnd.getrandbits(64), rnd.getrandbits(64)
+    m64 = (1 << 64) - 1
+
+    def zeros_of(lin):
+        a, b = lin.gens()
+        return [
+            a ^ (b >> 1) ^ (x ^ (y >> 1)),
+            b ^ (a << 3) ^ (y ^ ((x << 3) & m64)),
+            (a >> 7) ^ b ^ ((x >> 7) ^ y),
+        ]
+
+    lin = LinearSystem([64, 64], device=dev)
+    zeros = zeros_of(lin)
+    sol = lin.solve_one(zeros)
+    assert sol is not None
+    assert sol == LinearSystem([64, 64], device="cpu").solve_one(
+        zeros_of(LinearSystem([64, 64], device="cpu"))
+    )
+    assert all(lin.evaluate(z, sol) == 0 for z in zeros)
