@@ -3,12 +3,13 @@
 The port of ``gf2bv_tpu`` (JAX on a TPU) to PyTorch with hand-written
 Hopper (sm_90a) CUDA kernels.  Write an ordinary Python function on symbolic
 bitvectors; asserted-zero bitvectors become a GF(2) system ``Ax = b`` that
-the panel-blocked solver eliminates on the device.  This slice covers the
-mode-0 path (one solution): ``LinearSystem(sizes, device=...).solve_one``,
-``solve_raw_packed`` and the device-built MT19937 system
-(``crypto.mt_torch``).
+the panel-blocked solver eliminates on the device.  Ported so far: one
+solution (``LinearSystem(sizes, device=...).solve_one``), the affine
+solution space (``solve_raw_space`` / ``solve_all``), pre-packed systems
+(``solve_raw_packed``), batches (``solve_one_batch`` / ``solve_all_batch``)
+and the device-built MT19937 system (``crypto.mt_torch``).
 
-``device="cuda"`` (the default) runs the four kernels in ``csrc/``, which
+``device="cuda"`` (the default) runs the kernels in ``csrc/``, which
 are compiled by nvcc on first use; ``device="cpu"`` runs their plain
 PyTorch twins.  Importing this package imports neither JAX nor the JAX
 package, and never runs nvcc.
@@ -17,6 +18,7 @@ package, and never runs nvcc.
 from .core.affine import AffineSpace
 from .core.bitvec import BitVec
 from .core.system import (
+    DimensionTooLargeError,
     LinearSystem,
     QuadraticSystem,
     Zeros,
@@ -28,6 +30,7 @@ __version__ = "0.1.0"
 __all__ = [
     "AffineSpace",
     "BitVec",
+    "DimensionTooLargeError",
     "LinearSystem",
     "QuadraticSystem",
     "Zeros",

@@ -1,4 +1,4 @@
-"""LinearSystem — the trace -> matrix -> solve API (mode 0 slice).
+"""LinearSystem — the trace -> matrix -> solve API.
 
 Port of ``gf2bv_tpu/core/system.py``.  Tracing and equation assembly are
 the reference's numpy code; solving runs the blocked solver on ``device``
@@ -6,9 +6,12 @@ the reference's numpy code; solving runs the blocked solver on ``device``
 kernels).  A CUDA device that is not present raises.
 
 Ported: ``gens`` (lazy and eager), ``get_eqs_packed``, ``get_eqs``,
-``solve_raw_one``, ``solve_one``, ``convert_sol``, ``solve_raw_packed`` and
-``solve_one_packed`` (mode 0), ``evaluate``.  The rest of the reference
-surface raises ``NotImplementedError`` naming its ROADMAP item.
+``solve_raw_one``, ``solve_one``, ``solve_raw_space``, ``solve_all`` (a lazy
+generator raising :class:`DimensionTooLargeError` past ``max_dimension``),
+``convert_sol``, ``solve_raw_packed``, ``solve_one_packed``,
+``solve_all_packed``, ``solve_one_batch``, ``solve_all_batch`` and
+``evaluate``.  The rest of the reference surface raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,10 +21,17 @@ from typing import Optional, Sequence
 import numpy as np
 
 from . import packing
+from .affine import AffineSpace
 from .bitvec import BitVec
 from .words import resolve_device
 
 Zeros = Sequence["BitVec | int"]
+
+
+class DimensionTooLargeError(Exception):
+    def __init__(self, message: str, space: AffineSpace):
+        super().__init__(message)
+        self.space = space
 
 
 def _later(what: str, item: str):
@@ -129,6 +139,29 @@ class LinearSystem:
     def solve_raw_one(self, zeros: Zeros) -> Optional[int]:
         return self._solve_internal(zeros, 0)
 
+    def solve_raw_space(self, zeros: Zeros) -> Optional[AffineSpace]:
+        return self._solve_internal(zeros, 1)
+
+    def _enumerate_space(self, space: AffineSpace, max_dimension: int):
+        if space.dimension > max_dimension:
+            raise DimensionTooLargeError(
+                f"solution space has dimension {space.dimension} "
+                f"(2**{space.dimension} points), above the max_dimension="
+                f"{max_dimension} enumeration guard; raise it or pin bits "
+                f"via the attached .space",
+                space=space,
+            )
+        for s in space:
+            ret = self.convert_sol(s)
+            if ret is not None:
+                yield ret
+
+    def solve_all(self, zeros: Zeros, *, max_dimension: int = 16):
+        space = self.solve_raw_space(zeros)
+        if space is None:
+            return
+        yield from self._enumerate_space(space, max_dimension)
+
     def solve_one(self, zeros: Zeros):
         sol = self._solve_internal(zeros, 0)
         if sol is None:
@@ -138,11 +171,17 @@ class LinearSystem:
     def solve_raw_packed(self, eqs, mode: int):
         """Solve a PRE-PACKED matrix: (rows, W64) uint64 or (rows, W32)
         uint32 host rows, or a (rows, W32) int32 tensor solved where it
-        lies.  Mode 0 only."""
+        lies.  Same mode contract as solve_raw_one / solve_raw_space."""
         from ..ops import solver
 
         return solver.solve_packed(eqs, self._cols, mode, self._backend,
                                    device=self._device)
+
+    def solve_all_packed(self, eqs, *, max_dimension: int = 16):
+        space = self.solve_raw_packed(eqs, 1)
+        if space is None:
+            return
+        yield from self._enumerate_space(space, max_dimension)
 
     def solve_one_packed(self, eqs):
         sol = self.solve_raw_packed(eqs, 0)
@@ -157,16 +196,32 @@ class LinearSystem:
             s |= v
         return bv.evaluate(s)
 
+    # -- batched solving --------------------------------------------------------
+
+    def solve_one_batch(self, zeros_batch, mesh=None):
+        """Solve many independent zero-lists; one solution tuple or None per
+        list.  ``mesh`` (sharding) is not ported and must be None."""
+        from ..parallel.batch import solve_batch_systems
+
+        raws = solve_batch_systems(self, zeros_batch, mode=0, mesh=mesh)
+        return [None if r is None else self.convert_sol(r) for r in raws]
+
+    def solve_all_batch(self, zeros_batch, *, max_dimension: int = 16, mesh=None):
+        """Batched solve_all: one generator per zeros list (None when
+        unsatisfiable); each raises DimensionTooLargeError lazily."""
+        from ..parallel.batch import solve_batch_systems
+
+        spaces = solve_batch_systems(self, zeros_batch, mode=1, mesh=mesh)
+        return [
+            None if sp is None else self._enumerate_space(sp, max_dimension)
+            for sp in spaces
+        ]
+
     # -- later slices --------------------------------------------------------
 
-    solve_raw_space = _later("solve_raw_space", "queue 1 item 2 (mode 1)")
-    solve_all = _later("solve_all", "queue 1 item 2 (mode 1)")
-    solve_all_packed = _later("solve_all_packed", "queue 1 item 2 (mode 1)")
     capture = _later("capture", "queue 1 item 6 (core/capture.py)")
     solve_one_sweep = _later("solve_one_sweep", "queue 1 item 7 (sweeps)")
     solve_all_sweep = _later("solve_all_sweep", "queue 1 item 7 (sweeps)")
-    solve_one_batch = _later("solve_one_batch", "queue 1 item 9 (batches)")
-    solve_all_batch = _later("solve_all_batch", "queue 1 item 9 (batches)")
     get_mat_numpy = _later("get_mat_numpy", "queue 1 item 6 (interop)")
     get_mat_scipy = _later("get_mat_scipy", "queue 1 item 6 (interop)")
 

@@ -9,8 +9,9 @@ bit 0 AND a; ``getrandbits(bs)`` takes the top ``bs`` bits of each output
 word, multi-word values joined LSB-first.
 
 Words are int32 tensors with the JAX package's uint32 bit patterns, so the
-matrices compare byte for byte.  Mode 1 and ``solve_mt19937_batch`` are
-later slices (ROADMAP queue 1 items 2 and 9).
+matrices compare byte for byte.  :func:`solve_mt19937` returns the state
+(mode 0) or the affine solution space (mode 1); :func:`solve_mt19937_batch`
+recovers many states with one readback.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core import packing
+from ..core.affine import AffineSpace
 from ..core.words import I32, bit_i32, resolve_device, torch_to_u32, u32_to_torch
 from ..ops import gauss_blocked
 
@@ -134,14 +136,51 @@ def mt19937_system_device(outs: torch.Tensor, bs: int, samples: int) -> torch.Te
     return torch.cat([eqs, msb], dim=0)
 
 
+def _padded_system(outs32: torch.Tensor, bs: int, samples: int) -> torch.Tensor:
+    """The recovery system with its rows padded to a multiple of 256."""
+    eqs = mt19937_system_device(outs32, bs, samples)
+    rows = eqs.shape[0]
+    return torch.nn.functional.pad(eqs, (0, 0, 0, -(-rows // 256) * 256 - rows))
+
+
+def _state_words(origin64: np.ndarray) -> tuple[int, ...]:
+    """A packed (W64,) uint64 origin -> the 624 state words."""
+    s = packing.words_to_int(origin64)
+    sol = []
+    for _ in range(N):
+        sol.append(s & 0xFFFFFFFF)
+        s >>= 32
+    return tuple(sol)
+
+
+def solve_mt19937_batch(outs_batch, bs: int = 32, device="cuda"):
+    """Recover many MT19937 states: per instance the system is built on the
+    device and solved by the trailing solver; the origins and verdicts of
+    all instances are read back once.
+
+    outs_batch: (B, samples) observed getrandbits(bs) values, bs <= 32.
+    Returns a list of B state tuples (None for an unsatisfiable entry)."""
+    if not 1 <= bs <= 32:
+        raise ValueError("solve_mt19937_batch takes 1 <= bs <= 32; loop solve_mt19937 instead")
+    dev = resolve_device(device)
+    outs_b = u32_to_torch(np.asarray(outs_batch, dtype=np.uint32), dev)
+    origins, unsats = [], []
+    for outs in outs_b:
+        origin32, unsat = gauss_blocked.rref_origin_blocked(
+            _padded_system(outs, bs, outs_b.shape[1]), COLS, gauss_blocked.K_PANEL
+        )
+        origins.append(origin32)
+        unsats.append(unsat)
+    origins_h = packing.from_u32(torch_to_u32(torch.stack(origins)))
+    unsats_h = torch.stack(unsats).cpu().numpy()
+    return [None if u else _state_words(o) for o, u in zip(origins_h, unsats_h)]
+
+
 def solve_mt19937(outs, bs: int = 32, samples: int | None = None, mode: int = 0,
                   device="cuda"):
-    """Build the system on ``device`` and solve it.  Returns the 624-tuple
-    of state words, or None when the outputs are inconsistent."""
-    if mode != 0:
-        raise NotImplementedError(
-            "mode 1 (affine solution space) is ROADMAP queue 1 item 2"
-        )
+    """Build the system on ``device`` and solve it.  Mode 0 returns the
+    624-tuple of state words, mode 1 the AffineSpace of states; None when
+    the outputs are inconsistent."""
     dev = resolve_device(device)
     if samples is None:
         samples = len(outs)
@@ -150,17 +189,8 @@ def solve_mt19937(outs, bs: int = 32, samples: int | None = None, mode: int = 0,
     for i, v in enumerate(outs):
         for jw in range(wpc):
             arr[i, jw] = (int(v) >> (32 * jw)) & 0xFFFFFFFF
-    eqs = mt19937_system_device(u32_to_torch(arr, dev), bs, samples)
-    rows = eqs.shape[0]
-    want = -(-rows // 256) * 256
-    if want != rows:
-        eqs = torch.nn.functional.pad(eqs, (0, 0, 0, want - rows))
-    origin32, unsat = gauss_blocked.rref_origin_blocked(eqs, COLS, gauss_blocked.K_PANEL)
-    if bool(unsat):
+    raw = gauss_blocked.solve_on_device(_padded_system(u32_to_torch(arr, dev), bs, samples),
+                                        COLS, mode)
+    if raw is None:
         return None
-    s = packing.words_to_int(packing.from_u32(torch_to_u32(origin32)[None, :])[0])
-    sol = []
-    for _ in range(N):
-        sol.append(s & 0xFFFFFFFF)
-        s >>= 32
-    return tuple(sol)
+    return AffineSpace(raw[0], raw[1], COLS) if mode == 1 else _state_words(raw)

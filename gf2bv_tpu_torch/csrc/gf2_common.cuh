@@ -16,3 +16,12 @@
 cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
                           const uint32_t* pf, int rows, int wp, int kw,
                           int word_lo, int const_word, cudaStream_t stream);
+
+// The same product over `batch` independent problems in ONE launch
+// (gridDim.z = batch): problem b reads and writes out/a at b*mat_stride,
+// sel at b*sel_stride and pf at b*pf_stride words.
+cudaError_t launch_rank_k_batched(uint32_t* out, const uint32_t* a, const uint32_t* sel,
+                                  const uint32_t* pf, int rows, int wp, int kw,
+                                  int word_lo, int const_word, int batch,
+                                  size_t mat_stride, size_t sel_stride,
+                                  size_t pf_stride, cudaStream_t stream);

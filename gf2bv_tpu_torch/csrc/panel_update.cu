@@ -1,13 +1,20 @@
 // GF(2) rank-K panel update for Hopper: a ^= S . PF.
 //
-// Replaces two TPU kernels of gf2bv_tpu/ops/pallas_update.py:
+// Replaces three TPU kernels of gf2bv_tpu/ops/pallas_update.py:
 //   * _mxu_kernel (panel_update_mxu, w0=None): the full-width update;
 //   * _mxu_kernel_seg (panel_update_mxu_seg): the segmented trailing update,
 //     where 128-word tile 0 updates only its const word (word 0), tiles
 //     [1, dead_tiles) are never touched and tiles [dead_tiles, nj) get the
-//     full update.
-// One CUDA kernel serves both through (word_lo, const_word); each TPU kernel
-// keeps its own C entry point, Python wrapper and launch count.
+//     full update;
+//   * _mxu_kernel_trailing (panel_update_mxu with w0): the same shape of
+//     update with the dead tiles derived from the panel start w0 at run time
+//     (tiles of tw = 128 words, or one tile of wp words when 128 does not
+//     divide wp).  The TPU kernel copies its dead tiles through; updating in
+//     place leaves them as they were, the same values.
+// One CUDA kernel serves all three through (word_lo, const_word); each TPU
+// kernel keeps its own C entry point, Python wrapper and launch count.  The
+// same kernel, with gridDim.z over a batch, is the product pf = T . arows
+// of the batched pivot-row rebuild (reconstruct.cu).
 //
 // What bounds it on the H100: the TPU form (int8 bit planes through the MXU)
 // exists for the TPU's matrix unit.  Here every output word takes K
@@ -37,8 +44,13 @@ constexpr int kTileRows = kThreadRows * kRowsPerThread;  // 128 rows per block
 __global__ void __launch_bounds__(kTileWords * kThreadRows)
 rank_k_kernel(uint32_t* out, const uint32_t* a,
               const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pf,
-              int rows, int wp, int kw, int word_lo, int const_word) {
+              int rows, int wp, int kw, int word_lo, int const_word,
+              size_t mat_stride, size_t sel_stride, size_t pf_stride) {
   extern __shared__ uint32_t smem[];
+  out += blockIdx.z * mat_stride;
+  if (a) a += blockIdx.z * mat_stride;
+  sel += blockIdx.z * sel_stride;
+  pf += blockIdx.z * pf_stride;
   const int K = 32 * kw;
   uint32_t* pf_s = smem;                         // [K][kTileWords]
   uint32_t* sel_s = smem + K * kTileWords;       // [kTileRows][kw]
@@ -103,17 +115,27 @@ rank_k_kernel(uint32_t* out, const uint32_t* a,
 
 }  // namespace
 
-cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
-                          const uint32_t* pf, int rows, int wp, int kw,
-                          int word_lo, int const_word, cudaStream_t stream) {
+cudaError_t launch_rank_k_batched(uint32_t* out, const uint32_t* a, const uint32_t* sel,
+                                  const uint32_t* pf, int rows, int wp, int kw,
+                                  int word_lo, int const_word, int batch,
+                                  size_t mat_stride, size_t sel_stride,
+                                  size_t pf_stride, cudaStream_t stream) {
   const int live = wp - word_lo;
   const int gx = (live + kTileWords - 1) / kTileWords + (const_word ? 1 : 0);
   const int gy = (rows + kTileRows - 1) / kTileRows;
-  if (gx <= 0 || gy <= 0) return cudaGetLastError();
+  if (gx <= 0 || gy <= 0 || batch <= 0) return cudaGetLastError();
   const size_t smem = (size_t)(32 * kw * kTileWords + kTileRows * kw) * sizeof(uint32_t);
-  rank_k_kernel<<<dim3(gx, gy), dim3(kTileWords, kThreadRows), smem, stream>>>(
-      out, a, sel, pf, rows, wp, kw, word_lo, const_word);
+  rank_k_kernel<<<dim3(gx, gy, batch), dim3(kTileWords, kThreadRows), smem, stream>>>(
+      out, a, sel, pf, rows, wp, kw, word_lo, const_word, mat_stride, sel_stride,
+      pf_stride);
   return cudaGetLastError();
+}
+
+cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
+                          const uint32_t* pf, int rows, int wp, int kw,
+                          int word_lo, int const_word, cudaStream_t stream) {
+  return launch_rank_k_batched(out, a, sel, pf, rows, wp, kw, word_lo, const_word, 1,
+                               0, 0, 0, stream);
 }
 
 // a ^= S . PF over every word (replaces pallas_update._mxu_kernel).
@@ -129,6 +151,20 @@ extern "C" int gf2_update_seg(uint32_t* a, const uint32_t* sel, const uint32_t* 
                               int rows, int wp, int kw, int dead_tiles,
                               cudaStream_t stream) {
   return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, 128 * dead_tiles, 1, stream);
+}
+
+// Trailing update with a runtime panel start w0 (replaces
+// pallas_update._mxu_kernel_trailing): with tw = 128 when 128 divides wp, else
+// tw = wp, and tw <= w0, word 0 and the tiles from w0's tile on are updated;
+// otherwise every word is.
+extern "C" int gf2_update_trailing(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
+                                   int rows, int wp, int kw, int w0,
+                                   cudaStream_t stream) {
+  if (w0 < 0 || w0 >= wp) return (int)cudaErrorInvalidValue;
+  const int tw = (wp % 128 == 0) ? 128 : wp;
+  const int const_only = tw <= w0;
+  const int word_lo = const_only ? (w0 / tw) * tw : 0;
+  return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, word_lo, const_only, stream);
 }
 
 extern "C" const char* gf2_error_string(int code) {

@@ -23,6 +23,14 @@
 //      (launch_rank_k in panel_update.cu), parallel over all words.
 // The forward pass is run right-looking: when row t is final it is pushed
 // into every later row k > t whose coefficient bit t is set.
+//
+// The batched rebuild (gf2_reconstruct_batched) replaces
+// gf2bv_tpu/ops/gauss_batched.py: _make_reconstruct_kernel_b (launched by
+// _reconstruct_batched): the same contract over B systems, arows (B, K, wp),
+// coeff (B, K, kw), prow (B, K) -> pf (B, K, wp), triangular window included.
+// Launch 1 runs the coefficient solve with one block per system
+// (gridDim.x = B); launch 2 is ONE batched rank-K product over all B
+// (gridDim.z = B), so the two launches per panel do not grow with B.
 
 #include "gf2_common.cuh"
 
@@ -42,6 +50,11 @@ __global__ void reconstruct_coeff_kernel(const uint32_t* __restrict__ arows,
   uint32_t* row = smem;              // [K][2*kw]
   uint32_t* cf = smem + K * rw;      // [K][kw] coefficients
   int* has = (int*)(cf + K * kw);    // [K]
+  // block b of the grid takes system b
+  arows += (size_t)blockIdx.x * K * wp;
+  coeff += (size_t)blockIdx.x * K * kw;
+  prow += (size_t)blockIdx.x * K;
+  tbits += (size_t)blockIdx.x * K * kw;
 
   for (int g = 0; g < kw; ++g) {
     row[k * rw + g] = (g == (k >> 5)) ? (1u << (k & 31)) : 0u;
@@ -85,4 +98,20 @@ extern "C" int gf2_reconstruct(const uint32_t* arows, const uint32_t* coeff,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_rank_k(pf, nullptr, tbits, arows, K, wp, kw, 0, 0, stream);
+}
+
+extern "C" int gf2_reconstruct_batched(const uint32_t* arows, const uint32_t* coeff,
+                                       const int32_t* prow, uint32_t* tbits, uint32_t* pf,
+                                       int batch, int wp, int kw, int w0,
+                                       cudaStream_t stream) {
+  if (kw < 1 || kw > kMaxKw || batch < 1) return (int)cudaErrorInvalidValue;
+  const int K = 32 * kw;
+  const size_t smem = (size_t)(K * 3 * kw) * sizeof(uint32_t) + (size_t)K * sizeof(int);
+  reconstruct_coeff_kernel<<<batch, K, smem, stream>>>(arows, coeff, prow, tbits, wp, kw,
+                                                       w0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_rank_k_batched(pf, nullptr, tbits, arows, K, wp, kw, 0, 0, batch,
+                                    (size_t)K * wp, (size_t)K * kw, (size_t)K * wp,
+                                    stream);
 }

@@ -9,8 +9,8 @@ kernel launch on a CUDA tensor does.
 
 Every C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.  The
-wrappers (ops/phase1.py, ops/panel_update.py) count their launches in
-:data:`LAUNCHES`.
+wrappers (ops/phase1.py, ops/panel_update.py, ops/gauss_batched.py) count
+their launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ NVCC_FLAGS = [
 ]
 
 # launches per kernel wrapper; reset with reset_launches()
-LAUNCHES = {"scan": 0, "reconstruct": 0, "update_full": 0, "update_seg": 0}
+LAUNCHES = {
+    "scan": 0, "reconstruct": 0, "update_full": 0, "update_seg": 0,
+    "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +49,12 @@ _SIGNATURES = {
     "gf2_update_full": [_P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, dead_tiles, stream)
     "gf2_update_seg": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, w0, stream)
+    "gf2_update_trailing": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, bT_work, batch, rows, kw, w0, cols, stream)
+    "gf2_scan_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)
+    "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

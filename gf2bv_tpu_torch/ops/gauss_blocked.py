@@ -142,17 +142,22 @@ def _pad_device(a32: torch.Tensor, k_panel: int, word_align: int = 1) -> torch.T
     return torch.nn.functional.pad(a32, (0, want_w - w32, 0, want_rows - rows))
 
 
+def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANEL):
+    """Solve a padded (rows, wp) int32 matrix where it lies.  Mode 0: the
+    trailing solver and its parity check, returning the packed origin
+    (W64,) uint64; mode 1: the full RREF, returning (origin, basis (dim, W64)
+    uint64); None when unsatisfiable."""
+    if mode == 0:
+        origin32, unsat = rref_origin_blocked(a, cols, k_panel)
+        if bool(unsat):
+            return None
+        return packing.from_u32(torch_to_u32(origin32)[None, :])[0]
+    rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False)
+    return extract_device.finalize(rref32, pof, inconsistent, cols, mode)
+
+
 def solve_blocked(eqs: np.ndarray, cols: int, mode: int, k_panel: int = K_PANEL,
                   device="cuda"):
-    """Solve packed (rows, W64) uint64 rows.  Mode 0 returns the packed
-    origin (W64,) uint64 or None when unsatisfiable."""
-    if mode != 0:
-        raise NotImplementedError(
-            "mode 1 (affine solution space) is ROADMAP queue 1 item 2"
-        )
-    dev = resolve_device(device)
-    a = u32_to_torch(_pad(eqs, k_panel, word_align=128), dev)
-    origin32, unsat = rref_origin_blocked(a, cols, k_panel)
-    if bool(unsat):
-        return None
-    return packing.from_u32(torch_to_u32(origin32)[None, :])[0]
+    """Solve packed (rows, W64) uint64 rows; results as :func:`solve_on_device`."""
+    a = u32_to_torch(_pad(eqs, k_panel, word_align=128), resolve_device(device))
+    return solve_on_device(a, cols, mode, k_panel)

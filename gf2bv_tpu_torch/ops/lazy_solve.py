@@ -1,4 +1,4 @@
-"""Device-cached solving for lazily traced systems (mode 0).
+"""Device-cached solving for lazily traced systems.
 
 Port of ``gf2bv_tpu/ops/lazy_solve.py``: the packed coefficient matrix of a
 traced zeros list is input-independent, so it is materialized once per
@@ -8,7 +8,8 @@ cached matrix (the cache survives every solve) and the blocked solver runs.
 
 Reference semantics kept: all-zero traced rows are dropped, and a dropped
 row whose affine bit is set (the literal 1) makes the system unsatisfiable
-before any device work.  Mode 1 is ROADMAP queue 1 item 2.
+before any device work.  Mode 0 runs the trailing solver with its parity
+check; mode 1 the full-width RREF and the basis extraction.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ import torch
 
 from ..core import lazy, packing
 from ..core.lazy import LazyBitVec
-from ..core.words import I32, torch_to_u32, u32_to_torch
+from ..core.words import I32, u32_to_torch
 from . import solver
-from .gauss_blocked import K_PANEL, _pad, rref_origin_blocked
+from .gauss_blocked import K_PANEL, _pad, solve_on_device
 
 _MAX_CACHED = 4  # cached structures (each one device matrix)
 _CACHE: "OrderedDict[bytes, _CachedSystem]" = OrderedDict()
@@ -87,7 +88,6 @@ def cached_system(system, zeros) -> _CachedSystem:
 
 def solve_lazy(system, zeros, mode: int, env=None):
     """The fused fast path; same return contract as ops.solver.solve."""
-    solver._check_mode(mode)
     cols = system._cols
     exprs = [z._expr for z in zeros]
     cs = cached_system(system, zeros)
@@ -101,7 +101,4 @@ def solve_lazy(system, zeros, mode: int, env=None):
     delta_dev[: delta.shape[0]] = torch.from_numpy(delta).to(cs.a_dev.device)
     a = cs.a_dev.clone()
     a[:, 0] ^= delta_dev
-    origin32, unsat = rref_origin_blocked(a, cols, K_PANEL)
-    if bool(unsat):
-        return None
-    return packing.words_to_int(packing.from_u32(torch_to_u32(origin32)[None, :])[0])
+    return solver._result(solve_on_device(a, cols, mode), cols, mode)

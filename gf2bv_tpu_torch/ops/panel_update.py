@@ -11,11 +11,15 @@ though one CUDA kernel (``csrc/panel_update.cu``) serves both:
   (word 0), tiles ``[1, dead_tiles)`` are not touched, tiles
   ``[dead_tiles, wp/128)`` get the full update; plain twin
   :func:`update_seg_plain`.
+* :func:`update_trailing` — the trailing update with a runtime panel start
+  ``w0`` (``_mxu_kernel_trailing`` via ``panel_update_mxu`` with ``w0``),
+  the batched solver's phase 2; plain twin :func:`update_trailing_plain`.
 
-Both update ``a`` IN PLACE and return it (the reference returns a new
+All three update ``a`` IN PLACE and return it (the reference returns a new
 array); callers that need the input afterwards pass a clone.  The words the
 segmented update does not touch keep their input values here, where the
-reference leaves them undefined.
+reference leaves them undefined; the trailing update's untouched words are
+copied through by the reference too, so there the whole matrix is defined.
 """
 
 from __future__ import annotations
@@ -121,4 +125,49 @@ def update_seg(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     )
     _cuda.check(rc, "segmented panel update kernel")
     _cuda.LAUNCHES["update_seg"] += 1
+    return a
+
+
+def _trailing_range(wp: int, w0: int) -> int:
+    """First word of the live tiles, or 0 for a full update.  Tiles are
+    ``tw = 128`` words (one tile of ``wp`` words when 128 does not divide
+    wp); a tile ``j >= 1`` with ``(j+1)*tw <= w0`` is left as it is, and
+    tile 0 updates only word 0 once ``tw <= w0``."""
+    if not 0 <= w0 < wp:
+        raise ValueError(f"w0={w0} outside the {wp}-word rows")
+    tw = SEG_TILE if wp % SEG_TILE == 0 else wp
+    return (w0 // tw) * tw if tw <= w0 else 0
+
+
+def update_trailing_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                          w0: int):
+    """Plain twin of :func:`update_trailing`."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    lo = _trailing_range(wp, w0)
+    if lo:
+        rank_k_xor_(a[:, :1], sel, pf[:, :1])
+    rank_k_xor_(a[:, lo:], sel, pf[:, lo:])
+    return a
+
+
+def update_trailing(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, w0: int):
+    """Trailing rank-K update for a panel starting at word ``w0``, in place:
+    tiles wholly left of ``w0`` keep their words, tile 0 then updates only
+    its const word (word 0), every other tile gets the full update."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    _trailing_range(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_trailing_plain(a, sel, pf, w0)
+    dev = a.device
+    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
+                           ("pf", pf, (32 * kw, wp))):
+        _cuda.require(t, name, shape, dev)
+    if kw > 8:
+        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    rc = _cuda.lib().gf2_update_trailing(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0),
+        _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "trailing panel update kernel")
+    _cuda.LAUNCHES["update_trailing"] += 1
     return a

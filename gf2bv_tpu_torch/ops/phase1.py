@@ -34,33 +34,42 @@ def _bitval(sh: int) -> int:
     return (1 << sh) if sh < 31 else -(1 << 31)
 
 
-def scan_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """Plain twin of the scan kernel.  bT (kw, rows), used (1, rows) int32.
-    Returns (prow (K,), used' (1, rows), cT (kw, rows))."""
-    kw, rows = bT.shape
+def scan_steps_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The scan's steps over B independent systems, plain torch: bT
+    (B, kw, rows), used (B, rows) int32.  Returns (prow (B, K), used'
+    (B, rows), cT (B, kw, rows)).  The plain twin of both scan kernels."""
+    nb, kw, rows = bT.shape
     dev = bT.device
     b = bT.clone()
-    u = used[0].clone()
+    u = used.clone()
     c = torch.zeros_like(bT)
-    prow = torch.full((K,), -1, dtype=I32, device=dev)
-    lane = torch.arange(rows, dtype=I32, device=dev)
-    big = torch.tensor(rows, dtype=I32, device=dev)
+    prow = torch.full((nb, K), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)[None, :]
+    batch = torch.arange(nb, device=dev)[:, None]
     for jj in range(K):
         gbit = 32 * w0 + jj
         if not 1 <= gbit <= cols:
             continue
         sw, sh = jj >> 5, jj & 31
-        cand = (((b[sw] >> sh) & 1) == 1) & (u == 0)
-        piv = torch.where(cand, lane, big).min()
+        cand = (((b[:, sw] >> sh) & 1) == 1) & (u == 0)  # (B, rows)
+        piv = torch.where(cand, lane, rows).amin(dim=1)  # (B,)
         has = piv < rows
-        piv_safe = torch.where(has, piv, 0)
-        prow[jj] = torch.where(has, piv, -1)
-        elim = cand & (lane != piv)
-        bpiv = b[sw:, piv_safe.long()]  # (kw - sw,)
-        b[sw:] ^= torch.where(elim[None, :], bpiv[:, None], 0)
-        c[sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
-        u = torch.where((lane == piv) & has, 1, u).to(I32)
-    return prow, u[None, :], c
+        piv_safe = torch.where(has, piv, 0).long()
+        prow[:, jj] = torch.where(has, piv, -1)
+        elim = cand & (lane != piv[:, None])
+        words = torch.arange(sw, kw, device=dev)[None, :]
+        bpiv = b[batch, words, piv_safe[:, None]]  # (B, kw - sw)
+        b[:, sw:] ^= torch.where(elim[:, None, :], bpiv[:, :, None], 0)
+        c[:, sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
+        u = torch.where((lane == piv[:, None]) & has[:, None], 1, u).to(I32)
+    return prow, u, c
+
+
+def scan_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """Plain twin of the scan kernel.  bT (kw, rows), used (1, rows) int32.
+    Returns (prow (K,), used' (1, rows), cT (kw, rows))."""
+    prow, u, c = scan_steps_plain(bT[None], used, w0, K, cols)
+    return prow[0], u, c[0]
 
 
 def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):

@@ -1,15 +1,19 @@
-"""Solver dispatch: route a packed GF(2) system to a backend (mode 0).
+"""Solver dispatch: route a packed GF(2) system to a backend.
 
-Port of ``gf2bv_tpu/ops/solver.py``.  The port has one backend, the
-panel-blocked solver (ops/gauss_blocked.py), which pads any system, so
-``None``, ``"auto"`` and ``"blocked"`` resolve to it at every size.  The
-reference's other backends are later slices and raise:
+Port of ``gf2bv_tpu/ops/solver.py``:
 
-* ``jax`` (per-pivot small-system path) — ROADMAP queue 1 item 5;
-* ``native`` (host C engine) — ROADMAP queue 1 item 5;
-* ``oracle`` (host numpy reference) — ROADMAP queue 1 item 5.
+* mode 0 -> one particular solution as a raw int, or None if unsatisfiable;
+* mode 1 -> the full affine solution space (:class:`AffineSpace`), or None.
 
-Mode 1 (the affine solution space) is ROADMAP queue 1 item 2.
+Backends:
+
+* ``blocked`` — panel-blocked elimination (ops/gauss_blocked.py), the
+  Hopper kernels' path; ``None`` and ``"auto"`` resolve to it at every size;
+* ``jax`` — the per-pivot solver (ops/gauss_jax.py), plain torch.
+
+The reference's size-based auto routing and its host backends ``native``
+(C engine) and ``oracle`` (numpy) are ROADMAP queue 1 item 5; the two
+backends raise.
 """
 
 from __future__ import annotations
@@ -18,11 +22,11 @@ import numpy as np
 import torch
 
 from ..core import packing
-from ..core.words import resolve_device, torch_to_u32
-from .gauss_blocked import K_PANEL, _pad_device, rref_origin_blocked, solve_blocked
+from ..core.affine import AffineSpace
+from ..core.words import resolve_device
+from . import gauss_blocked, gauss_jax
 
 _LATER = {
-    "jax": "ROADMAP queue 1 item 5 (per-pivot small-system solver)",
     "native": "ROADMAP queue 1 item 5 (host C engine routing)",
     "oracle": "ROADMAP queue 1 item 5 (host numpy oracle)",
 }
@@ -31,33 +35,33 @@ _LATER = {
 def _resolve_backend(backend: str | None) -> str:
     if backend in (None, "auto", "blocked"):
         return "blocked"
+    if backend == "jax":
+        return "jax"
     if backend in _LATER:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet: {_LATER[backend]}"
         )
     raise ValueError(
         f"unknown backend {backend!r}; expected one of "
-        f"{('auto', 'blocked') + tuple(_LATER)}"
+        f"{('auto', 'blocked', 'jax') + tuple(_LATER)}"
     )
 
 
-def _check_mode(mode: int) -> None:
-    if mode != 0:
-        raise NotImplementedError(
-            "mode 1 (affine solution space) is ROADMAP queue 1 item 2"
-        )
+def _result(raw, cols: int, mode: int):
+    """A solver's packed result -> the public mode-0 int / mode-1 space."""
+    if raw is None:
+        return None
+    if mode == 0:
+        return packing.words_to_int(raw)
+    return AffineSpace(raw[0], raw[1], cols)
 
 
 def solve(eqs: np.ndarray, cols: int, mode: int, backend: str | None = None,
           device="cuda"):
-    """eqs: packed (rows, W64) uint64 over 1+cols bits (bit 0 = const).
-    Mode 0: one solution as a raw int, or None if unsatisfiable."""
-    _resolve_backend(backend)
-    _check_mode(mode)
-    origin = solve_blocked(eqs, cols, mode, device=device)
-    if origin is None:
-        return None
-    return packing.words_to_int(origin)
+    """eqs: packed (rows, W64) uint64 over 1+cols bits (bit 0 = const)."""
+    if _resolve_backend(backend) == "jax":
+        return _result(gauss_jax.solve_jax(eqs, cols, mode, device=device), cols, mode)
+    return _result(gauss_blocked.solve_blocked(eqs, cols, mode, device=device), cols, mode)
 
 
 def solve_packed(eqs, cols: int, mode: int, backend: str | None = None,
@@ -67,13 +71,14 @@ def solve_packed(eqs, cols: int, mode: int, backend: str | None = None,
     if isinstance(eqs, np.ndarray):
         eqs64 = eqs if eqs.dtype == np.uint64 else packing.from_u32(eqs)
         return solve(eqs64, cols, mode, backend, device=device)
-    _resolve_backend(backend)
-    _check_mode(mode)
+    resolved = _resolve_backend(backend)
     if not isinstance(eqs, torch.Tensor) or eqs.dtype != torch.int32:
         raise TypeError("eqs must be a numpy array or an int32 torch tensor")
     resolve_device(eqs.device)
-    a = _pad_device(eqs, K_PANEL, 128)
-    origin32, unsat = rref_origin_blocked(a, cols, K_PANEL)
-    if bool(unsat):
-        return None
-    return packing.words_to_int(packing.from_u32(torch_to_u32(origin32)[None, :])[0])
+    if resolved == "blocked":
+        a = gauss_blocked._pad_device(eqs, gauss_blocked.K_PANEL, 128)
+        return _result(gauss_blocked.solve_on_device(a, cols, mode), cols, mode)
+    bucket = gauss_jax._ROW_BUCKET
+    want = max(bucket, -(-eqs.shape[0] // bucket) * bucket)
+    a = torch.nn.functional.pad(eqs, (0, 0, 0, want - eqs.shape[0]))
+    return _result(gauss_jax.solve_on_device(a, cols, mode), cols, mode)

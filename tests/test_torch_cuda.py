@@ -16,7 +16,7 @@ import torch
 
 from gf2bv_tpu_torch import LinearSystem, torch_to_u32, u32_to_torch
 from gf2bv_tpu_torch.core import packing
-from gf2bv_tpu_torch.ops import _cuda, gauss_blocked, panel_update, phase1
+from gf2bv_tpu_torch.ops import _cuda, gauss_batched, gauss_blocked, panel_update, phase1
 
 pytestmark = pytest.mark.cuda
 
@@ -91,7 +91,76 @@ def test_wrapper_counts_launches(dev):
     panel_update.update_seg(a, sel, pf, 1)
     panel_update.update_full_plain(a, sel, pf)  # the twin is not a launch
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES == {"scan": 0, "reconstruct": 0, "update_full": 1, "update_seg": 1}
+    assert _cuda.LAUNCHES == {
+        "scan": 0, "reconstruct": 0, "update_full": 1, "update_seg": 1,
+        "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
+    }
+
+
+@pytest.mark.parametrize("B,rows,K,w0,cols", [
+    (3, 512, 64, 2, 80), (4, 2048, 256, 8, 3000), (2, 20224, 256, 160, 19968),
+])
+def test_scan_batched_kernel(dev, B, rows, K, w0, cols):
+    rng = np.random.default_rng(B + rows + K)
+    bT = _rand(rng, (B, K // 32, rows), dev)
+    used = u32_to_torch((rng.random((B, rows)) < 0.3).astype(np.uint32), dev)
+    got = gauss_batched.scan_batched(bT, used, w0, K, cols)
+    want = gauss_batched.scan_batched_plain(bT, used, w0, K, cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("consistent", [True, False])
+@pytest.mark.parametrize("K,w0,cols,wp", [(64, 2, 80, 128), (256, 8, 3000, 640)])
+def test_reconstruct_batched_kernel(dev, K, w0, cols, wp, consistent):
+    rng = np.random.default_rng(K + w0 + wp + 1)
+    B, rows = 3, 1024
+    a = _rand(rng, (B, rows, wp), dev)
+    bT = a[:, :, w0 : w0 + K // 32].transpose(1, 2).contiguous()
+    used = torch.zeros((B, rows), dtype=torch.int32, device=dev)
+    prow, _, cT = gauss_batched.scan_batched(bT, used, w0, K, cols)
+    src = a if consistent else _rand(rng, (B, rows, wp), dev)
+    ps = prow.clamp(min=0).long()
+    arows = torch.gather(src, 1, ps[:, :, None].expand(B, K, wp)).contiguous()
+    coeff = torch.gather(cT, 2, ps[:, None, :].expand(B, K // 32, K)).transpose(1, 2).contiguous()
+    got = gauss_batched.reconstruct_batched(arows, coeff, prow, w0)
+    want = gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,wp,K", [(256, 200, 64), (300, 384, 256), (20224, 640, 256)])
+def test_update_trailing_kernel(dev, rows, wp, K):
+    """The whole matrix, for w0 in the first tile, on tile edges and in the
+    last tile."""
+    rng = np.random.default_rng(rows + wp + 2)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    for w0 in sorted({0, 8, 120, 128, 160, wp // 2, wp - 8} & set(range(wp))):
+        got = panel_update.update_trailing(a.clone(), sel, pf, w0)
+        want = panel_update.update_trailing_plain(a.clone(), sel, pf, w0)
+        assert torch.equal(got, want), w0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("trailing", [False, True])
+def test_rref_blocked_batched_cuda_matches_cpu(dev, trailing):
+    rng = np.random.default_rng(13)
+    cols, rows, B = 8190, 300, 3
+    mats = [packing.pack_bits(rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8), 1 + cols)
+            for _ in range(B)]
+    a32 = np.stack([gauss_blocked._pad(m, 256, word_align=128) for m in mats])
+    _cuda.reset_launches()
+    got = gauss_batched.rref_blocked_batched(u32_to_torch(a32, dev), cols, 256, trailing)
+    want = gauss_batched.rref_blocked_batched(u32_to_torch(a32, "cpu"), cols, 256, trailing)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    panels = a32.shape[2] // 8
+    key = "update_trailing" if trailing else "update_full"
+    assert _cuda.LAUNCHES["scan_batched"] == _cuda.LAUNCHES["reconstruct_batched"] == panels
+    assert _cuda.LAUNCHES[key] == B * panels
 
 
 @pytest.mark.parametrize("trailing", [False, True])
@@ -110,6 +179,35 @@ def test_rref_blocked_cuda_matches_cpu(dev, trailing):
     o_cpu, u_cpu = gauss_blocked.rref_origin_blocked(u32_to_torch(a32, "cpu"), cols)
     assert np.array_equal(torch_to_u32(o_cuda), torch_to_u32(o_cpu))
     assert bool(u_cuda) == bool(u_cpu)
+
+
+def test_batch_entry_points_cuda(dev):
+    """solve_one_batch / solve_all_batch on the card agree with the CPU."""
+    taps, n = (0, 1, 3, 4), 64
+
+    def zeros_batch(lin, seeds):
+        (s,) = lin.gens()
+        out = []
+        for seed in seeds:
+            st, sym, zs = seed, s, []
+            for _ in range(n):
+                fb, fbs = 0, 0
+                for t in taps:
+                    fb ^= (st >> t) & 1
+                    fbs = fbs ^ ((sym >> t) & 1)
+                zs.append((sym & 1) ^ (st & 1))
+                st = (st >> 1) | (fb << (n - 1))
+                sym = (sym >> 1) | (fbs << (n - 1))
+            out.append(zs)
+        return out
+
+    seeds = [random.Random(i).getrandbits(n) | 1 for i in range(3)]
+    lin = LinearSystem([n], device=dev)
+    lin_cpu = LinearSystem([n], device="cpu")
+    got = lin.solve_one_batch(zeros_batch(lin, seeds))
+    assert got == lin_cpu.solve_one_batch(zeros_batch(lin_cpu, seeds)) == [(s,) for s in seeds]
+    spaces = lin.solve_all_batch(zeros_batch(lin, seeds))
+    assert [list(g) for g in spaces] == [[(s,)] for s in seeds]
 
 
 def test_linear_system_solve_one_cuda(dev):

@@ -132,7 +132,7 @@ def test_literal_one_is_unsat():
 
 
 @pytest.mark.parametrize(
-    "name", ["solve_all", "solve_raw_space", "capture", "solve_one_sweep", "solve_one_batch"]
+    "name", ["capture", "solve_one_sweep", "solve_all_sweep", "get_mat_numpy", "get_mat_scipy"]
 )
 def test_later_surfaces_raise(name):
     lin = LinearSystem([8], device="cpu")

@@ -30,6 +30,10 @@ SCRIPT = textwrap.dedent(
     sym = MersenneTwister(list(v), **params)
     zeros = [sym() ^ o for o in outs] + [v[0] ^ 0x80000000]
     assert lin.solve_one(zeros) == tuple(state), lin.solve_one(zeros)
+    assert list(lin.solve_all(zeros)) == [tuple(state)]
+    assert lin.solve_one_batch([zeros, zeros]) == [tuple(state)] * 2
+    import gf2bv_tpu_torch.parallel.batch
+    import gf2bv_tpu_torch.ops.gauss_batched
     assert "jax" not in sys.modules
     assert not any(m == "gf2bv_tpu" or m.startswith("gf2bv_tpu.") for m in sys.modules)
     assert _cuda._lib is None
