@@ -5,13 +5,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each of the seven kernels against its plain PyTorch twin on the
+3. Holds each of the eleven kernels against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640
-   words, K = 256), and times both with CUDA events: scan, reconstruct,
-   full-width update, segmented update (dead_tiles 1..4), trailing update
-   (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
-   rebuild (4 systems); also the batched scan's time per step for 1, 4 and
-   16 systems.
+   words, K = 256, panel 20), and times both with CUDA events: scan,
+   reconstruct, full-width update, segmented update (dead_tiles 1..4),
+   trailing update (w0 in {0, 160, 320, 632}, whole matrix), batched scan
+   and batched rebuild (4 systems), two-pivot scan, min-key scan, fused
+   phase 1, fused update + scan (full and trailing); also the batched
+   scan's time per step for 1, 4 and 16 systems and each scan's time per
+   step.
 4. Drives the mode-0 main path: recovers a random.Random MT19937 state from
    624 outputs through crypto.mt_torch.solve_mt19937 and through
    LinearSystem([32]*624).solve_one, and checks the kernel launch counts of
@@ -29,6 +31,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and 320 trailing updates), LinearSystem.solve_one_batch and
    solve_mt19937_batch (both a loop of the single-system solver), each
    timed warm as recoveries per second.
+9. Engines: for each engine of the blocked solver other than the default
+   (pallas_scan2, pallas_scanm, pallas, pallas_sub with mxu; mxu_la and
+   mxu_noseg with pallas_scan), chosen through GF2BV_TPU_PHASE1/2,
+   solve_mt19937 recovers the flagship state with the engine's launch
+   counts (pallas_sub: 79 + f scans, rebuilds and updates, f its fallback
+   passes), and rref_blocked(trailing=False) gives the default engine's
+   RREF and pivot map word for word; each is timed warm (best of 3).  One
+   warm solve each under mxu_la and the default runs under torch.profiler
+   (device time by kernel).
+10. A tall system, 1248 outputs (39968 rows, padded to 40192), is recovered
+   under the default engine, pallas_scanm (which must run the 1-pivot scan:
+   the min-key packing takes fewer than 2^15 rows) and pallas_sub, each
+   timed warm.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with the per-kernel results; the last line is
@@ -37,7 +52,9 @@ object with the per-kernel results; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import random
 import subprocess
 import sys
@@ -54,6 +71,20 @@ EXPECTED_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 16, "update_s
 MODE1_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 79}
 BATCH1_LAUNCHES = {"scan_batched": 80, "reconstruct_batched": 80, "update_full": 320}
 BATCH0_LAUNCHES = {"scan_batched": 80, "reconstruct_batched": 80, "update_trailing": 320}
+# (phase1, phase2) -> launch counts of one flagship mode-0 solve (pallas_sub:
+# checked against its fallback count in check_engines)
+ENGINE_LAUNCHES = {
+    ("pallas_scan2", "mxu"): {"scan2": 79, "reconstruct": 79, "update_full": 16,
+                              "update_seg": 63},
+    ("pallas_scanm", "mxu"): {"scan_minkey": 79, "reconstruct": 79, "update_full": 16,
+                              "update_seg": 63},
+    ("pallas", "mxu"): {"phase1_fused": 79, "update_full": 16, "update_seg": 63},
+    ("pallas_sub", "mxu"): None,
+    ("pallas_scan", "mxu_la"): {"scan": 1, "reconstruct": 79, "update_scan": 79,
+                                "update_full": 79},
+    ("pallas_scan", "mxu_noseg"): {"scan": 79, "reconstruct": 79, "update_trailing": 79},
+}
+TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
@@ -70,6 +101,13 @@ KERNELS = {
                      "gf2bv_tpu/ops/gauss_batched.py:53"),
     "reconstruct_batched": ("reconstruct_batched", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                             "gf2bv_tpu/ops/gauss_batched.py:107"),
+    "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
+    "scan_minkey": ("scan_minkey", "gf2bv_tpu_torch/csrc/scan.cu",
+                    "gf2bv_tpu/ops/pallas_phase1.py:439"),
+    "phase1_fused": ("phase1_fused", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
+                     "gf2bv_tpu/ops/pallas_phase1.py:39"),
+    "update_scan": ("update_scan", "gf2bv_tpu_torch/csrc/panel_update.cu",
+                    "gf2bv_tpu/ops/pallas_update.py:514"),
 }
 
 
@@ -108,10 +146,10 @@ def require_equal(name: str, pairs) -> int:
     return err
 
 
-def mt_outputs(seed: int):
+def mt_outputs(seed: int, n: int = 624):
     rand = random.Random(seed)
     state = tuple(rand.getstate()[1][:-1])
-    return state, [rand.getrandbits(32) for _ in range(624)]
+    return state, [rand.getrandbits(32) for _ in range(n)]
 
 
 def flagship_system(dev, outs) -> torch.Tensor:
@@ -206,6 +244,7 @@ def check_kernels(dev, card: str) -> dict:
     # the trailing update's time is the mean over the four w0
     res["update_trailing"] = (max(errs), sum(ms_k) / len(ms_k), sum(ms_p) / len(ms_p))
     res.update(check_batched_kernels(dev, card, used, w0))
+    res.update(check_engine_kernels(dev, card, a, bT, used, w0, sel, pf))
     for name, (_, ms, plain_ms) in res.items():
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"at the flagship shapes ({card})")
@@ -251,6 +290,71 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
         cuda_ms(lambda: gauss_batched.reconstruct_batched(arows, coeff, prow, w0), 20),
         cuda_ms(lambda: gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0), 2),
     )
+    return res
+
+
+def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
+    """The scan variants, the fused phase 1 and the fused update + scan at
+    panel 20 of the flagship system, against their twins."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import panel_update, phase1
+
+    res = {}
+    scan_ms = {"scan": None}
+    for key, kern, twin in (("scan2", phase1.scan2, phase1.scan2_plain),
+                            ("scan_minkey", phase1.scan_minkey, phase1.scan_minkey_plain)):
+        out_k = kern(bT, used, w0, K, COLS)
+        out_p = twin(bT, used, w0, K, COLS)
+        same_as_scan = phase1.scan_plain(bT, used, w0, K, COLS)
+        require_equal(f"{key} against the 1-pivot twin", zip(out_k, same_as_scan))
+        res[key] = (require_equal(key, zip(out_k, out_p)),
+                    cuda_ms(lambda: kern(bT, used, w0, K, COLS), 5),
+                    cuda_ms(lambda: twin(bT, used, w0, K, COLS), 2))
+        scan_ms[key] = res[key][1]
+    scan_ms["scan"] = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
+    # pallas_sub's scan: the first SUBSET_ROWS unused rows
+    free = torch.nonzero(used[0] == 0)[: phase1.SUBSET_ROWS, 0]
+    bT_sub = bT[:, free].contiguous()
+    used_sub = torch.zeros((1, phase1.SUBSET_ROWS), dtype=torch.int32, device=dev)
+    scan_ms[f"scan on {phase1.SUBSET_ROWS} rows"] = cuda_ms(
+        lambda: phase1.phase1_scan_subset(bT_sub, used_sub, w0, K, COLS), 5)
+    for key, ms in scan_ms.items():
+        print(f"{key} at panel 20: {ms:.4f} ms per panel, {1000 * ms / K:.3f} us per "
+              f"column step ({card})")
+
+    out_k = phase1.phase1_panel(a, bT, used, w0, K, COLS)
+    out_p = phase1.phase1_panel_plain(a, bT, used, w0, K, COLS)
+    require_equal("phase1_fused against the split engine",
+                  zip(out_k, phase1.phase1_panel_split(a, bT, used, w0, K, COLS)))
+    split_ms = cuda_ms(lambda: phase1.phase1_panel_split(a, bT, used, w0, K, COLS), 5)
+    res["phase1_fused"] = (require_equal("phase1_fused", zip(out_k, out_p)),
+                           cuda_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 5),
+                           cuda_ms(lambda: phase1.phase1_panel_plain(a, bT, used, w0, K, COLS), 2))
+    print(f"phase1 at panel 20: fused kernel {res['phase1_fused'][1]:.4f} ms, split engine "
+          f"(scan + gathers + reconstruct) {split_ms:.4f} ms ({card})")
+
+    # the next panel's slice after this panel's update, as the look-ahead loop has it
+    kw = K // 32
+    errs, ms_k, ms_p = [], [], []
+    scratch = a.clone()
+    for w0t in (None, w0):
+        nxt = panel_update.update_full_plain(a.clone(), sel, pf) if w0t is None else \
+            panel_update.update_trailing_plain(a.clone(), sel, pf, w0t)
+        bTn = nxt[:, w0 + kw : w0 + 2 * kw].T.contiguous()
+        out_k = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        out_p = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        errs.append(require_equal(f"update_scan w0={w0t}", zip(out_k, out_p)))
+        ms_k.append(cuda_ms(lambda: panel_update.update_scan(
+            scratch, sel, pf, bTn, used, w0 + kw, COLS, w0t), 5))
+        ms_p.append(cuda_ms(lambda: panel_update.update_scan_plain(
+            scratch, sel, pf, bTn, used, w0 + kw, COLS, w0t), 2))
+        upd_ms = cuda_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
+                         else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 10)
+        print(f"update_scan w0={w0t}: fused kernel {ms_k[-1]:.4f} ms against scan "
+              f"{scan_ms['scan']:.4f} ms + update {upd_ms:.4f} ms apart; plain "
+              f"{ms_p[-1]:.4f} ms ({card})")
+    # the fused update + scan's time is the mean of the full and trailing cases
+    res["update_scan"] = (max(errs), sum(ms_k) / 2, sum(ms_p) / 2)
     return res
 
 
@@ -454,6 +558,134 @@ def check_batches(dev, card: str, single_s: float) -> dict:
             "update_trailing": mode0["update_trailing"]}
 
 
+@contextlib.contextmanager
+def engines_env(phase1: str, phase2: str):
+    """GF2BV_TPU_PHASE1/2 set for the body, as a user selects engines."""
+    saved = {k: os.environ.get(k) for k in ("GF2BV_TPU_PHASE1", "GF2BV_TPU_PHASE2")}
+    os.environ["GF2BV_TPU_PHASE1"], os.environ["GF2BV_TPU_PHASE2"] = phase1, phase2
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def warm_best(fn, want, what: str) -> float:
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fn() != want:
+            raise AssertionError(f"{what}: warm run lost the state")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def check_subset_launches(what: str) -> dict:
+    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked
+
+    f = gauss_blocked.SUBSET_FALLBACKS["panels"]
+    got = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    ok = (set(got) <= {"scan", "reconstruct", "update_full", "update_seg"}
+          and got.get("scan") == got.get("reconstruct") == 79 + f
+          and got.get("update_full", 0) + got.get("update_seg", 0) == 79 + f)
+    if not ok:
+        raise AssertionError(f"{what}: launch counts {got} with {f} fallback passes")
+    return got
+
+
+def profile_solve(solve, card: str, what: str, warm_s: float) -> None:
+    """Device time by kernel of one warm solve under torch.profiler; the
+    idle share is read against the unprofiled warm wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profile {what}: wall {1000 * wall:.1f} ms under the profiler, device self "
+          f"time {total / 1000:.1f} ms; against the warm {1000 * warm_s:.1f} ms the device "
+          f"is idle {100 * max(0.0, 1 - total / 1e6 / warm_s):.1f}% ({card})")
+    for dev_us, key, count in rows[:6]:
+        print(f"  {dev_us / 1000:9.2f} ms {count:5d}x {key[:90]}")
+
+
+def check_engines(dev, card: str) -> dict:
+    """Every other engine through solve_mt19937, with its launch counts, and
+    its full RREF against the default engine's; the tall system."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS, solve_mt19937
+    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked
+
+    state, outs = mt_outputs(SEED)
+    a = flagship_system(dev, outs)
+    rref_d, pof_d, _ = gauss_blocked.rref_blocked(a, COLS, K, False)
+    default_s = warm_best(lambda: solve_mt19937(outs, 32, device=dev), state, "default")
+    print(f"engine pallas_scan+mxu (default): solve_mt19937 warm best of 3 "
+          f"{default_s:.4f} s ({card})")
+    # the profiler's first session pays its own start-up; keep it out of the engines'
+    profile_solve(lambda: solve_mt19937(outs, 32, device=dev), card, "start-up", default_s)
+    launches = {}
+    for (p1, p2), want in ENGINE_LAUNCHES.items():
+        name = f"{p1}+{p2}"
+        with engines_env(p1, p2):
+            _cuda.reset_launches()
+            gauss_blocked.SUBSET_FALLBACKS["panels"] = 0
+            got = solve_mt19937(outs, 32, device=dev)
+            torch.cuda.synchronize()
+            counts = check_subset_launches(name) if want is None else check_launches(name, want)
+            fallbacks = gauss_blocked.SUBSET_FALLBACKS["panels"]
+            if got != state:
+                raise AssertionError(f"{name}: solve_mt19937 did not recover the state")
+            for k, v in counts.items():
+                launches[k] = max(launches.get(k, 0), v)
+            rref, pof, _ = gauss_blocked.rref_blocked(a, COLS, K, False, phase1=p1, phase2=p2)
+            require_equal(f"{name} rref_blocked against the default engine",
+                          [(rref, rref_d), (pof, pof_d)])
+            best = warm_best(lambda: solve_mt19937(outs, 32, device=dev), state, name)
+            profile_solve(lambda: solve_mt19937(outs, 32, device=dev), card, name, best)
+        extra = f", {fallbacks} subset fallback passes" if want is None else ""
+        print(f"engine {name}: state recovered, full RREF = default; launches {counts}"
+              f"{extra}; solve_mt19937 warm best of 3 {best:.4f} s ({card})")
+    profile_solve(lambda: solve_mt19937(outs, 32, device=dev), card, "pallas_scan+mxu",
+                  default_s)
+
+    tstate, touts = mt_outputs(SEED + 7, TALL_SAMPLES)
+    for p1 in ("pallas_scan", "pallas_scanm", "pallas_sub"):
+        with engines_env(p1, "mxu"):
+            _cuda.reset_launches()
+            gauss_blocked.SUBSET_FALLBACKS["panels"] = 0
+            got = solve_mt19937(touts, 32, samples=TALL_SAMPLES, device=dev)
+            torch.cuda.synchronize()
+            if p1 == "pallas_sub":
+                counts = check_subset_launches("tall pallas_sub")
+            else:  # pallas_scanm runs the 1-pivot scan at 40192 rows
+                counts = check_launches(f"tall {p1}", {
+                    "scan": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+            if got != tstate:
+                raise AssertionError(f"tall system, {p1}: state not recovered")
+            best = warm_best(lambda: solve_mt19937(touts, 32, samples=TALL_SAMPLES, device=dev),
+                             tstate, f"tall {p1}")
+        print(f"tall system ({TALL_SAMPLES} outputs, 40192 x 640 words), {p1}+mxu: state "
+              f"recovered; launches {counts}, {gauss_blocked.SUBSET_FALLBACKS['panels']} "
+              f"subset fallback passes; solve_mt19937 warm best of 3 {best:.4f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -477,8 +709,11 @@ def main() -> int:
     res = check_kernels(dev, card)
     launches, single_s = check_main_path(dev, card)
     check_mode1(dev, card)
-    # the new kernels' counts come from the batch phases that drive them
+    # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
+    engine_launches = check_engines(dev, card)
+    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan"):
+        launches[key] = engine_launches[key]
 
     kernels = []
     for name, (key, source, replaces) in KERNELS.items():

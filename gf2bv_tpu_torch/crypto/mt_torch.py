@@ -164,10 +164,12 @@ def solve_mt19937_batch(outs_batch, bs: int = 32, device="cuda"):
         raise ValueError("solve_mt19937_batch takes 1 <= bs <= 32; loop solve_mt19937 instead")
     dev = resolve_device(device)
     outs_b = u32_to_torch(np.asarray(outs_batch, dtype=np.uint32), dev)
+    phase1, phase2 = gauss_blocked._pick_engines(_wp())
     origins, unsats = [], []
     for outs in outs_b:
         origin32, unsat = gauss_blocked.rref_origin_blocked(
-            _padded_system(outs, bs, outs_b.shape[1]), COLS, gauss_blocked.K_PANEL
+            _padded_system(outs, bs, outs_b.shape[1]), COLS, gauss_blocked.K_PANEL,
+            phase1=phase1, phase2=phase2,
         )
         origins.append(origin32)
         unsats.append(unsat)
@@ -189,6 +191,7 @@ def solve_mt19937(outs, bs: int = 32, samples: int | None = None, mode: int = 0,
     for i, v in enumerate(outs):
         for jw in range(wpc):
             arr[i, jw] = (int(v) >> (32 * jw)) & 0xFFFFFFFF
+    # engines from gauss_blocked._pick_engines, read per call
     raw = gauss_blocked.solve_on_device(_padded_system(u32_to_torch(arr, dev), bs, samples),
                                         COLS, mode)
     if raw is None:

@@ -1,6 +1,6 @@
 // GF(2) rank-K panel update for Hopper: a ^= S . PF.
 //
-// Replaces three TPU kernels of gf2bv_tpu/ops/pallas_update.py:
+// Replaces four TPU kernels of gf2bv_tpu/ops/pallas_update.py:
 //   * _mxu_kernel (panel_update_mxu, w0=None): the full-width update;
 //   * _mxu_kernel_seg (panel_update_mxu_seg): the segmented trailing update,
 //     where 128-word tile 0 updates only its const word (word 0), tiles
@@ -10,11 +10,14 @@
 //     update with the dead tiles derived from the panel start w0 at run time
 //     (tiles of tw = 128 words, or one tile of wp words when 128 does not
 //     divide wp).  The TPU kernel copies its dead tiles through; updating in
-//     place leaves them as they were, the same values.
-// One CUDA kernel serves all three through (word_lo, const_word); each TPU
-// kernel keeps its own C entry point, Python wrapper and launch count.  The
-// same kernel, with gridDim.z over a batch, is the product pf = T . arows
-// of the batched pivot-row rebuild (reconstruct.cu).
+//     place leaves them as they were, the same values;
+//   * _make_mxu_scan_kernel (panel_update_mxu_scan, the "mxu_la" engine): the
+//     trailing or full update of panel t fused with the 1-pivot scan of
+//     panel t+1 (gf2_update_scan, below).
+// One tile body (rank_k_tile) serves all four through (word_lo, const_word);
+// each TPU kernel keeps its own C entry point, Python wrapper and launch
+// count.  The same body, with gridDim.z over a batch, is the product
+// pf = T . arows of the pivot-row rebuilds (reconstruct.cu).
 //
 // What bounds it on the H100: the TPU form (int8 bit planes through the MXU)
 // exists for the TPU's matrix unit.  Here every output word takes K
@@ -31,8 +34,18 @@
 //   * the matrix is read and written exactly once per update.
 // Four-Russians tables or an int8 tensor-core bit-plane GEMM are later
 // optimisations, to be chosen by measurement.
+//
+// The fused update + scan: on the TPU the two phases could only overlap
+// inside one kernel, since its kernels run one after another on one core.
+// On Hopper the scan is one latency-bound 1024-thread block on one SM while
+// the update wants the whole card, so the launch holds both: block 0 runs
+// the scan (scan_system.cuh, on its own kernel parameters, as gf2_scan does)
+// and blocks 1.. run 256-row x 32-word update tiles on the other SMs.  The
+// two parts share no data (the scan reads the separate, already-updated next
+// slice bTn; the update writes a), so no block waits on another, and the
+// scan block, having the lowest index, is dispatched first.
 
-#include "gf2_common.cuh"
+#include "scan_system.cuh"
 
 namespace {
 
@@ -41,34 +54,34 @@ constexpr int kThreadRows = 8;            // thread rows per block
 constexpr int kRowsPerThread = 16;        // rows held in registers per thread
 constexpr int kTileRows = kThreadRows * kRowsPerThread;  // 128 rows per block
 
-__global__ void __launch_bounds__(kTileWords * kThreadRows)
-rank_k_kernel(uint32_t* out, const uint32_t* a,
-              const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pf,
-              int rows, int wp, int kw, int word_lo, int const_word,
-              size_t mat_stride, size_t sel_stride, size_t pf_stride) {
-  extern __shared__ uint32_t smem[];
-  out += blockIdx.z * mat_stride;
-  if (a) a += blockIdx.z * mat_stride;
-  sel += blockIdx.z * sel_stride;
-  pf += blockIdx.z * pf_stride;
+// One 32-word x (kThreadRowsT * kRowsPerThreadT)-row tile of the product:
+// thread (tx, ty) owns word column tx and rows ty + kThreadRowsT * r.  The
+// const block updates word 0 only, one row per thread.  smem holds PF's
+// column strip [K][kTileWords] and the tile's selector rows.
+template <int kThreadRowsT, int kRowsPerThreadT>
+__device__ __forceinline__ void
+rank_k_tile(uint32_t* out, const uint32_t* a, const uint32_t* __restrict__ sel,
+            const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
+            bool const_block, int bx, int by, int tx, int ty, uint32_t* smem) {
+  constexpr int kTileRowsT = kThreadRowsT * kRowsPerThreadT;
+  constexpr int nthreads = kTileWords * kThreadRowsT;
   const int K = 32 * kw;
   uint32_t* pf_s = smem;                         // [K][kTileWords]
-  uint32_t* sel_s = smem + K * kTileWords;       // [kTileRows][kw]
-  const int tid = threadIdx.y * kTileWords + threadIdx.x;
-  const int nthreads = kTileWords * kThreadRows;
-  const int row0 = blockIdx.y * kTileRows;
+  uint32_t* sel_s = smem + K * kTileWords;       // [kTileRowsT][kw]
+  const int tid = ty * kTileWords + tx;
+  const int row0 = by * kTileRowsT;
 
-  for (int i = tid; i < kTileRows * kw; i += nthreads) {
+  for (int i = tid; i < kTileRowsT * kw; i += nthreads) {
     const int r = row0 + i / kw;
     sel_s[i] = r < rows ? sel[(size_t)r * kw + (i % kw)] : 0u;
   }
 
-  if (const_word && blockIdx.x == gridDim.x - 1) {
+  if (const_block) {
     // const-word block: word 0 only, one row per thread
     for (int t = tid; t < K; t += nthreads) pf_s[t] = pf[(size_t)t * wp];
     __syncthreads();
     const int r = row0 + tid;
-    if (tid < kTileRows && r < rows) {
+    if (tid < kTileRowsT && r < rows) {
       uint32_t acc = a ? a[(size_t)r * wp] : 0u;
       for (int g = 0; g < kw; ++g) {
         const uint32_t s = sel_s[tid * kw + g];
@@ -80,37 +93,77 @@ rank_k_kernel(uint32_t* out, const uint32_t* a,
     return;
   }
 
-  const int wbase = word_lo + blockIdx.x * kTileWords;
+  const int wbase = word_lo + bx * kTileWords;
   for (int i = tid; i < K * kTileWords; i += nthreads) {
     const int w = wbase + (i % kTileWords);
     pf_s[i] = w < wp ? pf[(size_t)(i / kTileWords) * wp + w] : 0u;
   }
   __syncthreads();
 
-  const int w = wbase + threadIdx.x;
-  uint32_t acc[kRowsPerThread];
+  const int w = wbase + tx;
+  uint32_t acc[kRowsPerThreadT];
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + threadIdx.y + kThreadRows * r;
+  for (int r = 0; r < kRowsPerThreadT; ++r) {
+    const int row = row0 + ty + kThreadRowsT * r;
     acc[r] = (a && row < rows && w < wp) ? a[(size_t)row * wp + w] : 0u;
   }
   for (int g = 0; g < kw; ++g) {
-    uint32_t s[kRowsPerThread];
+    uint32_t s[kRowsPerThreadT];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
-      s[r] = sel_s[(threadIdx.y + kThreadRows * r) * kw + g];
+    for (int r = 0; r < kRowsPerThreadT; ++r)
+      s[r] = sel_s[(ty + kThreadRowsT * r) * kw + g];
 #pragma unroll
     for (int b = 0; b < 32; ++b) {
-      const uint32_t p = pf_s[(32 * g + b) * kTileWords + threadIdx.x];
+      const uint32_t p = pf_s[(32 * g + b) * kTileWords + tx];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) acc[r] ^= p & (0u - ((s[r] >> b) & 1u));
+      for (int r = 0; r < kRowsPerThreadT; ++r) acc[r] ^= p & (0u - ((s[r] >> b) & 1u));
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + threadIdx.y + kThreadRows * r;
+  for (int r = 0; r < kRowsPerThreadT; ++r) {
+    const int row = row0 + ty + kThreadRowsT * r;
     if (row < rows && w < wp) out[(size_t)row * wp + w] = acc[r];
   }
+}
+
+__global__ void __launch_bounds__(kTileWords * kThreadRows)
+rank_k_kernel(uint32_t* out, const uint32_t* a,
+              const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pf,
+              int rows, int wp, int kw, int word_lo, int const_word,
+              size_t mat_stride, size_t sel_stride, size_t pf_stride) {
+  extern __shared__ uint32_t smem[];
+  out += blockIdx.z * mat_stride;
+  if (a) a += blockIdx.z * mat_stride;
+  sel += blockIdx.z * sel_stride;
+  pf += blockIdx.z * pf_stride;
+  rank_k_tile<kThreadRows, kRowsPerThread>(
+      out, a, sel, pf, rows, wp, kw, word_lo, const_word && blockIdx.x == gridDim.x - 1,
+      blockIdx.x, blockIdx.y, threadIdx.x, threadIdx.y, smem);
+}
+
+// The fused update + scan (gf2_update_scan): 1024-thread blocks, so the
+// update tiles are 32 words x 256 rows (8 rows per thread keeps the tile
+// under the 64 registers a thread of a 1024-thread block may use).
+constexpr int kUsThreadRows = gf2::kScanThreads / kTileWords;  // 32
+constexpr int kUsRowsPerThread = 8;
+constexpr int kUsTileRows = kUsThreadRows * kUsRowsPerThread;   // 256
+
+__global__ void __launch_bounds__(gf2::kScanThreads)
+update_scan_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
+                   const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
+                   int const_word, int gx, const uint32_t* __restrict__ bTn,
+                   const int32_t* __restrict__ used_in, int32_t* __restrict__ prow,
+                   int32_t* used, uint32_t* cT, uint32_t* bT, int w0n, int cols) {
+  if (blockIdx.x == 0) {  // the scan block: first in the grid, so it starts first
+    gf2::scan_system(bTn, used_in, prow, used, cT, bT, rows, kw, w0n, cols);
+    return;
+  }
+  extern __shared__ uint32_t smem[];
+  const int b = blockIdx.x - 1;
+  const int bx = b % gx, by = b / gx;
+  rank_k_tile<kUsThreadRows, kUsRowsPerThread>(
+      a, a, sel, pf, rows, wp, kw, word_lo, const_word && bx == gx - 1, bx, by,
+      threadIdx.x % kTileWords, threadIdx.x / kTileWords, smem);
 }
 
 }  // namespace
@@ -157,14 +210,41 @@ extern "C" int gf2_update_seg(uint32_t* a, const uint32_t* sel, const uint32_t* 
 // pallas_update._mxu_kernel_trailing): with tw = 128 when 128 divides wp, else
 // tw = wp, and tw <= w0, word 0 and the tiles from w0's tile on are updated;
 // otherwise every word is.
+static void trailing_range(int wp, int w0, int* word_lo, int* const_only) {
+  const int tw = (wp % 128 == 0) ? 128 : wp;
+  *const_only = tw <= w0;
+  *word_lo = *const_only ? (w0 / tw) * tw : 0;
+}
+
 extern "C" int gf2_update_trailing(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
                                    int rows, int wp, int kw, int w0,
                                    cudaStream_t stream) {
   if (w0 < 0 || w0 >= wp) return (int)cudaErrorInvalidValue;
-  const int tw = (wp % 128 == 0) ? 128 : wp;
-  const int const_only = tw <= w0;
-  const int word_lo = const_only ? (w0 / tw) * tw : 0;
+  int word_lo, const_only;
+  trailing_range(wp, w0, &word_lo, &const_only);
   return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, word_lo, const_only, stream);
+}
+
+// The update of panel t fused with the scan of panel t+1 (replaces
+// pallas_update._make_mxu_scan_kernel, launched by panel_update_mxu_scan):
+// the trailing update (w0 >= 0, as gf2_update_trailing) or the full update
+// (w0 < 0) of a, and in the same launch the 1-pivot scan (gf2_scan) of bTn,
+// the next panel's slice already carrying this update, at word w0n.
+extern "C" int gf2_update_scan(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
+                               int rows, int wp, int kw, int w0, const uint32_t* bTn,
+                               const int32_t* used_in, int32_t* prow, int32_t* used_out,
+                               uint32_t* cT, uint32_t* bT_work, int w0n, int cols,
+                               cudaStream_t stream) {
+  if (kw < 1 || kw > gf2::kMaxKw || w0 >= wp || rows < 1) return (int)cudaErrorInvalidValue;
+  int word_lo = 0, const_only = 0;
+  if (w0 >= 0) trailing_range(wp, w0, &word_lo, &const_only);
+  const int gx = (wp - word_lo + kTileWords - 1) / kTileWords + const_only;
+  const int gy = (rows + kUsTileRows - 1) / kUsTileRows;
+  const size_t smem = (size_t)(32 * kw * kTileWords + kUsTileRows * kw) * sizeof(uint32_t);
+  update_scan_kernel<<<1 + gx * gy, gf2::kScanThreads, smem, stream>>>(
+      a, sel, pf, rows, wp, kw, word_lo, const_only, gx, bTn, used_in, prow, used_out, cT,
+      bT_work, w0n, cols);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gf2_error_string(int code) {

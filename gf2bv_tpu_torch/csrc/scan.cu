@@ -1,25 +1,18 @@
-// Forward pivot scan of one K-column panel (phase 1, first half).
+// Forward pivot scans of one K-column panel (phase 1, first half).
 //
-// Replaces gf2bv_tpu/ops/pallas_phase1.py: _make_scan_kernel (launched by
-// _call_scan_kernel, variant "", from phase1_panel_split).  Same contract:
-//   in : bT (kw, rows) transposed panel slice, used (rows,) 0/1, w0, cols
-//   out: prow (K,) pivot row per panel column (-1 = free or invalid),
-//        used' (rows,), cT (kw, rows) elimination coefficients
-// For each panel column jj (packed bit 32*w0 + jj, valid in 1..cols) the
-// pivot is the LOWEST unused row index with the bit set (the reference's
-// rule: any other rule permutes rows and breaks bit-exact comparisons).  Its
-// slice words >= jj's word are XORed into every other candidate, the
-// candidate's coefficient bit jj is set in cT, and the pivot is marked used.
+// gf2_scan replaces gf2bv_tpu/ops/pallas_phase1.py: _make_scan_kernel
+// (launched by _call_scan_kernel, variant "", from phase1_panel_split).  Its
+// body, scan_system, and the contract every scan here keeps are in
+// scan_system.cuh: in bT (kw, rows), used (rows,), w0, cols; out prow (K,),
+// used' (rows,), cT (kw, rows); the pivot of a column is the lowest unused row
+// with the bit set.
 //
-// What bounds it on the H100: latency.  K = 256 dependent steps per panel
-// (about 20k per flagship solve), each a block-wide min-reduction followed
-// by an elimination sweep; the arithmetic is negligible.  bT + cT at the
-// flagship shape are 1.3 MB, beyond shared memory, so this first version is
-// ONE block of 1024 threads striding over the rows with the state in global
-// memory (L2-resident).  Each thread owns the rows r = tid (mod 1024), so a
-// step needs no cross-thread hazard handling beyond the two barriers of its
-// reduction (warp __reduce_min_sync, then one warp over the 32 warp minima).
-// A candidate search stops at a thread's first hit: its rows ascend.
+// What bounds a scan on the H100: latency.  K = 256 dependent steps per panel
+// (about 20k per flagship solve), each a block-wide min-reduction followed by
+// an elimination sweep; the arithmetic is negligible.  bT + cT at the flagship
+// shape are 1.3 MB, beyond shared memory, so each scan is ONE block of 1024
+// threads striding over the rows with the state in global memory
+// (L2-resident).
 //
 // The batched scan (gf2_scan_batched) replaces
 // gf2bv_tpu/ops/gauss_batched.py: _make_scan_kernel_b (launched by
@@ -31,31 +24,150 @@
 // its own SM: B steps progress in parallel, and the per-system working set
 // (bT in + bT work + cT + used, about 2 MB at the flagship shape) stays in
 // the 50 MB L2 for B up to ~24.  prow is written as (B, K) directly.
+//
+// gf2_scan2 replaces pallas_phase1.py: _make_scan_kernel2 (variant "2"): two
+// pivots per sequential step.  The second column's candidates see the first
+// pivot's elimination virtually (one bit of the first pivot row), the second
+// pivot row is corrected by the first, and one sweep applies both
+// eliminations.  A pair of columns costs two elections but one sweep, where
+// the 1-pivot scan spends two of each.  The second pivot's row is never
+// rewritten in the working slice (it is used from this step on and never read
+// again), so the loads of its words race with no write.
+//
+// gf2_scan_minkey replaces pallas_phase1.py: _make_scan_kernel_minkey
+// (variant "m"): election and extraction in one reduction round.  Each thread
+// forms int32 keys (row << 16 | 16-bit half) of its first candidate for every
+// live slice word; the 2*(kw - sw) minima, independent __reduce_min_sync
+// reductions issued together, all land on the lowest candidate row and carry
+// its words.  The pivot row's words then come out of the reduction instead of
+// a dependent load after it.  The no-candidate sentinel rows << 16 needs
+// rows < 2^15; the wrapper sends taller systems to gf2_scan, as the
+// reference's _call_scan_kernel does.
 
-#include "gf2_common.cuh"
+#include "scan_system.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxKw = 8;  // K <= 256
+using gf2::kMaxKw;
+using gf2::kScanThreads;
 
-// The scan of one system by one block of kThreads threads.
-__device__ __forceinline__ void
-scan_system(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
+// One system; the pointers stay kernel parameters.  (Offsetting them by
+// blockIdx.x here as well cost 17% per step: 2.25 against 1.93 ms per
+// flagship panel on the H100.)
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
             int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
             int rows, int kw, int w0, int cols) {
-  __shared__ int warp_min[kThreads / 32];
+  gf2::scan_system(bT_in, used_in, prow, used, cT, bT, rows, kw, w0, cols);
+}
+
+// B systems; block b takes system b.
+__global__ void __launch_bounds__(kScanThreads)
+scan_batched_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
+                    int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
+                    int rows, int kw, int w0, int cols) {
+  const size_t slice = (size_t)kw * rows;  // words of one system's bT / cT
+  const size_t b = blockIdx.x;
+  gf2::scan_system(bT_in + b * slice, used_in + b * rows, prow + b * 32 * kw,
+                   used + b * rows, cT + b * slice, bT + b * slice, rows, kw, w0, cols);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan2_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
+             int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
+             int rows, int kw, int w0, int cols) {
+  __shared__ int warp_min[kScanThreads / 32];
   __shared__ int piv_s;
   const int tid = threadIdx.x;
-  const int nwarps = blockDim.x / 32;
+  gf2::scan_init(bT_in, used_in, used, cT, bT, rows, kw);
 
-  for (int r = tid; r < rows; r += blockDim.x) {
-    used[r] = used_in[r];
-    for (int g = 0; g < kw; ++g) {
-      bT[(size_t)g * rows + r] = bT_in[(size_t)g * rows + r];
-      cT[(size_t)g * rows + r] = 0u;
+  const int K = 32 * kw;
+  for (int jj0 = 0; jj0 < K; jj0 += 2) {
+    const long long g0 = 32LL * w0 + jj0;
+    const bool valid0 = g0 >= 1 && g0 <= cols;
+    const bool valid1 = g0 + 1 >= 1 && g0 + 1 <= cols;
+    const int sw = jj0 >> 5;
+    const int sh0 = jj0 & 31;  // even: both columns share the word sw
+    const uint32_t bit0 = 1u << sh0, bit1 = 2u << sh0;
+    const uint32_t* col = bT + (size_t)sw * rows;
+
+    // first column
+    int piv0 = rows;
+    if (valid0)  // block-uniform
+      piv0 = gf2::block_min(gf2::first_candidate(col, used, bit0, rows), rows, warp_min, &piv_s);
+    const bool has0 = piv0 < rows;
+    uint32_t bp0[kMaxKw];
+#pragma unroll
+    for (int g = 0; g < kMaxKw; ++g)
+      bp0[g] = (has0 && g >= sw && g < kw) ? bT[(size_t)g * rows + piv0] : 0u;
+    const bool p0b1 = has0 && (col[piv0] & bit1);  // pivot 0's bit in column 1
+
+    // second column, with pivot 0's elimination applied virtually
+    int piv1 = rows;
+    if (valid1) {  // block-uniform
+      int mine = rows;
+      for (int r = tid; r < rows; r += blockDim.x) {
+        if (used[r] || r == piv0) continue;
+        const uint32_t w = col[r];
+        const bool elim0 = valid0 && (w & bit0);  // r is a column-0 candidate, not its pivot
+        if (((w & bit1) != 0) != (elim0 && p0b1)) {
+          mine = r;
+          break;
+        }
+      }
+      piv1 = gf2::block_min(mine, rows, warp_min, &piv_s);
+    }
+    const bool has1 = piv1 < rows;
+    if (tid == 0) {
+      prow[jj0] = has0 ? piv0 : -1;
+      prow[jj0 + 1] = has1 ? piv1 : -1;
+    }
+    if (!has0 && !has1) continue;  // block-uniform
+
+    // pivot 1's row, corrected by pivot 0 where pivot 0 eliminates it
+    uint32_t bp1[kMaxKw];
+    const bool e0p1 = has1 && valid0 && (col[has1 ? piv1 : 0] & bit0);
+#pragma unroll
+    for (int g = 0; g < kMaxKw; ++g)
+      bp1[g] = (has1 && g >= sw && g < kw)
+                   ? bT[(size_t)g * rows + piv1] ^ (e0p1 ? bp0[g] : 0u)
+                   : 0u;
+
+    // one fused sweep: both eliminations, both coefficient bits
+    for (int r = tid; r < rows; r += blockDim.x) {
+      if (used[r] || r == piv0) {
+        if (r == piv0) used[r] = 1;
+        continue;
+      }
+      const uint32_t w = col[r];
+      const bool e0 = valid0 && (w & bit0);
+      if (r == piv1) {  // used from here on: only its coefficient bit matters
+        if (e0) cT[(size_t)sw * rows + r] ^= bit0;
+        used[r] = 1;
+        continue;
+      }
+      const bool e1 = valid1 && (((w & bit1) != 0) != (e0 && p0b1));
+      if (!e0 && !e1) continue;
+#pragma unroll
+      for (int g = 0; g < kMaxKw; ++g)
+        if (g >= sw && g < kw)
+          bT[(size_t)g * rows + r] ^= (e0 ? bp0[g] : 0u) ^ (e1 ? bp1[g] : 0u);
+      cT[(size_t)sw * rows + r] ^= (e0 ? bit0 : 0u) | (e1 ? bit1 : 0u);
     }
   }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan_minkey_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
+                   int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
+                   int rows, int kw, int w0, int cols) {
+  __shared__ int warp_keys[kScanThreads / 32][2 * kMaxKw];
+  __shared__ int keys_s[2 * kMaxKw];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x / 32;
+  const int none = rows << 16;  // sentinel above every candidate's key
+  gf2::scan_init(bT_in, used_in, used, cT, bT, rows, kw);
 
   const int K = 32 * kw;
   for (int jj = 0; jj < K; ++jj) {
@@ -68,66 +180,44 @@ scan_system(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used
     const uint32_t bit = 1u << (jj & 31);
     const uint32_t* col = bT + (size_t)sw * rows;
 
-    int mine = rows;
-    for (int r = tid; r < rows; r += blockDim.x) {
-      if (!used[r] && (col[r] & bit)) {
-        mine = r;
-        break;
+    const int mine = gf2::first_candidate(col, used, bit, rows);
+    // keys of this thread's candidate, one lo and one hi per live word
+    const bool cand = mine < rows;
+    int key[2 * kMaxKw];
+#pragma unroll
+    for (int g = 0; g < kMaxKw; ++g) {
+      const uint32_t v = (cand && g >= sw && g < kw) ? bT[(size_t)g * rows + mine] : 0u;
+      key[2 * g] = cand ? (mine << 16) | (int)(v & 0xFFFFu) : none;
+      key[2 * g + 1] = cand ? (mine << 16) | (int)(v >> 16) : none;
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * kMaxKw; ++i) {
+      if (i >= 2 * sw && i < 2 * kw) {  // warp-uniform
+        const int m = __reduce_min_sync(0xffffffffu, key[i]);
+        if (lane == 0) warp_keys[warp][i] = m;
       }
     }
-    mine = __reduce_min_sync(0xffffffffu, mine);
-    if ((tid & 31) == 0) warp_min[tid >> 5] = mine;
     __syncthreads();
-    if (tid < 32) {
-      int v = tid < nwarps ? warp_min[tid] : rows;
-      v = __reduce_min_sync(0xffffffffu, v);
-      if (tid == 0) {
-        piv_s = v;
-        prow[jj] = v < rows ? v : -1;
-      }
+    // warp i reduces key i over the warps' minima
+    if (warp >= 2 * sw && warp < 2 * kw) {
+      int m = lane < nwarps ? warp_keys[lane][warp] : none;
+      m = __reduce_min_sync(0xffffffffu, m);
+      if (lane == 0) keys_s[warp] = m;
     }
     __syncthreads();
-    const int piv = piv_s;
+    const int piv = keys_s[2 * sw] >> 16;  // rows when there is no candidate
+    if (tid == 0) prow[jj] = piv < rows ? piv : -1;
     if (piv >= rows) continue;  // block-uniform
 
     uint32_t bp[kMaxKw];
 #pragma unroll
     for (int g = 0; g < kMaxKw; ++g)
-      bp[g] = (g >= sw && g < kw) ? bT[(size_t)g * rows + piv] : 0u;
-
-    for (int r = tid; r < rows; r += blockDim.x) {
-      if (r == piv) {
-        used[r] = 1;
-        continue;
-      }
-      if (used[r] || !(col[r] & bit)) continue;
-#pragma unroll
-      for (int g = 0; g < kMaxKw; ++g)
-        if (g >= sw && g < kw) bT[(size_t)g * rows + r] ^= bp[g];
-      cT[(size_t)sw * rows + r] ^= bit;
-    }
+      bp[g] = (g >= sw && g < kw)
+                  ? ((uint32_t)(keys_s[2 * g + 1] & 0xFFFF) << 16) |
+                        (uint32_t)(keys_s[2 * g] & 0xFFFF)
+                  : 0u;
+    gf2::eliminate(col, used, cT, bT, bp, bit, sw, piv, rows, kw);
   }
-}
-
-// One system; the pointers stay kernel parameters.  (Offsetting them by
-// blockIdx.x here as well cost 17% per step: 2.25 against 1.93 ms per
-// flagship panel on the H100.)
-__global__ void __launch_bounds__(kThreads)
-scan_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
-            int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
-            int rows, int kw, int w0, int cols) {
-  scan_system(bT_in, used_in, prow, used, cT, bT, rows, kw, w0, cols);
-}
-
-// B systems; block b takes system b.
-__global__ void __launch_bounds__(kThreads)
-scan_batched_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
-                    int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
-                    int rows, int kw, int w0, int cols) {
-  const size_t slice = (size_t)kw * rows;  // words of one system's bT / cT
-  const size_t b = blockIdx.x;
-  scan_system(bT_in + b * slice, used_in + b * rows, prow + b * 32 * kw, used + b * rows,
-              cT + b * slice, bT + b * slice, rows, kw, w0, cols);
 }
 
 }  // namespace
@@ -136,8 +226,8 @@ extern "C" int gf2_scan(const uint32_t* bT_in, const int32_t* used_in, int32_t* 
                         int32_t* used_out, uint32_t* cT, uint32_t* bT_work, int rows,
                         int kw, int w0, int cols, cudaStream_t stream) {
   if (kw < 1 || kw > kMaxKw) return (int)cudaErrorInvalidValue;
-  scan_kernel<<<1, kThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT, bT_work,
-                                          rows, kw, w0, cols);
+  scan_kernel<<<1, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT, bT_work,
+                                              rows, kw, w0, cols);
   return (int)cudaGetLastError();
 }
 
@@ -146,7 +236,25 @@ extern "C" int gf2_scan_batched(const uint32_t* bT_in, const int32_t* used_in,
                                 uint32_t* bT_work, int batch, int rows, int kw, int w0,
                                 int cols, cudaStream_t stream) {
   if (kw < 1 || kw > kMaxKw || batch < 1) return (int)cudaErrorInvalidValue;
-  scan_batched_kernel<<<batch, kThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT,
-                                                      bT_work, rows, kw, w0, cols);
+  scan_batched_kernel<<<batch, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out,
+                                                          cT, bT_work, rows, kw, w0, cols);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gf2_scan2(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
+                         int32_t* used_out, uint32_t* cT, uint32_t* bT_work, int rows,
+                         int kw, int w0, int cols, cudaStream_t stream) {
+  if (kw < 1 || kw > kMaxKw) return (int)cudaErrorInvalidValue;
+  scan2_kernel<<<1, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT, bT_work,
+                                               rows, kw, w0, cols);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gf2_scan_minkey(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
+                               int32_t* used_out, uint32_t* cT, uint32_t* bT_work, int rows,
+                               int kw, int w0, int cols, cudaStream_t stream) {
+  if (kw < 1 || kw > kMaxKw || rows >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  scan_minkey_kernel<<<1, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT,
+                                                     bT_work, rows, kw, w0, cols);
   return (int)cudaGetLastError();
 }

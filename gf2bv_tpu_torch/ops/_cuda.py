@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written Hopper kernels.
 
-The CUDA sources live in ``gf2bv_tpu_torch/csrc/*.cu``.  On first use they
-are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library with a plain
+The CUDA sources live in ``gf2bv_tpu_torch/csrc/*.cu``.  On first use each
+is compiled by its own ``nvcc`` process for ``sm_90a`` (all started
+together), and the objects are linked into ONE shared library with a plain
 C interface (``build/`` at the repository root, named by a hash of the
-sources and flags so an edited source never reuses a stale build) and loaded
+sources and flags so an edited source never reuses a stale build), loaded
 with ``ctypes``.  Importing the package never runs ``nvcc``; only the first
 kernel launch on a CUDA tensor does.
 
@@ -29,13 +30,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # launches per kernel wrapper; reset with reset_launches()
 LAUNCHES = {
     "scan": 0, "reconstruct": 0, "update_full": 0, "update_seg": 0,
     "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
+    "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
 }
 
 _P = ctypes.c_void_p
@@ -55,6 +57,14 @@ _SIGNATURES = {
     "gf2_scan_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)
     "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
+    "gf2_scan2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_scan_minkey": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols, stream)
+    "gf2_phase1_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, w0 (-1: full), bTn, used_in, prow, used_out, cT,
+    #  bT_work, w0n, cols, stream)
+    "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -76,26 +86,52 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run(procs: list) -> None:
+    """Wait for every (cmd, Popen); raise with the output of the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into build/ (once per source hash); returns the .so."""
+    """Compile csrc/*.cu into build/ (once per source hash); returns the .so.
+    One nvcc per source runs in parallel, then one link."""
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sources + headers:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    so = BUILD_DIR / f"libgf2bv_kernels_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    so = BUILD_DIR / f"libgf2bv_kernels_{tag}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        _run(procs)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
 
 

@@ -16,8 +16,11 @@ Port of ``gf2bv_tpu/ops/gauss_batched.py``.  Per K-column panel:
   (``ops/panel_update.update_trailing``).
 
 :func:`solve_chained` is the mode-0 batch path of ``parallel/batch.py``: a
-loop of the single-system ``rref_origin_blocked`` with one stacked readback.
-The RREF is unique, so every result is bit for bit the JAX package's.
+loop of the single-system ``rref_origin_blocked`` with one stacked readback;
+it takes any engine of ``gauss_blocked``.  The batched kernels take the
+``mxu`` family of phase-2 engines (``mxu``, ``mxu_noseg``, ``mxu_la`` all
+run the full or trailing update here, as in the reference).  The RREF is
+unique, so every result is bit for bit the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from . import _cuda, extract_device
 from .gauss_blocked import (
     K_PANEL,
     _ROW_BUCKET,
+    _pick_engines,
+    engine,
     origin_parity_unsat,
     rref_origin_blocked,
     selector_from_prow,
@@ -207,12 +212,16 @@ def _origins_or_none(origins32: torch.Tensor, unsat: torch.Tensor) -> list:
     return [None if u[b] else packing.from_u32(o[b][None, :])[0] for b in range(o.shape[0])]
 
 
-def solve_batched(eq_mats, cols: int, mode: int, device="cuda"):
+def solve_batched(eq_mats, cols: int, mode: int, phase2: str | None = None,
+                  device="cuda"):
     """Batched large-system solve, per system the contract of
     ``gauss_blocked.solve_blocked``.  eq_mats: a list of packed (rows_i, W64)
     systems, or a (B, rows, W32) array or int32 tensor (a tensor is solved
-    on its own device).  Runs in chunks of ``BATCH_CHUNK_MAX`` systems."""
+    on its own device).  Runs in chunks of ``BATCH_CHUNK_MAX`` systems.
+    ``phase2`` (default from ``_pick_engines``) must be of the ``mxu``
+    family; the others raise."""
     a = _stack(eq_mats, resolve_device(device))
+    engine(phase2 or _pick_engines(a.shape[2])[1], "phase2")
     out: list = []
     for c0 in range(0, a.shape[0], BATCH_CHUNK_MAX):
         chunk = a[c0 : c0 + BATCH_CHUNK_MAX]
@@ -224,10 +233,14 @@ def solve_batched(eq_mats, cols: int, mode: int, device="cuda"):
     return out
 
 
-def solve_chained(eq_mats, cols: int, device="cuda"):
+def solve_chained(eq_mats, cols: int, phase1: str | None = None,
+                  phase2: str | None = None, device="cuda"):
     """Mode-0 batch as a loop of the single-system trailing solver
-    (``gauss_blocked.rref_origin_blocked``) with one stacked readback of
-    the origins.  Input and result as :func:`solve_batched` mode 0."""
+    (``gauss_blocked.rref_origin_blocked``, engines from ``_pick_engines``
+    where not given) with one stacked readback of the origins.  Input and
+    result as :func:`solve_batched` mode 0."""
     a = _stack(eq_mats, resolve_device(device))
-    res = [rref_origin_blocked(a[b], cols) for b in range(a.shape[0])]
+    auto1, auto2 = _pick_engines(a.shape[2])
+    engines = dict(phase1=phase1 or auto1, phase2=phase2 or auto2)
+    res = [rref_origin_blocked(a[b], cols, **engines) for b in range(a.shape[0])]
     return _origins_or_none(torch.stack([o for o, _ in res]), torch.stack([u for _, u in res]))

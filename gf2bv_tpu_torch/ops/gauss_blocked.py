@@ -1,8 +1,6 @@
 """Panel-blocked Gauss-Jordan to RREF — the large-system path.
 
-Port of ``gf2bv_tpu/ops/gauss_blocked.py`` for the split phase-1 engine
-(``pallas_scan``) and the MXU phase-2 engine, including the segmented
-trailing loop of the mode-0 fast path.  Per K-column panel:
+Port of ``gf2bv_tpu/ops/gauss_blocked.py``.  Per K-column panel:
 
 * phase 1 (ops/phase1.py): scan the thin (rows, K/32) slice for pivots,
   gather the pivot rows, rebuild them at full width and back-eliminate
@@ -11,13 +9,29 @@ trailing loop of the mode-0 fast path.  Per K-column panel:
   selector S taken from the SAVED original panel slice
   (:func:`selector_from_prow`).
 
-The JAX package's portable jnp phase 1 and its engine switches are not
-ported: a CUDA tensor runs the four Hopper kernels, a CPU tensor their
-plain twins, and nothing chooses between them but the tensor's device.
-The RREF is unique, so results are bit for bit those of the JAX package.
+Engines, picked as in the reference by ``phase1=`` / ``phase2=`` or, at the
+entry points, by ``GF2BV_TPU_PHASE1`` / ``GF2BV_TPU_PHASE2``
+(:func:`_pick_engines`; defaults ``pallas_scan`` and ``mxu``):
+
+* phase 1: ``pallas_scan`` (scan + rebuild), ``pallas_scan2`` (two pivots
+  per scan step), ``pallas_scanm`` (min-key scan), ``pallas`` (the fused
+  phase-1 kernel) and ``pallas_sub`` (the scan on a subset of rows, with a
+  full pass where the subset missed a pivot);
+* phase 2: ``mxu`` (in trailing mode the segmented update), ``mxu_noseg``
+  (the trailing update with a runtime panel start) and ``mxu_la`` (the
+  update of panel t fused with the scan of panel t+1; too small shapes run
+  ``mxu``, as in the reference).
+
+A name with the ``_interpret`` suffix means the same engine.  A CUDA tensor
+runs the engine's Hopper kernels, a CPU tensor their plain twins; nothing
+else chooses between them.  The engines the port has not yet got raise
+``NotImplementedError``.  The RREF is unique and every engine keeps the
+pivot rule, so results are bit for bit those of the JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -28,11 +42,60 @@ from ..core.words import (
     u32_to_torch, xor_fold,
 )
 from . import extract_device
-from .panel_update import SEG_TILE, update_full, update_seg
-from .phase1 import phase1_panel_split
+from .panel_update import (
+    SEG_TILE, la_grid, update_full, update_scan, update_seg, update_trailing,
+)
+from .phase1 import (
+    SUBSET_ROWS, phase1_panel, phase1_panel_split, phase1_scan_subset, reconstruct, scan,
+)
 
 K_PANEL = 256  # panel width in bits
 _ROW_BUCKET = 256
+
+PHASE1_ENGINES = ("pallas_scan", "pallas_scan2", "pallas_scanm", "pallas", "pallas_sub")
+PHASE2_ENGINES = ("mxu", "mxu_noseg", "mxu_la")
+_SCAN_VARIANT = {"pallas_scan": "", "pallas_scan2": "2", "pallas_scanm": "m", "pallas_sub": ""}
+_NOT_PORTED = {
+    "phase1": {"jnp": "ROADMAP queue 1 item 3 (the portable jnp engines)"},
+    "phase2": {
+        "jnp": "ROADMAP queue 1 item 3 (the portable jnp engines)",
+        "pallas": "ROADMAP queue 2 item 8 (update engine pallas)",
+        "mxu2": "ROADMAP queue 2 item 10 (update engine mxu2)",
+        "mxu4": "ROADMAP queue 2 item 11 (update engine mxu4)",
+        "skip": "ROADMAP queue 2, the next slice (the phase-1-only diagnostic skip)",
+    },
+}
+
+# Panels the pallas_sub engine ran a second time over all rows because the
+# subset missed a pivot; reset it with SUBSET_FALLBACKS["panels"] = 0.
+SUBSET_FALLBACKS = {"panels": 0}
+
+
+def engine(name: str, phase: str) -> str:
+    """The engine ``name`` (``_interpret`` suffix dropped) for ``phase``
+    ("phase1" or "phase2"); an engine not ported yet raises
+    NotImplementedError, an unknown name ValueError."""
+    known = PHASE1_ENGINES if phase == "phase1" else PHASE2_ENGINES
+    base = name[: -len("_interpret")] if name.endswith("_interpret") else name
+    if base in known:
+        return base
+    later = _NOT_PORTED[phase].get(base)
+    if later:
+        raise NotImplementedError(f"{phase} engine {name!r} is not ported yet: {later}")
+    raise ValueError(f"unknown {phase} engine {name!r}; expected one of {known}")
+
+
+def _pick_engines(wp: int) -> tuple[str, str]:
+    """(phase1, phase2) for a matrix of ``wp`` words: ``GF2BV_TPU_PHASE1`` /
+    ``GF2BV_TPU_PHASE2`` when set, else ``pallas_scan`` and ``mxu`` (the
+    tensor's device then picks kernel or twin).  Read at call time, as the
+    reference does.  ``wp`` is taken for the reference's signature: every
+    engine runs at any width here."""
+    del wp
+    return (
+        os.environ.get("GF2BV_TPU_PHASE1", "pallas_scan"),
+        os.environ.get("GF2BV_TPU_PHASE2", "mxu"),
+    )
 
 
 def selector_from_prow(b_orig: torch.Tensor, prow: torch.Tensor) -> torch.Tensor:
@@ -56,49 +119,167 @@ def selector_from_prow(b_orig: torch.Tensor, prow: torch.Tensor) -> torch.Tensor
     return s_ext[:rows]
 
 
+class _Panels:
+    """The state of one blocked elimination: the matrix (updated in place),
+    the used rows and the pivot map (with its dump slot at ``cols``)."""
+
+    def __init__(self, a: torch.Tensor, cols: int, K: int, trailing: bool, phase2: str):
+        self.a = a
+        self.cols = cols
+        self.K = K
+        self.kw = K // 32
+        self.rows, self.wp = a.shape
+        dev = a.device
+        self.bit_ids = torch.arange(K, dtype=I32, device=dev)
+        self.used = torch.zeros((1, self.rows), dtype=I32, device=dev)
+        self.pof = torch.full((cols + 1,), -1, dtype=I32, device=dev)
+        self.trailing = trailing
+        # mxu in trailing mode: the segmented update, dead tiles d = w0 // 128
+        self.seg = (trailing and phase2 == "mxu" and self.wp % SEG_TILE == 0
+                    and SEG_TILE % self.kw == 0)
+
+    def record(self, prow: torch.Tensor, w0: int) -> None:
+        dst = torch.where(prow >= 0, 32 * w0 + self.bit_ids - 1, self.cols).long()
+        self.pof[dst] = prow
+
+    def update(self, s: torch.Tensor, pf: torch.Tensor, w0: int) -> None:
+        """Phase 2 of the panel at word w0 (apply_rank_k_update's dispatch)."""
+        a = self.a
+        if self.seg:
+            dead = w0 // SEG_TILE
+            if dead >= 1:
+                update_seg(a, s, pf, dead)
+            else:
+                update_full(a, s, pf)
+        elif self.trailing:
+            update_trailing(a, s, pf, w0)
+        else:
+            update_full(a, s, pf)
+
+    def full_pass(self, t: int, phase1: str) -> None:
+        """One panel over all rows (the reference's _panel_kernel_full)."""
+        K, kw = self.K, self.kw
+        w0 = t * kw
+        b_orig = self.a[:, w0 : w0 + kw].clone()  # saved before the update
+        bT = b_orig.T.contiguous()
+        if phase1 == "pallas":
+            pf, prow, self.used = phase1_panel(self.a, bT, self.used, w0, K, self.cols)
+        else:
+            pf, prow, self.used = phase1_panel_split(
+                self.a, bT, self.used, w0, K, self.cols, _SCAN_VARIANT[phase1]
+            )
+        self.record(prow, w0)
+        self.update(selector_from_prow(b_orig, prow), pf, w0)
+
+    def subset_pass(self, t: int) -> None:
+        """The reference's _panel_kernel_subset: scan only the first
+        SUBSET_ROWS unused rows (the pivot is the lowest row, so the
+        subset's winner is the global one whenever the subset sees the
+        column), update, and where a column left free still has a live bit
+        in an unused row, run the panel again over all rows.  That check is
+        read on the host: one synchronisation per panel."""
+        K, kw, rows, S = self.K, self.kw, self.rows, SUBSET_ROWS
+        dev = self.a.device
+        w0 = t * kw
+        b_orig = self.a[:, w0 : w0 + kw].clone()
+        unused = (self.used[0] == 0).to(I32)
+        slot = torch.cumsum(unused, 0, dtype=I32) - 1
+        take = (unused == 1) & (slot < S)
+        row_ids = torch.arange(rows, dtype=I32, device=dev)
+        subset_ext = torch.zeros((S + 1,), dtype=I32, device=dev)  # + dump slot
+        subset_ext[torch.where(take, slot, S).long()] = row_ids
+        subset_idx = subset_ext[:S]
+        n_sub = torch.clamp(slot[-1] + 1, max=S)
+        bT_c = b_orig[subset_idx.long()].T.contiguous()  # (kw, S)
+        used_in = (torch.arange(S, device=dev) >= n_sub).to(I32)[None, :]
+        prow_l, cT_c = phase1_scan_subset(bT_c, used_in, w0, K, self.cols)
+        pl_safe = prow_l.clamp(min=0).long()
+        prow = torch.where(prow_l >= 0, subset_idx[pl_safe], -1)
+        coeff = cT_c[:, pl_safe].T.contiguous()
+        pf = reconstruct(self.a[prow.clamp(min=0).long()], coeff, prow, w0)
+        used_ext = torch.cat([self.used[0], torch.zeros(1, dtype=I32, device=dev)])
+        used_ext[torch.where(prow >= 0, prow, rows).long()] = 1
+        self.used = used_ext[None, :rows].contiguous()
+        self.record(prow, w0)
+        self.update(selector_from_prow(b_orig, prow), pf, w0)
+
+        # deficit check: a column left free with a live bit in an unused row
+        gbit = 32 * w0 + self.bit_ids
+        free = (prow < 0) & (gbit >= 1) & (gbit <= self.cols)
+        freemask = or_fold(torch.where(free, bit_i32(self.bit_ids & 31), 0).view(kw, 32), dim=1)
+        b_post = self.a[:, w0 : w0 + kw]
+        live = ((b_post & freemask[None, :]) != 0).any(dim=1) & (self.used[0] == 0)
+        if bool(live.any()):
+            SUBSET_FALLBACKS["panels"] += 1
+            self.full_pass(t, "pallas_sub")
+
+    def lookahead(self, panels: int) -> None:
+        """The reference's _rref_lookahead (``mxu_la``): the scan of panel
+        t+1 runs in the same launch as the update of panel t.  Per panel:
+        rebuild, selector, pivot map, a thin update of the next panel's
+        slice (the update kernel on kw words), then the fused update + scan.
+        The scans are the 1-pivot scan whatever the phase-1 engine."""
+        K, kw, wp = self.K, self.kw, self.wp
+        a = self.a
+        prow, used, cT = scan(a[:, :kw].T.contiguous(), self.used, 0, K, self.cols)
+        for t in range(panels):
+            w0 = t * kw
+            ps = prow.clamp(min=0).long()
+            pf = reconstruct(a[ps], cT[:, ps].T.contiguous(), prow, w0)
+            s = selector_from_prow(a[:, w0 : w0 + kw], prow)
+            self.record(prow, w0)
+            # the next panel's slice; past the last panel the reference's
+            # dynamic_slice clamps its start, and the scan at w0n finds every
+            # column invalid (32*w0n > cols), so any slice does
+            w0n = w0 + kw
+            lo = min(w0n, wp - kw)
+            slice_n = a[:, lo : lo + kw].contiguous()
+            update_full(slice_n, s, pf[:, lo : lo + kw].contiguous())
+            _, prow, cT, used = update_scan(
+                a, s, pf, slice_n.T.contiguous(), used, w0n, self.cols,
+                w0 if self.trailing else None,
+            )
+        self.used = used
+
+
 def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
-                 trailing: bool = False):
+                 trailing: bool = False, *, phase1: str = "pallas_scan",
+                 phase2: str = "mxu"):
     """Blocked RREF of ``a`` (rows, wp) int32, ``wp % (k_panel//32) == 0``.
 
     Returns (rref, pivot_row_of_col (cols,), inconsistent 0-dim bool).  The
-    input is not modified (the elimination runs on a clone).
+    input is not modified (the elimination runs on a clone).  ``phase1`` /
+    ``phase2`` pick the engines (module docstring).
 
-    ``trailing=True`` (mode-0 fast path): with ``wp % 128 == 0`` panels are
-    grouped by their count of dead 128-word tiles ``d = (t*kw) // 128``;
-    panels with ``d >= 1`` use the segmented update, which keeps only word 0
-    of tile 0 up to date and skips tiles [1, d).  The returned matrix is
-    then not a full RREF left of the last panel and ``inconsistent`` is
-    unreliable; mode 0 verifies its solution against the original system
-    instead (:func:`rref_origin_blocked`).
+    ``trailing=True`` (mode-0 fast path): only the tiles from the panel's on
+    and word 0 stay up to date (``mxu``: panels are grouped by their count
+    of dead 128-word tiles ``d = (t*kw) // 128``, and panels with ``d >= 1``
+    use the segmented update; ``mxu_noseg`` and ``mxu_la``: the trailing
+    update with the panel start).  The returned matrix is then not a full
+    RREF left of the last panel and ``inconsistent`` is unreliable; mode 0
+    verifies its solution against the original system instead
+    (:func:`rref_origin_blocked`).
     """
+    p1 = engine(phase1, "phase1")
+    p2 = engine(phase2, "phase2")
     K = k_panel
     kw = K // 32
     rows, wp = a.shape
     if wp % kw:
         raise ValueError(f"wp={wp} is not a multiple of {kw}")
-    a = a.clone()
-    dev = a.device
     panels = min(wp // kw, -(-(1 + cols) // (32 * kw)))
-    bit_ids = torch.arange(K, dtype=I32, device=dev)
-    used = torch.zeros((1, rows), dtype=I32, device=dev)
-    pof = torch.full((cols + 1,), -1, dtype=I32, device=dev)  # + dump slot
-    seg = trailing and wp % SEG_TILE == 0 and SEG_TILE % kw == 0
-    for t in range(panels):
-        w0 = t * kw
-        b_orig = a[:, w0 : w0 + kw].clone()  # saved before the update
-        pf, prow, used = phase1_panel_split(
-            a, b_orig.T.contiguous(), used, w0, K, cols
-        )
-        dst = torch.where(prow >= 0, 32 * w0 + bit_ids - 1, cols).long()
-        pof[dst] = prow
-        s = selector_from_prow(b_orig, prow)
-        dead = (w0 // SEG_TILE) if seg else 0
-        if dead >= 1:
-            update_seg(a, s, pf, dead)
-        else:
-            update_full(a, s, pf)
-    pof = pof[:cols]
-    return a, pof, extract_device.inconsistent_device(a)
+    if p2 == "mxu_la" and not (la_grid(rows, wp)[2] * 32 >= K and wp % 128 == 0):
+        p2 = "mxu"  # too few grid steps to host a panel's scan: the reference's gate
+    st = _Panels(a.clone(), cols, K, trailing, p2)
+    if p2 == "mxu_la":
+        st.lookahead(panels)
+    else:
+        for t in range(panels):
+            if p1 == "pallas_sub":
+                st.subset_pass(t)
+            else:
+                st.full_pass(t, p1)
+    return st.a, st.pof[:cols], extract_device.inconsistent_device(st.a)
 
 
 def origin_parity_unsat(a: torch.Tensor, origin32: torch.Tensor) -> torch.Tensor:
@@ -115,10 +296,11 @@ def origin_parity_unsat(a: torch.Tensor, origin32: torch.Tensor) -> torch.Tensor
     return (parity32(row_words) == 1).any()
 
 
-def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL):
+def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
+                        phase1: str = "pallas_scan", phase2: str = "mxu"):
     """Trailing-mode RREF + mode-0 extraction.  Returns (origin32 (Wsol32,)
     int32, unsat 0-dim bool); the verdict checks the origin against ``a``."""
-    rref32, pof, _ = rref_blocked(a, cols, k_panel, True)
+    rref32, pof, _ = rref_blocked(a, cols, k_panel, True, phase1=phase1, phase2=phase2)
     origin32 = extract_device.origin_device(rref32, pof, cols)
     return origin32, origin_parity_unsat(a, origin32)
 
@@ -142,22 +324,26 @@ def _pad_device(a32: torch.Tensor, k_panel: int, word_align: int = 1) -> torch.T
     return torch.nn.functional.pad(a32, (0, want_w - w32, 0, want_rows - rows))
 
 
-def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANEL):
+def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANEL,
+                    phase2: str | None = None, phase1: str | None = None):
     """Solve a padded (rows, wp) int32 matrix where it lies.  Mode 0: the
     trailing solver and its parity check, returning the packed origin
     (W64,) uint64; mode 1: the full RREF, returning (origin, basis (dim, W64)
-    uint64); None when unsatisfiable."""
+    uint64); None when unsatisfiable.  Engines left None come from
+    :func:`_pick_engines`."""
+    auto1, auto2 = _pick_engines(a.shape[1])
+    engines = dict(phase1=phase1 or auto1, phase2=phase2 or auto2)
     if mode == 0:
-        origin32, unsat = rref_origin_blocked(a, cols, k_panel)
+        origin32, unsat = rref_origin_blocked(a, cols, k_panel, **engines)
         if bool(unsat):
             return None
         return packing.from_u32(torch_to_u32(origin32)[None, :])[0]
-    rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False)
+    rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False, **engines)
     return extract_device.finalize(rref32, pof, inconsistent, cols, mode)
 
 
 def solve_blocked(eqs: np.ndarray, cols: int, mode: int, k_panel: int = K_PANEL,
-                  device="cuda"):
+                  phase2: str | None = None, phase1: str | None = None, device="cuda"):
     """Solve packed (rows, W64) uint64 rows; results as :func:`solve_on_device`."""
     a = u32_to_torch(_pad(eqs, k_panel, word_align=128), resolve_device(device))
-    return solve_on_device(a, cols, mode, k_panel)
+    return solve_on_device(a, cols, mode, k_panel, phase2, phase1)

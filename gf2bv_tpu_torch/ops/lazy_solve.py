@@ -9,7 +9,11 @@ cached matrix (the cache survives every solve) and the blocked solver runs.
 Reference semantics kept: all-zero traced rows are dropped, and a dropped
 row whose affine bit is set (the literal 1) makes the system unsatisfiable
 before any device work.  Mode 0 runs the trailing solver with its parity
-check; mode 1 the full-width RREF and the basis extraction.
+check; mode 1 the full-width RREF and the basis extraction.  The solver's
+engines (``gauss_blocked._pick_engines``) are read once, when a structure is
+cached, and kept with it, as the reference does: a later change of
+``GF2BV_TPU_PHASE1`` / ``GF2BV_TPU_PHASE2`` reaches a cached structure only
+after :func:`clear_cache`.
 """
 
 from __future__ import annotations
@@ -23,14 +27,15 @@ from ..core import lazy, packing
 from ..core.lazy import LazyBitVec
 from ..core.words import I32, u32_to_torch
 from . import solver
-from .gauss_blocked import K_PANEL, _pad, solve_on_device
+from .gauss_blocked import K_PANEL, _pad, _pick_engines, solve_on_device
 
 _MAX_CACHED = 4  # cached structures (each one device matrix)
 _CACHE: "OrderedDict[bytes, _CachedSystem]" = OrderedDict()
 
 
 class _CachedSystem:
-    __slots__ = ("a_dev", "kept", "kept_mask", "struct_aff", "widths", "rows_padded")
+    __slots__ = ("a_dev", "kept", "kept_mask", "struct_aff", "widths", "rows_padded",
+                 "phase1", "phase2")
 
 
 def eligible(system, zeros) -> bool:
@@ -56,6 +61,7 @@ def _build(system, exprs, key) -> _CachedSystem:
     cs.kept = np.flatnonzero(cs.kept_mask)
     a32 = _pad(stacked[cs.kept], K_PANEL, word_align=128)
     cs.rows_padded = a32.shape[0]
+    cs.phase1, cs.phase2 = _pick_engines(a32.shape[1])
     cs.a_dev = u32_to_torch(a32, system._device)
     _CACHE[key] = cs
     while len(_CACHE) > _MAX_CACHED:
@@ -101,4 +107,5 @@ def solve_lazy(system, zeros, mode: int, env=None):
     delta_dev[: delta.shape[0]] = torch.from_numpy(delta).to(cs.a_dev.device)
     a = cs.a_dev.clone()
     a[:, 0] ^= delta_dev
-    return solver._result(solve_on_device(a, cols, mode), cols, mode)
+    raw = solve_on_device(a, cols, mode, K_PANEL, cs.phase2, cs.phase1)
+    return solver._result(raw, cols, mode)

@@ -13,9 +13,14 @@ though one CUDA kernel (``csrc/panel_update.cu``) serves both:
   :func:`update_seg_plain`.
 * :func:`update_trailing` — the trailing update with a runtime panel start
   ``w0`` (``_mxu_kernel_trailing`` via ``panel_update_mxu`` with ``w0``),
-  the batched solver's phase 2; plain twin :func:`update_trailing_plain`.
+  the batched solver's phase 2 and the ``mxu_noseg`` engine's; plain twin
+  :func:`update_trailing_plain`.
+* :func:`update_scan` — the trailing (or full) update of panel t fused with
+  the 1-pivot scan of panel t+1 (``_make_mxu_scan_kernel`` via
+  ``panel_update_mxu_scan``, the ``mxu_la`` engine); plain twin
+  :func:`update_scan_plain`.
 
-All three update ``a`` IN PLACE and return it (the reference returns a new
+All four update ``a`` IN PLACE and return it (the reference returns a new
 array); callers that need the input afterwards pass a clone.  The words the
 segmented update does not touch keep their input values here, where the
 reference leaves them undefined; the trailing update's untouched words are
@@ -30,6 +35,7 @@ from ..core.words import srl
 from . import _cuda
 
 SEG_TILE = 128  # words per trailing-mode tile (pallas_update's tw)
+_TR = 256  # pallas_update's row tile, which sizes la_grid
 
 
 def rank_k_xor_(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor) -> None:
@@ -171,3 +177,63 @@ def update_trailing(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, w0: in
     _cuda.check(rc, "trailing panel update kernel")
     _cuda.LAUNCHES["update_trailing"] += 1
     return a
+
+
+def la_grid(rows: int, wp: int) -> tuple[int, int, int]:
+    """(nj, ni, total grid steps) of the reference's look-ahead kernel
+    (``pallas_update.la_grid``).  Its grid hosts one scan step per grid step
+    (at most 32 per step), so the ``mxu_la`` engine runs only where
+    ``la_grid(rows, wp)[2] * 32 >= K``; the port keeps that gate."""
+    tw = SEG_TILE if wp % SEG_TILE == 0 else wp
+    tr = min(_TR, rows)
+    return wp // tw, rows // tr, (wp // tw) * (rows // tr)
+
+
+def update_scan_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                      bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                      w0: int | None = None):
+    """Plain twin of :func:`update_scan`: the update, then the 1-pivot scan
+    of ``bTn``."""
+    from .phase1 import scan_plain  # here: phase1 imports this module
+
+    if w0 is None:
+        update_full_plain(a, sel, pf)
+    else:
+        update_trailing_plain(a, sel, pf, w0)
+    prow, used_o, cT = scan_plain(bTn, used, w0n, pf.shape[0], cols)
+    return a, prow, cT, used_o
+
+
+def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                w0: int | None = None):
+    """The rank-K update of panel t (trailing from word ``w0``, or full when
+    ``w0`` is None) in place, and in the same launch the 1-pivot scan
+    (``phase1.scan``) of ``bTn`` (kw, rows), the next panel's slice already
+    carrying this update, at word ``w0n``.  Returns (a, prow (K,), cT
+    (kw, rows), used' (1, rows)), the reference's order."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    if w0 is not None:
+        _trailing_range(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
+    dev = a.device
+    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
+                           ("pf", pf, (32 * kw, wp)), ("bTn", bTn, (kw, rows)),
+                           ("used", used, (1, rows))):
+        _cuda.require(t, name, shape, dev)
+    if kw > 8:
+        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    prow = torch.empty((32 * kw,), dtype=torch.int32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bTn)
+    work = torch.empty_like(bTn)
+    rc = _cuda.lib().gf2_update_scan(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw,
+        -1 if w0 is None else int(w0), bTn.data_ptr(), used.data_ptr(),
+        prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(), work.data_ptr(),
+        int(w0n), int(cols), _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "fused update + scan kernel")
+    _cuda.LAUNCHES["update_scan"] += 1
+    return a, prow, cT, used_o

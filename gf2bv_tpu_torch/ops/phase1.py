@@ -1,15 +1,32 @@
 """Phase 1 of the blocked solver: pivot scan + pivot-row rebuild.
 
-Port of ``gf2bv_tpu/ops/pallas_phase1.py`` (the split ``pallas_scan``
-engine).  Two kernels carry it, each with a plain PyTorch twin of the same
-contract:
+Port of ``gf2bv_tpu/ops/pallas_phase1.py``.  Five kernels carry it, each
+with a plain PyTorch twin of the same contract that follows the kernel's own
+step structure:
 
-* :func:`scan` — the forward pivot scan of one K-column panel
-  (``_make_scan_kernel`` via ``_call_scan_kernel``); CUDA source
-  ``csrc/scan.cu``, plain twin :func:`scan_plain`.
+* :func:`scan` — the forward pivot scan of one K-column panel, the dispatch
+  of ``_call_scan_kernel`` over its variants:
+
+  - ``""``: one pivot per step (``_make_scan_kernel``); CUDA
+    ``csrc/scan.cu`` ``gf2_scan``, twin :func:`scan_plain`;
+  - ``"2"``: two pivots per step (``_make_scan_kernel2``), :func:`scan2`;
+    CUDA ``gf2_scan2``, twin :func:`scan2_plain`;
+  - ``"m"``: election and extraction through packed min-keys
+    (``_make_scan_kernel_minkey``), :func:`scan_minkey`; CUDA
+    ``gf2_scan_minkey``, twin :func:`scan_minkey_plain`.  Systems of
+    ``MINKEY_MAX_ROWS`` rows or more take variant ``""``, as in the
+    reference.
+
 * :func:`reconstruct` — full-width pivot-row rebuild + triangular back pass
   (``_make_reconstruct_kernel`` via ``phase1_reconstruct``); CUDA source
   ``csrc/reconstruct.cu``, plain twin :func:`reconstruct_plain`.
+* :func:`phase1_panel` — the fused phase 1 (``_make_kernel``, the
+  ``pallas`` engine): scan, per-pivot rebuild and back pass in one kernel;
+  CUDA source ``csrc/phase1_fused.cu``, plain twin :func:`phase1_panel_plain`.
+
+:func:`phase1_panel_split` (scan, gather, rebuild) and
+:func:`phase1_scan_subset` (the scan of the ``pallas_sub`` engine) are the
+reference's compositions of those kernels.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain twin only
 for CPU tensors; there is no fallback between the two.  Words are int32
@@ -21,9 +38,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.words import I32, torch_to_u32, u32_to_torch
+from ..core.words import I32, bit_i32, srl, torch_to_u32, u32_to_torch, xor_fold
 from . import _cuda
 from .panel_update import rank_k_xor_
+
+# min-key packing puts the row index in int32 bits 16..30
+MINKEY_MAX_ROWS = 1 << 15
+# rows of the subset scan (pallas_sub): K pivots leave >= 512 live candidates
+SUBSET_ROWS = 768
 
 
 # -- kernel 1: forward scan ----------------------------------------------------
@@ -72,16 +94,10 @@ def scan_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int)
     return prow[0], u, c[0]
 
 
-def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """Forward scan of one panel: the lowest unused row with the column's
-    bit set pivots (columns 1..cols are valid); its slice words from the
-    column's word on are XORed into the other candidates, whose coefficient
-    bit is set in cT.  Returns (prow (K,), used' (1, rows), cT (kw, rows))."""
+def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
+                 w0: int, K: int, cols: int):
+    """Launch one of the single-system scan kernels (same C signature)."""
     kw, rows = bT.shape
-    if K != 32 * kw:
-        raise ValueError(f"K={K} does not match bT's {kw} words")
-    if not _cuda.on_cuda(bT):
-        return scan_plain(bT, used, w0, K, cols)
     dev = bT.device
     _cuda.require(bT, "bT", (kw, rows), dev)
     _cuda.require(used, "used", (1, rows), dev)
@@ -89,14 +105,154 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bT)
     work = torch.empty_like(bT)
-    rc = _cuda.lib().gf2_scan(
+    rc = getattr(_cuda.lib(), fn_name)(
         bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
         cT.data_ptr(), work.data_ptr(), rows, kw, int(w0), int(cols),
         _cuda.stream_of(bT),
     )
-    _cuda.check(rc, "scan kernel")
-    _cuda.LAUNCHES["scan"] += 1
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += 1
     return prow, used_o, cT
+
+
+def _check_k(bT: torch.Tensor, K: int) -> None:
+    if K != 32 * bT.shape[0]:
+        raise ValueError(f"K={K} does not match bT's {bT.shape[0]} words")
+
+
+def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+         variant: str = ""):
+    """Forward scan of one panel: the lowest unused row with the column's
+    bit set pivots (columns 1..cols are valid); its slice words from the
+    column's word on are XORed into the other candidates, whose coefficient
+    bit is set in cT.  Returns (prow (K,), used' (1, rows), cT (kw, rows)).
+
+    ``variant`` picks the kernel, as ``_call_scan_kernel`` does: ``""`` the
+    1-pivot scan, ``"2"`` :func:`scan2`, ``"m"`` :func:`scan_minkey` (the
+    1-pivot scan for ``MINKEY_MAX_ROWS`` rows or more).  All three give the
+    same outputs."""
+    if variant == "m" and bT.shape[1] >= MINKEY_MAX_ROWS:
+        variant = ""
+    if variant == "2":
+        return scan2(bT, used, w0, K, cols)
+    if variant == "m":
+        return scan_minkey(bT, used, w0, K, cols)
+    if variant:
+        raise ValueError(f"unknown scan variant {variant!r}; expected '', '2' or 'm'")
+    _check_k(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan", "scan", bT, used, w0, K, cols)
+
+
+# -- kernel 6: two pivots per step --------------------------------------------------
+
+
+def scan2_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """Plain twin of :func:`scan2`, step for step: columns jj and jj+1 in
+    one step.  Column jj+1's candidates see pivot jj's elimination
+    virtually (pivot jj's bit jj+1), pivot jj+1's row is corrected by pivot
+    jj where pivot jj eliminates it, and one update applies both."""
+    kw, rows = bT.shape
+    dev = bT.device
+    b = bT.clone()
+    u = used[0].clone()
+    c = torch.zeros_like(bT)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)
+
+    def elect(cand):
+        piv = torch.where(cand, lane, rows).amin()
+        has = piv < rows
+        return piv, has, torch.where(has, piv, 0).long()
+
+    for jj0 in range(0, K, 2):
+        sw, sh0 = jj0 >> 5, jj0 & 31
+        g0 = 32 * w0 + jj0
+        valid0, valid1 = 1 <= g0 <= cols, 1 <= g0 + 1 <= cols
+        cur = b[sw]
+        free = u == 0
+        cand0 = (((cur >> sh0) & 1) == 1) & free & valid0
+        piv0, has0, p0 = elect(cand0)
+        bp0 = b[sw:, p0]
+        elim0 = cand0 & (lane != piv0)
+        p0b1 = (bp0[0] >> (sh0 + 1)) & 1
+        col1 = ((cur >> (sh0 + 1)) & 1) ^ torch.where(elim0, p0b1, 0)
+        cand1 = (col1 == 1) & free & valid1 & ~((lane == piv0) & has0)
+        piv1, has1, p1 = elect(cand1)
+        bp1 = b[sw:, p1] ^ torch.where(elim0[p1], bp0, 0)
+        elim1 = cand1 & (lane != piv1)
+        prow[jj0] = torch.where(has0, piv0, -1)
+        prow[jj0 + 1] = torch.where(has1, piv1, -1)
+        b[sw:] ^= (torch.where(elim0[None, :], bp0[:, None], 0)
+                   ^ torch.where(elim1[None, :], bp1[:, None], 0))
+        c[sw] ^= (torch.where(elim0, _bitval(sh0), 0)
+                  ^ torch.where(elim1, _bitval(sh0 + 1), 0)).to(I32)
+        u = torch.where(((lane == piv0) & has0) | ((lane == piv1) & has1), 1, u).to(I32)
+    return prow, u[None, :], c
+
+
+def scan2(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The scan with two pivots per sequential step; outputs as :func:`scan`."""
+    _check_k(bT, K)
+    if K % 2:
+        raise ValueError(f"K={K} must be even")
+    if not _cuda.on_cuda(bT):
+        return scan2_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan2", "scan2", bT, used, w0, K, cols)
+
+
+# -- kernel 7: min-key election + extraction ----------------------------------------
+
+
+def scan_minkey_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """Plain twin of :func:`scan_minkey`, step for step: per live slice word
+    a lo and a hi key ``row << 16 | 16-bit half`` on every candidate row (the
+    sentinel ``rows << 16`` elsewhere); the minima elect the lowest
+    candidate, and their low halves are its words."""
+    kw, rows = bT.shape
+    if rows >= MINKEY_MAX_ROWS:
+        raise ValueError(f"the min-key scan takes fewer than {MINKEY_MAX_ROWS} rows, got {rows}")
+    dev = bT.device
+    b = bT.clone()
+    u = used[0].clone()
+    c = torch.zeros_like(bT)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)
+    none = rows << 16
+    for jj in range(K):
+        if not 1 <= 32 * w0 + jj <= cols:
+            continue
+        sw, sh = jj >> 5, jj & 31
+        cand = (((b[sw] >> sh) & 1) == 1) & (u == 0)
+        live = b[sw:]
+        key_lo = torch.where(cand, (lane << 16) | (live & 0xFFFF), none)
+        key_hi = torch.where(cand, (lane << 16) | srl(live, 16), none)
+        min_lo, min_hi = key_lo.amin(dim=1), key_hi.amin(dim=1)
+        piv = min_lo[0] >> 16
+        has = piv < rows
+        prow[jj] = torch.where(has, piv, -1)
+        bpiv = ((min_hi & 0xFFFF) << 16) | (min_lo & 0xFFFF)
+        elim = cand & (lane != piv)
+        b[sw:] ^= torch.where(elim[None, :], bpiv[:, None], 0)
+        c[sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
+        u = torch.where((lane == piv) & has, 1, u).to(I32)
+    return prow, u[None, :], c
+
+
+def scan_minkey(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The scan with election and pivot-word extraction in one reduction
+    round; outputs as :func:`scan`.  Needs fewer than ``MINKEY_MAX_ROWS``
+    rows (:func:`scan` with ``variant="m"`` routes taller systems to the
+    1-pivot scan)."""
+    _check_k(bT, K)
+    if bT.shape[1] >= MINKEY_MAX_ROWS:
+        raise ValueError(
+            f"the min-key scan takes fewer than {MINKEY_MAX_ROWS} rows, got {bT.shape[1]}"
+        )
+    if not _cuda.on_cuda(bT):
+        return scan_minkey_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan_minkey", "scan_minkey", bT, used, w0, K, cols)
 
 
 # -- kernel 2: pivot-row rebuild + back pass -------------------------------------
@@ -178,18 +334,113 @@ def reconstruct(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
     return pf
 
 
+# -- kernel 5: the fused phase 1 (pallas_phase1.phase1_panel) ----------------------
+
+
+def phase1_panel_plain(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                       w0: int, K: int, cols: int):
+    """Plain twin of :func:`phase1_panel`, step for step: each scan step
+    that finds a pivot rebuilds panel row jj, held as ``[T | slice]`` (the
+    combination of pivot rows it is made of, and its words w0..w0+kw-1),
+    from ``[e_jj | a[piv] slice]`` and the earlier rows selected by the
+    pivot's coefficients; then the triangular back pass on those rows, then
+    ``pf = T·a[prow]``."""
+    rows, wp = a.shape
+    kw = K // 32
+    dev = a.device
+    b = bT.clone()
+    u = used[0].clone()
+    c = torch.zeros_like(bT)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)
+    k_ids = torch.arange(K, device=dev)
+    k_bits = (k_ids & 31).to(I32)
+    eye = torch.zeros((K, kw), dtype=I32, device=dev)
+    eye[k_ids, k_ids >> 5] = bit_i32(k_bits)
+    ts = torch.zeros((K, 2 * kw), dtype=I32, device=dev)  # rows as [T | slice]
+    for jj in range(K):
+        if not 1 <= 32 * w0 + jj <= cols:
+            continue
+        sw, sh = jj >> 5, jj & 31
+        cand = (((b[sw] >> sh) & 1) == 1) & (u == 0)
+        piv = torch.where(cand, lane, rows).amin()
+        has = piv < rows
+        ps = torch.where(has, piv, 0).long()
+        prow[jj] = torch.where(has, piv, -1)
+        # rebuild row jj from the earlier rows its coefficient bits select
+        take = (((c[k_ids >> 5, ps] >> k_bits) & 1) == 1) & (k_ids < jj)
+        x = xor_fold(torch.where(take[:, None], ts, 0), dim=0)
+        base = torch.cat([eye[jj], a[ps, w0 : w0 + kw]])
+        ts[jj] = torch.where(has, base ^ x, 0)
+        bpiv = b[sw:, ps]
+        elim = cand & (lane != piv)
+        b[sw:] ^= torch.where(elim[None, :], bpiv[:, None], 0)
+        c[sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
+        u = torch.where((lane == piv) & has, 1, u).to(I32)
+    pivoted = prow >= 0
+    for j in range(K - 1, -1, -1):  # back pass, triangular window
+        window = k_ids < 32 * ((j >> 5) + 1)
+        hit = (((ts[:, kw + (j >> 5)] >> (j & 31)) & 1) == 1) & window & (k_ids != j)
+        ts ^= torch.where((hit & pivoted[j])[:, None], ts[j][None, :], 0)
+    arows = torch.where(pivoted[:, None], a[prow.clamp(min=0).long()], 0)
+    pf = torch.zeros((K, wp), dtype=I32, device=dev)
+    rank_k_xor_(pf, ts[:, :kw].contiguous(), arows)
+    return pf, prow, u[None, :]
+
+
+def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                 w0: int, K: int, cols: int):
+    """Phase 1 of one panel in one kernel: the scan of :func:`scan`, the
+    rebuild of each forward pivot row from the matrix and the earlier ones,
+    and the triangular back pass of :func:`reconstruct`.  a (rows, wp) is the
+    matrix at the panel's start, bT (kw, rows) its panel slice transposed,
+    used (1, rows).  Returns (pf (K, wp), prow (K,), used' (1, rows)), the
+    contract of :func:`phase1_panel_split`."""
+    rows, wp = a.shape
+    kw = K // 32
+    _check_k(bT, K)
+    if not 0 <= w0 <= wp - kw:
+        raise ValueError(f"w0={w0} outside the {wp}-word rows")
+    if not _cuda.on_cuda(a):
+        return phase1_panel_plain(a, bT, used, w0, K, cols)
+    dev = a.device
+    _cuda.require(a, "a", (rows, wp), dev)
+    _cuda.require(bT, "bT", (kw, rows), dev)
+    _cuda.require(used, "used", (1, rows), dev)
+    prow = torch.empty((K,), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    work = torch.empty_like(bT)
+    pf = torch.empty((K, wp), dtype=I32, device=dev)
+    rc = _cuda.lib().gf2_phase1_fused(
+        a.data_ptr(), bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
+        cT.data_ptr(), work.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0), int(cols),
+        _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "fused phase-1 kernel")
+    _cuda.LAUNCHES["phase1_fused"] += 1
+    return pf, prow, used_o
+
+
 # -- the split phase 1 (pallas_phase1.phase1_panel_split) ------------------------
 
 
 def phase1_panel_split(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
-                       w0: int, K: int, cols: int):
-    """Phase 1 of one panel: scan, gather the pivot rows and their
-    coefficient words, rebuild.  a (rows, wp); bT (kw, rows); used (1, rows).
-    Returns (pf (K, wp), prow (K,), used' (1, rows))."""
-    prow, used_o, cT = scan(bT, used, w0, K, cols)
+                       w0: int, K: int, cols: int, variant: str = ""):
+    """Phase 1 of one panel: scan (``variant`` as :func:`scan`), gather the
+    pivot rows and their coefficient words, rebuild.  a (rows, wp); bT
+    (kw, rows); used (1, rows).  Returns (pf (K, wp), prow (K,), used'
+    (1, rows))."""
+    prow, used_o, cT = scan(bT, used, w0, K, cols, variant)
     prow_safe = prow.clamp(min=0).long()
     arows = a[prow_safe]  # (K, wp)
     coeff = cT[:, prow_safe].T.contiguous()  # (K, kw)
     pf = reconstruct(arows, coeff, prow, w0)
     return pf, prow, used_o
 
+
+def phase1_scan_subset(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The forward scan alone on a row subset: bT (kw, S), used (1, S).
+    Returns (prow (K,) subset-local rows, cT (kw, S))."""
+    prow, _, cT = scan(bT, used, w0, K, cols)
+    return prow, cT

@@ -8,7 +8,8 @@ Port of ``gf2bv_tpu/ops/solver.py``:
 Backends:
 
 * ``blocked`` — panel-blocked elimination (ops/gauss_blocked.py), the
-  Hopper kernels' path; ``None`` and ``"auto"`` resolve to it at every size;
+  Hopper kernels' path, with the engines of ``gauss_blocked._pick_engines``;
+  ``None`` and ``"auto"`` resolve to it at every size;
 * ``jax`` — the per-pivot solver (ops/gauss_jax.py), plain torch.
 
 The reference's size-based auto routing and its host backends ``native``

@@ -94,6 +94,7 @@ def test_wrapper_counts_launches(dev):
     assert _cuda.LAUNCHES == {
         "scan": 0, "reconstruct": 0, "update_full": 1, "update_seg": 1,
         "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
+        "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
     }
 
 
@@ -233,3 +234,101 @@ def test_linear_system_solve_one_cuda(dev):
         zeros_of(LinearSystem([64, 64], device="cpu"))
     )
     assert all(lin.evaluate(z, sol) == 0 for z in zeros)
+
+
+SCAN_SHAPES = [
+    (512, 64, 0, 5000), (512, 64, 2, 80), (2048, 256, 8, 300),
+    (3000, 256, 0, 10**6), (20224, 256, 160, 19968),
+]
+
+
+@pytest.mark.parametrize("rows,K,w0,cols", SCAN_SHAPES)
+@pytest.mark.parametrize("variant", ["2", "m"])
+def test_scan_variant_kernels(dev, variant, rows, K, w0, cols):
+    rng = np.random.default_rng(rows + K + w0 + 3)
+    bT = _rand(rng, (K // 32, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    twin = {"2": phase1.scan2_plain, "m": phase1.scan_minkey_plain}[variant]
+    key = {"2": "scan2", "m": "scan_minkey"}[variant]
+    _cuda.reset_launches()
+    got = phase1.scan(bT, used, w0, K, cols, variant)
+    assert _cuda.LAUNCHES[key] == 1
+    want = twin(bT, used, w0, K, cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, phase1.scan_plain(bT, used, w0, K, cols)):
+        assert torch.equal(g, w)
+
+
+def test_minkey_reroute_on_the_card(dev):
+    rows, K = 1 << 15, 64
+    rng = np.random.default_rng(8)
+    bT = _rand(rng, (K // 32, rows), dev)
+    used = torch.zeros((1, rows), dtype=torch.int32, device=dev)
+    _cuda.reset_launches()
+    got = phase1.scan(bT, used, 0, K, 90, "m")
+    assert _cuda.LAUNCHES["scan"] == 1 and _cuda.LAUNCHES["scan_minkey"] == 0
+    for g, w in zip(got, phase1.scan_plain(bT, used, 0, K, 90)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows,K,w0,cols,wp", [
+    (512, 64, 2, 80, 128), (1024, 256, 8, 3000, 640), (20224, 256, 160, 19968, 640),
+])
+def test_phase1_fused_kernel(dev, rows, K, w0, cols, wp):
+    rng = np.random.default_rng(rows + K + wp)
+    a = _rand(rng, (rows, wp), dev)
+    bT = a[:, w0 : w0 + K // 32].T.contiguous()
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    got = phase1.phase1_panel(a, bT, used, w0, K, cols)
+    want = phase1.phase1_panel_plain(a, bT, used, w0, K, cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, phase1.phase1_panel_split(a, bT, used, w0, K, cols)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows,wp,K", [(256, 384, 64), (512, 640, 256), (20224, 640, 256)])
+def test_update_scan_kernel(dev, rows, wp, K):
+    rng = np.random.default_rng(rows + wp + 4)
+    kw = K // 32
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, kw), dev)
+    pf = _rand(rng, (K, wp), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    cols = 32 * wp - 40
+    for w0 in (None, 0, 8, 128, 260, wp - kw):
+        for w0n in (8, wp - kw, wp):
+            bTn = _rand(rng, (kw, rows), dev)
+            got = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            want = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (w0, w0n)
+    torch.cuda.synchronize()
+
+
+ENGINES = [
+    ("pallas_scan2", "mxu"), ("pallas_scanm", "mxu"), ("pallas", "mxu"),
+    ("pallas_sub", "mxu"), ("pallas_scan", "mxu_la"), ("pallas_scan", "mxu_noseg"),
+]
+
+
+@pytest.mark.parametrize("p1,p2", ENGINES)
+def test_engine_rref_cuda_matches_default(dev, p1, p2):
+    """Each engine's whole RREF and mode-0 origin on the card equal the
+    default engine's."""
+    rng = np.random.default_rng(17)
+    cols, rows = 8190, 2300  # two 128-word tiles; 9 row tiles: the la gate holds
+    bits = rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8)
+    a32 = gauss_blocked._pad(packing.pack_bits(bits, 1 + cols), 256, word_align=128)
+    assert panel_update.la_grid(*a32.shape)[2] * 32 >= 256
+    a = u32_to_torch(a32, dev)
+    want = gauss_blocked.rref_blocked(a, cols, 256, False)
+    got = gauss_blocked.rref_blocked(a, cols, 256, False, phase1=p1, phase2=p2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    o_w, u_w = gauss_blocked.rref_origin_blocked(a, cols)
+    o_g, u_g = gauss_blocked.rref_origin_blocked(a, cols, phase1=p1, phase2=p2)
+    assert torch.equal(o_g, o_w) and bool(u_g) == bool(u_w)
