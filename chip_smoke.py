@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each of the eleven kernels against its plain PyTorch twin on the
+3. Holds each of the fifteen kernels against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640
    words, K = 256, panel 20), and times both with CUDA events: scan,
    reconstruct, full-width update, segmented update (dead_tiles 1..4),
@@ -13,7 +13,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and batched rebuild (4 systems), two-pivot scan, min-key scan, fused
    phase 1, fused update + scan (full and trailing); also the batched
    scan's time per step for 1, 4 and 16 systems and each scan's time per
-   step.
+   step.  The update engines' kernels (the table kernel of engine pallas,
+   the tensor-core kernels of mxu2 and mxu4) run at panel 20 of the 768-word
+   multi-RHS matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640
+   words; the launch probe on (256, 128) words.  Beside each time stands the
+   kernel's bound: its bytes (inputs read once, outputs written once) over
+   3.35 TB/s, or its operations over the int8 tensor-core peak.
+   Then the launch floor: microseconds per launch over 256 chained launches
+   of the probe, of torch.bitwise_xor and of the one-tile update.
 4. Drives the mode-0 main path: recovers a random.Random MT19937 state from
    624 outputs through crypto.mt_torch.solve_mt19937 and through
    LinearSystem([32]*624).solve_one, and checks the kernel launch counts of
@@ -44,6 +51,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    under the default engine, pallas_scanm (which must run the 1-pivot scan:
    the min-key packing takes fewer than 2^15 rows) and pallas_sub, each
    timed warm.
+
+11. Multi-RHS: one captured MT19937 template, 256 instances from
+   random.Random seeds through CapturedTrace.solve_one_batch (one
+   elimination on 768 words): every state recovered, a flipped output bit
+   gives None for that instance only, launch counts 79 scans, 79 rebuilds,
+   79 full updates, 0 segmented; warm time, recoveries per second, the device
+   time of solve_multi_rhs_device alone, a profile; the same batch under
+   GF2BV_TPU_PHASE2 = pallas, mxu2, mxu4 (79 launches of the engine's own
+   kernel, none of the default update), answers equal.
+12. Sweep: the flagship with 12 state bits pinned, solve_one_sweep over all
+   4096 candidates: exactly one solves and it is the true state; warm time,
+   candidates per second; the second call reuses the cached device matrix.
+13. The update engines pallas, mxu2, mxu4 through solve_mt19937 like the
+   engines of phase 9; skip (phase 1 alone: no state comes back) timed warm;
+   the portable jnp engines on a small system against the default engine.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with the per-kernel results; the last line is
@@ -84,6 +106,16 @@ ENGINE_LAUNCHES = {
                                 "update_full": 79},
     ("pallas_scan", "mxu_noseg"): {"scan": 79, "reconstruct": 79, "update_trailing": 79},
 }
+UPDATE_ENGINES = ("pallas", "mxu2", "mxu4")
+for _p2 in UPDATE_ENGINES:
+    ENGINE_LAUNCHES[("pallas_scan", _p2)] = {"scan": 79, "reconstruct": 79,
+                                             f"update_{_p2}": 79}
+MULTI_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 79}
+WP_MULTI = WP + 128  # the multi-RHS matrix: one appended 128-word tile
+NB_MULTI = 256  # instances of the multi-RHS batch
+SWEEP_BITS = 12  # pinned state bits of the sweep: 4096 candidates
+HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
+INT8_OPS_PER_MS = 1.979e12  # 1,979 TOP/s, dense int8 tensor cores at 700 W
 TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
@@ -108,7 +140,52 @@ KERNELS = {
                      "gf2bv_tpu/ops/pallas_phase1.py:39"),
     "update_scan": ("update_scan", "gf2bv_tpu_torch/csrc/panel_update.cu",
                     "gf2bv_tpu/ops/pallas_update.py:514"),
+    "update_pallas": ("update_pallas", "gf2bv_tpu_torch/csrc/update_table.cu",
+                      "gf2bv_tpu/ops/pallas_update.py:35"),
+    "update_mxu2": ("update_mxu2", "gf2bv_tpu_torch/csrc/update_mma.cu",
+                    "gf2bv_tpu/ops/pallas_update.py:86"),
+    "update_mxu4": ("update_mxu4", "gf2bv_tpu_torch/csrc/update_mma.cu",
+                    "gf2bv_tpu/ops/pallas_update.py:129"),
+    "launch_probe": ("launch_probe", "gf2bv_tpu_torch/csrc/launch_probe.cu",
+                     "scripts/bench_launch_floor.py:55"),
 }
+# name -> (bound_ms, "bytes" or "operations"), filled beside each comparison
+BOUNDS: dict = {}
+LIBRARY_MS: dict = {}  # name -> ms of the one PyTorch call computing the same function
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def note_bound(name: str, moved_bytes: float, mma_ops: float = 0.0) -> None:
+    """The least time the card could take: the bytes the function must move
+    (inputs read once, outputs written once) over the memory rate, or, for a
+    kernel that issues tensor-core ``mma`` instructions, its product's
+    operations over the int8 tensor-core peak, whichever is larger.  The
+    kernels on the CUDA cores (mask-and-XOR, tables, scans, rebuilds) have no
+    arithmetic peak in the card's data sheet to name: bytes bound them.
+    Several cases of one kernel average."""
+    by_bytes, by_ops = moved_bytes / HBM_BYTES_PER_MS, mma_ops / INT8_OPS_PER_MS
+    ms, by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    if name in BOUNDS:
+        n, (old, old_by) = BOUNDS[name][2], BOUNDS[name][:2]
+        BOUNDS[name] = ((old * n + ms) / (n + 1), by if ms > old else old_by, n + 1)
+    else:
+        BOUNDS[name] = (ms, by, 1)
+
+
+def update_bytes(rows: int, kw: int, live_words: int) -> int:
+    """Bytes of a rank-K update that touches ``live_words`` words of every
+    row: a read and written, sel and pf's live words read."""
+    return 4 * (2 * rows * live_words + rows * kw + 32 * kw * live_words)
+
+
+def product_ops(rows: int, kw: int, live_words: int) -> float:
+    """The same update priced as a product on bit planes: 2 * rows * K * 32 *
+    live_words operations.  It bounds the kernels that run it on the tensor
+    cores; for the others it is printed as a reading beside the byte bound."""
+    return 2.0 * rows * 32 * kw * 32 * live_words
 
 
 def card_line() -> str:
@@ -194,6 +271,7 @@ def check_kernels(dev, card: str) -> dict:
     prow, _, cT = out_k
     if int((prow >= 0).sum()) == 0:
         raise AssertionError("scan comparison panel has no pivots")
+    note_bound("scan", nbytes(bT, used, *out_k))
 
     prow_safe = prow.clamp(min=0).long()
     arows = a[prow_safe]
@@ -206,7 +284,10 @@ def check_kernels(dev, card: str) -> dict:
         cuda_ms(lambda: phase1.reconstruct_plain(arows, coeff, prow, w0), 2),
     )
 
+    note_bound("reconstruct", nbytes(arows, coeff, prow, pf))
+
     sel = gauss_blocked.selector_from_prow(b_orig, prow)
+    note_bound("update_full", update_bytes(ROWS, K // 32, WP))
     full_k = panel_update.update_full(a.clone(), sel, pf)
     full_p = panel_update.update_full_plain(a.clone(), sel, pf)
     scratch = a.clone()
@@ -221,6 +302,7 @@ def check_kernels(dev, card: str) -> dict:
         seg_k = panel_update.update_seg(a.clone(), sel, pf, dead)
         seg_p = panel_update.update_seg_plain(a.clone(), sel, pf, dead)
         lo = 128 * dead
+        note_bound("update_seg", update_bytes(ROWS, K // 32, 1 + WP - lo))
         errs.append(require_equal(
             f"update_seg dead_tiles={dead}",
             [(seg_k[:, :128], seg_p[:, :128]), (seg_k[:, lo:], seg_p[:, lo:])],
@@ -234,6 +316,8 @@ def check_kernels(dev, card: str) -> dict:
 
     errs, ms_k, ms_p = [], [], []
     for w0t in (0, 160, 320, 632):
+        live = WP if w0t < 128 else 1 + WP - 128 * (w0t // 128)
+        note_bound("update_trailing", update_bytes(ROWS, K // 32, live))
         tr_k = panel_update.update_trailing(a.clone(), sel, pf, w0t)
         tr_p = panel_update.update_trailing_plain(a.clone(), sel, pf, w0t)
         errs.append(require_equal(f"update_trailing w0={w0t}", [(tr_k, tr_p)]))
@@ -245,9 +329,17 @@ def check_kernels(dev, card: str) -> dict:
     res["update_trailing"] = (max(errs), sum(ms_k) / len(ms_k), sum(ms_p) / len(ms_p))
     res.update(check_batched_kernels(dev, card, used, w0))
     res.update(check_engine_kernels(dev, card, a, bT, used, w0, sel, pf))
+    res.update(check_update_engine_kernels(dev, card, a, used, w0, sel, pf))
     for name, (_, ms, plain_ms) in res.items():
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"at the flagship shapes ({card})")
+        bound_ms, by, _ = BOUNDS[name]
+        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {by} at the flagship shapes ({card})")
+    # a reading, not a bound: what the CUDA-core updates' work would take as an int8
+    # tensor-core product at the published peak
+    for name, words in (("update_full", WP), ("update_pallas", WP_MULTI)):
+        as_product = product_ops(ROWS, K // 32, words) / INT8_OPS_PER_MS
+        print(f"kernel {name}: {words} words as an int8 tensor-core product at 1,979 TOP/s "
+              f"would take {as_product:.4f} ms (no bound: the kernel issues no mma)")
     return res
 
 
@@ -272,6 +364,7 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
     prow, _, cT = out_k
     if int((prow >= 0).sum(dim=1).min()) == 0:
         raise AssertionError("a batched scan system has no pivots")
+    note_bound("scan_batched", nbytes(bT, used, *out_k))
     for nb in (1, NB, 16):
         reps = -(-nb // NB)
         bTn = bT.repeat(reps, 1, 1)[:nb].contiguous()
@@ -285,6 +378,7 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
     coeff = torch.gather(cT, 2, ps[:, None, :].expand(NB, K // 32, K)).transpose(1, 2).contiguous()
     pf_k = gauss_batched.reconstruct_batched(arows, coeff, prow, w0)
     pf_p = gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0)
+    note_bound("reconstruct_batched", nbytes(arows, coeff, prow, pf_k))
     res["reconstruct_batched"] = (
         require_equal("reconstruct_batched", [(pf_k, pf_p)]),
         cuda_ms(lambda: gauss_batched.reconstruct_batched(arows, coeff, prow, w0), 20),
@@ -310,6 +404,7 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
         res[key] = (require_equal(key, zip(out_k, out_p)),
                     cuda_ms(lambda: kern(bT, used, w0, K, COLS), 5),
                     cuda_ms(lambda: twin(bT, used, w0, K, COLS), 2))
+        note_bound(key, nbytes(bT, used, *out_k))
         scan_ms[key] = res[key][1]
     scan_ms["scan"] = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
     # pallas_sub's scan: the first SUBSET_ROWS unused rows
@@ -324,6 +419,8 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
 
     out_k = phase1.phase1_panel(a, bT, used, w0, K, COLS)
     out_p = phase1.phase1_panel_plain(a, bT, used, w0, K, COLS)
+    # the slice, the K pivot rows of a, and pf, prow, used out
+    note_bound("phase1_fused", nbytes(bT, used, *out_k) + 4 * K * WP)
     require_equal("phase1_fused against the split engine",
                   zip(out_k, phase1.phase1_panel_split(a, bT, used, w0, K, COLS)))
     split_ms = cuda_ms(lambda: phase1.phase1_panel_split(a, bT, used, w0, K, COLS), 5)
@@ -343,6 +440,8 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
         bTn = nxt[:, w0 + kw : w0 + 2 * kw].T.contiguous()
         out_k = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
         out_p = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        upd_bytes = update_bytes(ROWS, kw, WP if w0t is None else 1 + WP - 128 * (w0t // 128))
+        note_bound("update_scan", upd_bytes + nbytes(bTn, used, *out_k[1:]))
         errs.append(require_equal(f"update_scan w0={w0t}", zip(out_k, out_p)))
         ms_k.append(cuda_ms(lambda: panel_update.update_scan(
             scratch, sel, pf, bTn, used, w0 + kw, COLS, w0t), 5))
@@ -356,6 +455,92 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     # the fused update + scan's time is the mean of the full and trailing cases
     res["update_scan"] = (max(errs), sum(ms_k) / 2, sum(ms_p) / 2)
     return res
+
+
+def check_update_engine_kernels(dev, card: str, a, used, w0: int, sel640, pf640) -> dict:
+    """The table kernel (engine pallas) and the tensor-core kernels (mxu2,
+    mxu4) at panel 20 of the 768-word multi-RHS matrix (the flagship system
+    with one appended tile of 256 instances' affine columns), against their
+    twins and the default update; mxu2 and mxu4 also trailing on 640 words."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import gauss_blocked, launch_floor, panel_update, phase1
+
+    kw = K // 32
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rhs = torch.zeros((ROWS, 128), dtype=torch.int32)
+    rhs[:, : NB_MULTI // 32] = torch.randint(
+        -2**31, 2**31 - 1, (ROWS, NB_MULTI // 32), generator=gen, dtype=torch.int64
+    ).to(torch.int32)
+    a768 = torch.cat([a, rhs.to(dev)], dim=1).contiguous()
+    assert tuple(a768.shape) == (ROWS, WP_MULTI)
+    b_orig = a768[:, w0 : w0 + kw].clone()
+    pf, prow, _ = phase1.phase1_panel_split(a768, b_orig.T.contiguous(), used, w0, K, COLS)
+    sel = gauss_blocked.selector_from_prow(b_orig, prow)
+    want = panel_update.update_full(a768.clone(), sel, pf)
+    scratch = a768.clone()
+    full_ms = cuda_ms(lambda: panel_update.update_full(scratch, sel, pf), 10)
+    print(f"update_full on {WP_MULTI} words (the default engine's update there): "
+          f"{full_ms:.4f} ms ({card})")
+    res = {}
+    cases = {
+        "update_pallas": (panel_update.update_pallas, panel_update.update_pallas_plain),
+        "update_mxu2": (panel_update.update_mxu2, panel_update.update_mxu2_plain),
+        "update_mxu4": (panel_update.update_mxu4, panel_update.update_mxu4_plain),
+    }
+    for name, (kern, twin) in cases.items():
+        got = kern(a768.clone(), sel, pf)
+        err = require_equal(name, [(got, twin(a768.clone(), sel, pf)), (got, want)])
+        res[name] = (err, cuda_ms(lambda: kern(scratch, sel, pf), 10),
+                     cuda_ms(lambda: twin(scratch, sel, pf), 1))
+        # the table kernel issues no mma: bytes bound it; mxu2 and mxu4 run the product
+        note_bound(name, update_bytes(ROWS, kw, WP_MULTI),
+                   0.0 if name == "update_pallas" else product_ops(ROWS, kw, WP_MULTI))
+    scratch = a.clone()
+    for name in ("update_mxu2", "update_mxu4"):
+        kern, twin = cases[name]
+        for w0t in (160, 632):
+            got = kern(a.clone(), sel640, pf640, w0t)
+            require_equal(f"{name} w0={w0t}", [(got, twin(a.clone(), sel640, pf640, w0t))])
+            ms = cuda_ms(lambda: kern(scratch, sel640, pf640, w0t), 10)
+            print(f"{name} trailing w0={w0t} on {WP} words: kernel {ms:.4f} ms ({card})")
+
+    # the probe's times are per launch of a 256-launch chain replayed from a CUDA
+    # graph: launched from Python the chain is bound by the host (check_launch_floor).
+    # Its count in the kernels line is the wrapper's calls there, not the replays.
+    probe_in = a[:256, :128].contiguous()
+    got = launch_floor.tiny_call(probe_in)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    res["launch_probe"] = (
+        require_equal("launch_probe", [(got, launch_floor.tiny_call_plain(probe_in))]),
+        launch_floor.chain_us(launch_floor.tiny_call, probe_in, 256, graph=True) / 1000,
+        launch_floor.chain_us(launch_floor.tiny_call_plain, probe_in, 256, graph=True) / 1000,
+    )
+    note_bound("launch_probe", nbytes(probe_in, got))
+    LIBRARY_MS["launch_probe"] = launch_floor.chain_us(
+        lambda x: torch.bitwise_xor(x, one), probe_in, 256, graph=True) / 1000
+    return res
+
+
+def check_launch_floor(dev, card: str) -> int:
+    """Microseconds per launch over chains of 256; returns the probe's
+    wrapper calls over the measurement (the Python-launched chain and the
+    capture pass of the graph, with their warm-ups)."""
+    from gf2bv_tpu_torch.ops import _cuda, launch_floor
+
+    _cuda.reset_launches()
+    floor = launch_floor.measure(dev, 256)
+    launches = _cuda.LAUNCHES["launch_probe"]
+    if launches < 512:
+        raise AssertionError(f"the launch-floor chains made {launches} probe launches")
+    print(f"launch floor, chains of {floor['n']} replayed from a CUDA graph, us per launch: "
+          f"probe {floor['probe_us']:.3f} (launched from Python {floor['probe_python_us']:.3f}), "
+          f"torch.bitwise_xor {floor['bitwise_xor_us']:.3f}; latency of the rank-256 update on "
+          f"one (256, 128) tile, to read against the floor: {floor['update_tile_us']:.3f} "
+          f"({card})")
+    print(f"launch_probe: {launches} wrapper calls in this measurement (8 warm-ups + "
+          f"{floor['n']} launched from Python, 8 warm-ups + {floor['n']} while the graph was "
+          f"captured); a graph replay launches the kernel without the wrapper and adds none")
+    return launches
 
 
 def check_main_path(dev, card: str) -> dict:
@@ -686,6 +871,156 @@ def check_engines(dev, card: str) -> dict:
     return launches
 
 
+def check_multi_rhs(dev, card: str) -> dict:
+    """One captured MT19937 template, NB_MULTI instances in one elimination,
+    under the default update and under each update engine; returns the
+    launch counts of the engines' kernels."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.crypto.mt import MT19937
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import _cuda, lazy_solve, multi_rhs
+    from gf2bv_tpu_torch.core.words import u32_to_torch
+
+    lin = LinearSystem([32] * 624, device=dev)
+
+    def model(ws, p):
+        rng = MT19937(list(ws))
+        return [rng.getrandbits(32) ^ p[k] for k in range(624)] + [ws[0] ^ 0x80000000]
+
+    tmpl = lin.capture(model)
+    pairs = [mt_outputs(91_000 + k) for k in range(NB_MULTI)]
+    states = [s for s, _ in pairs]
+    batch = [outs for _, outs in pairs]
+    t0 = time.perf_counter()
+    if tmpl.solve_one(batch[0]) != states[0]:
+        raise AssertionError("captured-trace solve_one did not recover the state")
+    print(f"captured template: first solve_one (trace, upload, solve) "
+          f"{time.perf_counter() - t0:.3f} s ({card})")
+
+    _cuda.reset_launches()
+    raws = tmpl.solve_raw_batch(batch)
+    torch.cuda.synchronize()
+    launches = check_launches("solve_raw_batch", MULTI_LAUNCHES)
+    sols = tmpl.solve_one_batch(batch)
+    if sols != states or lin._convert_sols_batch(raws) != states:
+        raise AssertionError("the multi-RHS batch did not recover every state")
+    bad = [list(o) for o in batch]
+    bad[5][0] ^= 1
+    got = tmpl.solve_one_batch(bad)
+    if got[5] is not None or got[:5] + got[6:] != states[:5] + states[6:]:
+        raise AssertionError("a flipped output bit must unsat its own instance only")
+    times = [timed(lambda: tmpl.solve_one_batch(batch))[1] for _ in range(3)]
+    warm = min(times)
+    print(f"multi-RHS solve_one_batch B={NB_MULTI}: all states recovered, flipped instance "
+          f"None; launches {launches}; warm best of 3 {warm:.4f} s = {NB_MULTI / warm:.1f} "
+          f"recoveries/s (all {[round(t, 4) for t in times]}) ({card})")
+
+    cs = lazy_solve.cached_system(lin, tmpl.zeros)
+    exprs = [z._expr for z in tmpl.zeros]
+    affs = tmpl._affine_matrix(exprs, cs.widths, batch)
+    bw = multi_rhs._bw_for(NB_MULTI)
+    rhs_dev = u32_to_torch(multi_rhs._pack_rhs(affs[:, cs.kept], cs.a_dev.shape[0], bw), dev)
+    if tuple(cs.a_dev.shape) != (ROWS, WP):
+        raise AssertionError(f"cached matrix {tuple(cs.a_dev.shape)}")
+    dev_ms = cuda_ms(lambda: multi_rhs.solve_multi_rhs_device(cs.a_dev, COLS, rhs_dev, bw), 2)
+    print(f"multi-RHS solve_multi_rhs_device alone (elimination on {WP_MULTI} words + "
+          f"extraction, CUDA events): {dev_ms:.2f} ms = {1000 * NB_MULTI / dev_ms:.1f} "
+          f"recoveries/s on the card ({card})")
+    profile_solve(lambda: tmpl.solve_one_batch(batch), card, f"multi-RHS B={NB_MULTI}", warm)
+
+    for p2 in UPDATE_ENGINES:
+        with engines_env("pallas_scan", p2):
+            _cuda.reset_launches()
+            got = tmpl.solve_one_batch(batch)
+            torch.cuda.synchronize()
+            counts = check_launches(f"multi-RHS under {p2}", {
+                "scan": 79, "reconstruct": 79, f"update_{p2}": 79})
+            if got != states:
+                raise AssertionError(f"multi-RHS under {p2}: states differ from the default's")
+            launches[f"update_{p2}"] = counts[f"update_{p2}"]
+            t = min(timed(lambda: tmpl.solve_one_batch(batch))[1] for _ in range(2))
+            dms = cuda_ms(
+                lambda: multi_rhs.solve_multi_rhs_device(cs.a_dev, COLS, rhs_dev, bw), 2)
+        print(f"multi-RHS under phase2={p2}: same states; launches {counts}; warm best of 2 "
+              f"{t:.4f} s = {NB_MULTI / t:.1f} recoveries/s; device alone {dms:.2f} ms ({card})")
+    return launches
+
+
+def check_sweep(dev, card: str) -> None:
+    """The flagship with SWEEP_BITS state bits pinned: every candidate one RHS
+    column of a single elimination."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.core import system
+    from gf2bv_tpu_torch.crypto.mt import MT19937
+    from gf2bv_tpu_torch.ops import _cuda
+
+    state, outs = mt_outputs(SEED)
+    lin = LinearSystem([32] * 624, device=dev)
+    mt = lin.gens()
+    rng = MT19937(list(mt))
+    zeros = [rng.getrandbits(32) ^ o for o in outs] + [mt[0] ^ 0x80000000]
+    guesses = [mt[1][i] for i in range(SWEEP_BITS)]
+    k_true = state[1] & ((1 << SWEEP_BITS) - 1)
+    system._sweep_adev_cache.clear()
+    _cuda.reset_launches()
+    sols, cold = timed(lambda: lin.solve_one_sweep(zeros, guesses))
+    launches = check_launches("solve_one_sweep", MULTI_LAUNCHES)
+    if len(sols) != 1 << SWEEP_BITS or sols[k_true] != state:
+        raise AssertionError("the sweep did not recover the state at the true candidate")
+    if sum(x is not None for x in sols) != 1:
+        raise AssertionError("more than one sweep candidate solved")
+    (cached,) = system._sweep_adev_cache.values()
+    times = [timed(lambda: lin.solve_one_sweep(zeros, guesses))[1] for _ in range(2)]
+    if list(system._sweep_adev_cache.values())[0] is not cached:
+        raise AssertionError("the second sweep did not reuse the cached device matrix")
+    warm = min(times)
+    print(f"sweep: {1 << SWEEP_BITS} candidates, 1 solves (the true state); launches "
+          f"{launches}; first call {cold:.3f} s, warm (cached device matrix "
+          f"{tuple(cached.shape)}) best of 2 {warm:.4f} s = {(1 << SWEEP_BITS) / warm:.0f} "
+          f"candidates/s ({card})")
+    system._sweep_adev_cache.clear()
+
+
+def check_skip_and_jnp(dev, card: str) -> None:
+    """phase2=skip times phase 1 alone (no state comes back); the portable
+    jnp engines run on a small system against the default engine."""
+    from gf2bv_tpu_torch.core import packing
+    from gf2bv_tpu_torch.core.words import u32_to_torch
+    from gf2bv_tpu_torch.crypto.mt_torch import solve_mt19937
+    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked
+
+    state, outs = mt_outputs(SEED)
+    with engines_env("pallas_scan", "skip"):
+        _cuda.reset_launches()
+        got = solve_mt19937(outs, 32, device=dev)
+        torch.cuda.synchronize()
+        check_launches("skip", {"scan": 79, "reconstruct": 79})
+        if got == state:
+            raise AssertionError("phase2=skip cannot recover the state")
+        t = min(timed(lambda: solve_mt19937(outs, 32, device=dev))[1] for _ in range(3))
+    print(f"engine pallas_scan+skip (phase 1 alone, no update, no state): solve_mt19937 "
+          f"warm best of 3 {t:.4f} s ({card})")
+
+    rng = np.random.default_rng(SEED)
+    cols, rows = 300, 400
+    bits = rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8)
+    bits[:, 0] = (bits[:, 1:] @ rng.integers(0, 2, size=cols)) % 2
+    a = u32_to_torch(gauss_blocked._pad(packing.pack_bits(bits, 1 + cols), 64, 128), dev)
+    want = gauss_blocked.rref_blocked(a, cols, 64, False)
+    _cuda.reset_launches()
+    got, t = timed(lambda: gauss_blocked.rref_blocked(a, cols, 64, False,
+                                                      phase1="jnp", phase2="jnp"))
+    check_launches("jnp engines", {})
+    require_equal("jnp engines against the default engine", zip(got[:2], want[:2]))
+    o_j, u_j = gauss_blocked.rref_origin_blocked(a, cols, 64, phase1="jnp", phase2="jnp")
+    o_d, u_d = gauss_blocked.rref_origin_blocked(a, cols, 64)
+    require_equal("jnp engines, trailing origin", [(o_j, o_d)])
+    if bool(u_j) or bool(u_d):
+        raise AssertionError("the small system must be satisfiable")
+    print(f"engines jnp+jnp on a {tuple(a.shape)} system (K = 64): RREF and origin = the "
+          f"default engine's, no kernel launched; {t:.3f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -714,14 +1049,29 @@ def main() -> int:
     engine_launches = check_engines(dev, card)
     for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan"):
         launches[key] = engine_launches[key]
+    check_skip_and_jnp(dev, card)
+    launches["launch_probe"] = check_launch_floor(dev, card)
+    # this slice's path: the update engines' counts come from the multi-RHS batches
+    multi = check_multi_rhs(dev, card)
+    for p2 in UPDATE_ENGINES:
+        launches[f"update_{p2}"] = multi[f"update_{p2}"]
+    check_sweep(dev, card)
 
     kernels = []
     for name, (key, source, replaces) in KERNELS.items():
         err, ms, plain_ms = res[name]
+        if launches[key] < 1:
+            raise AssertionError(f"kernel {name} was launched no time on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": BOUNDS[name][0], "bound_by": BOUNDS[name][1],
+            "library_ms": LIBRARY_MS.get(name),
         })
+    # the probe's ms is a graph replay's; its launches are the wrapper's calls in the
+    # launch-floor measurement (Python-launched chain, capture pass, warm-ups)
+    assert kernels[-1]["name"] == "launch_probe"
+    kernels[-1]["launches_are"] = "wrapper calls: chain from Python + graph capture + warm-ups"
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,8 +6,11 @@ bitvectors; asserted-zero bitvectors become a GF(2) system ``Ax = b`` that
 the panel-blocked solver eliminates on the device.  Ported so far: one
 solution (``LinearSystem(sizes, device=...).solve_one``), the affine
 solution space (``solve_raw_space`` / ``solve_all``), pre-packed systems
-(``solve_raw_packed``), batches (``solve_one_batch`` / ``solve_all_batch``)
-and the device-built MT19937 system (``crypto.mt_torch``).
+(``solve_raw_packed``), batches (``solve_one_batch`` / ``solve_all_batch``),
+captured traces (``LinearSystem.capture`` -> :class:`CapturedTrace`, whose
+``solve_raw_batch`` solves many instances with one elimination), guess
+sweeps (``solve_one_sweep`` / ``solve_all_sweep``) and the device-built
+MT19937 system (``crypto.mt_torch``).
 
 ``device="cuda"`` (the default) runs the kernels in ``csrc/``, which
 are compiled by nvcc on first use; ``device="cpu"`` runs their plain
@@ -17,6 +20,7 @@ package, and never runs nvcc.
 
 from .core.affine import AffineSpace
 from .core.bitvec import BitVec
+from .core.capture import CapturedTrace
 from .core.system import (
     DimensionTooLargeError,
     LinearSystem,
@@ -30,6 +34,7 @@ __version__ = "0.1.0"
 __all__ = [
     "AffineSpace",
     "BitVec",
+    "CapturedTrace",
     "DimensionTooLargeError",
     "LinearSystem",
     "QuadraticSystem",

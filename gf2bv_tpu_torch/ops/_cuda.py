@@ -10,7 +10,8 @@ kernel launch on a CUDA tensor does.
 
 Every C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.  The
-wrappers (ops/phase1.py, ops/panel_update.py, ops/gauss_batched.py) count
+wrappers (ops/phase1.py, ops/panel_update.py, ops/gauss_batched.py,
+ops/launch_floor.py) count
 their launches in :data:`LAUNCHES`.
 """
 
@@ -38,6 +39,7 @@ LAUNCHES = {
     "scan": 0, "reconstruct": 0, "update_full": 0, "update_seg": 0,
     "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
     "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
+    "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
 }
 
 _P = ctypes.c_void_p
@@ -65,6 +67,13 @@ _SIGNATURES = {
     # (a, sel, pf, rows, wp, kw, w0 (-1: full), bTn, used_in, prow, used_out, cT,
     #  bT_work, w0n, cols, stream)
     "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, stream)
+    "gf2_update_table": [_P, _P, _P, _I, _I, _I, _P],
+    # (a, sel, pf, pfT scratch (wp * 256 words), rows, wp, kw, w0 (-1: full), stream)
+    "gf2_update_mxu2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_update_mxu4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (out, a, n words, stream)
+    "gf2_launch_probe": [_P, _P, _I, _P],
 }
 
 _lib = None

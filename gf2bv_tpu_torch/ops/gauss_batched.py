@@ -17,10 +17,11 @@ Port of ``gf2bv_tpu/ops/gauss_batched.py``.  Per K-column panel:
 
 :func:`solve_chained` is the mode-0 batch path of ``parallel/batch.py``: a
 loop of the single-system ``rref_origin_blocked`` with one stacked readback;
-it takes any engine of ``gauss_blocked``.  The batched kernels take the
-``mxu`` family of phase-2 engines (``mxu``, ``mxu_noseg``, ``mxu_la`` all
-run the full or trailing update here, as in the reference).  The RREF is
-unique, so every result is bit for bit the JAX package's.
+it takes any engine of ``gauss_blocked``.  The batched solver's phase 2 goes
+through ``gauss_blocked.apply_rank_k_update``, as the reference's does, so it
+takes every phase-2 engine (``mxu``, ``mxu_noseg``, ``mxu_la`` all run the
+full or trailing update here).  The RREF is unique, so every result is bit
+for bit the JAX package's.
 """
 
 from __future__ import annotations
@@ -35,12 +36,12 @@ from .gauss_blocked import (
     K_PANEL,
     _ROW_BUCKET,
     _pick_engines,
+    apply_rank_k_update,
     engine,
     origin_parity_unsat,
     rref_origin_blocked,
     selector_from_prow,
 )
-from .panel_update import update_full, update_trailing
 from .phase1 import reconstruct_plain, scan_steps_plain
 
 # Systems per batched elimination.  The reference's VMEM_BATCH_MAX = 16 was
@@ -127,16 +128,17 @@ def reconstruct_batched(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Te
 
 
 def rref_blocked_batched(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
-                         trailing: bool = False):
+                         trailing: bool = False, phase2: str = "mxu"):
     """Batched blocked RREF of a (B, rows, wp) int32, ``wp % (k_panel//32)
     == 0``; the input is not modified.
 
     Returns (rref (B, rows, wp), pof (B, cols), inconsistent (B,)), per
     system what ``gauss_blocked.rref_blocked`` returns.  Like the reference
     it runs all ``wp // kw`` panels; those past ``cols`` find no pivot.
-    ``trailing=True`` (mode 0) uses the trailing update, which leaves the
-    tiles left of the panel stale: callers verify the extracted origin
-    (:func:`rref_origin_batched`)."""
+    ``trailing=True`` (mode 0) uses the trailing update of the engine
+    ``phase2``, which leaves the tiles left of the panel stale: callers
+    verify the extracted origin (:func:`rref_origin_batched`)."""
+    p2 = engine(phase2, "phase2")
     K = k_panel
     kw = K // 32
     nb, rows, wp = a.shape
@@ -159,18 +161,16 @@ def rref_blocked_batched(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
         pof.scatter_(1, dst, prow)
         for b in range(nb):
             s = selector_from_prow(b_orig[b], prow[b])
-            if trailing:
-                update_trailing(a[b], s, pf[b], w0)
-            else:
-                update_full(a[b], s, pf[b])
+            apply_rank_k_update(a[b], s, pf[b], p2, w0 if trailing else None)
     return a, pof[:, :cols], extract_device.inconsistent_device(a)
 
 
-def rref_origin_batched(a: torch.Tensor, cols: int, k_panel: int = K_PANEL):
+def rref_origin_batched(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
+                        phase2: str = "mxu"):
     """Batched mode 0: trailing elimination, per-system origin and the
     parity check of each origin against its original system.  Returns
     (origin32 (B, Wsol32), unsat (B,))."""
-    rref32, pof, _ = rref_blocked_batched(a, cols, k_panel, True)
+    rref32, pof, _ = rref_blocked_batched(a, cols, k_panel, True, phase2)
     origins = extract_device._origin_batch(rref32, pof, cols)
     unsat = torch.stack([origin_parity_unsat(a[b], origins[b]) for b in range(a.shape[0])])
     return origins, unsat
@@ -218,17 +218,17 @@ def solve_batched(eq_mats, cols: int, mode: int, phase2: str | None = None,
     ``gauss_blocked.solve_blocked``.  eq_mats: a list of packed (rows_i, W64)
     systems, or a (B, rows, W32) array or int32 tensor (a tensor is solved
     on its own device).  Runs in chunks of ``BATCH_CHUNK_MAX`` systems.
-    ``phase2`` (default from ``_pick_engines``) must be of the ``mxu``
-    family; the others raise."""
+    ``phase2`` (default from ``_pick_engines``) is any phase-2 engine of
+    ``gauss_blocked``."""
     a = _stack(eq_mats, resolve_device(device))
-    engine(phase2 or _pick_engines(a.shape[2])[1], "phase2")
+    p2 = engine(phase2 or _pick_engines(a.shape[2])[1], "phase2")
     out: list = []
     for c0 in range(0, a.shape[0], BATCH_CHUNK_MAX):
         chunk = a[c0 : c0 + BATCH_CHUNK_MAX]
         if mode == 0:
-            out.extend(_origins_or_none(*rref_origin_batched(chunk, cols)))
+            out.extend(_origins_or_none(*rref_origin_batched(chunk, cols, phase2=p2)))
         else:
-            rref32, pof, inconsistent = rref_blocked_batched(chunk, cols)
+            rref32, pof, inconsistent = rref_blocked_batched(chunk, cols, phase2=p2)
             out.extend(extract_device.finalize_batch(rref32, pof, inconsistent, cols, mode))
     return out
 

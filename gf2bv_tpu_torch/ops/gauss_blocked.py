@@ -18,14 +18,19 @@ entry points, by ``GF2BV_TPU_PHASE1`` / ``GF2BV_TPU_PHASE2``
   phase-1 kernel) and ``pallas_sub`` (the scan on a subset of rows, with a
   full pass where the subset missed a pivot);
 * phase 2: ``mxu`` (in trailing mode the segmented update), ``mxu_noseg``
-  (the trailing update with a runtime panel start) and ``mxu_la`` (the
+  (the trailing update with a runtime panel start), ``mxu_la`` (the
   update of panel t fused with the scan of panel t+1; too small shapes run
-  ``mxu``, as in the reference).
+  ``mxu``, as in the reference), ``pallas`` (the table kernel; full-width
+  in trailing mode too), ``mxu2`` and ``mxu4`` (the update as a tensor-core
+  product, each with its own trailing rule) and the diagnostic ``skip``
+  (no update at all: it times phase 1 alone and solves nothing);
+* ``jnp`` in either phase: the reference's portable formulation, plain
+  PyTorch on either device (phase 1 a per-pivot loop over the panel's
+  columns, slow by nature; phase 2 ``panel_update.rank_k_xor_``).
 
 A name with the ``_interpret`` suffix means the same engine.  A CUDA tensor
 runs the engine's Hopper kernels, a CPU tensor their plain twins; nothing
-else chooses between them.  The engines the port has not yet got raise
-``NotImplementedError``.  The RREF is unique and every engine keeps the
+else chooses between them.  The RREF is unique and every engine keeps the
 pivot rule, so results are bit for bit those of the JAX package.
 """
 
@@ -43,28 +48,21 @@ from ..core.words import (
 )
 from . import extract_device
 from .panel_update import (
-    SEG_TILE, la_grid, update_full, update_scan, update_seg, update_trailing,
+    SEG_TILE, la_grid, rank_k_xor_, update_full, update_mxu2, update_mxu4, update_pallas,
+    update_scan, update_seg, update_trailing,
 )
 from .phase1 import (
-    SUBSET_ROWS, phase1_panel, phase1_panel_split, phase1_scan_subset, reconstruct, scan,
+    SUBSET_ROWS, _bitval, phase1_panel, phase1_panel_split, phase1_scan_subset, reconstruct,
+    scan,
 )
 
 K_PANEL = 256  # panel width in bits
 _ROW_BUCKET = 256
 
-PHASE1_ENGINES = ("pallas_scan", "pallas_scan2", "pallas_scanm", "pallas", "pallas_sub")
-PHASE2_ENGINES = ("mxu", "mxu_noseg", "mxu_la")
+PHASE1_ENGINES = ("pallas_scan", "pallas_scan2", "pallas_scanm", "pallas", "pallas_sub",
+                  "jnp")
+PHASE2_ENGINES = ("mxu", "mxu_noseg", "mxu_la", "pallas", "mxu2", "mxu4", "skip", "jnp")
 _SCAN_VARIANT = {"pallas_scan": "", "pallas_scan2": "2", "pallas_scanm": "m", "pallas_sub": ""}
-_NOT_PORTED = {
-    "phase1": {"jnp": "ROADMAP queue 1 item 3 (the portable jnp engines)"},
-    "phase2": {
-        "jnp": "ROADMAP queue 1 item 3 (the portable jnp engines)",
-        "pallas": "ROADMAP queue 2 item 8 (update engine pallas)",
-        "mxu2": "ROADMAP queue 2 item 10 (update engine mxu2)",
-        "mxu4": "ROADMAP queue 2 item 11 (update engine mxu4)",
-        "skip": "ROADMAP queue 2, the next slice (the phase-1-only diagnostic skip)",
-    },
-}
 
 # Panels the pallas_sub engine ran a second time over all rows because the
 # subset missed a pivot; reset it with SUBSET_FALLBACKS["panels"] = 0.
@@ -73,16 +71,34 @@ SUBSET_FALLBACKS = {"panels": 0}
 
 def engine(name: str, phase: str) -> str:
     """The engine ``name`` (``_interpret`` suffix dropped) for ``phase``
-    ("phase1" or "phase2"); an engine not ported yet raises
-    NotImplementedError, an unknown name ValueError."""
+    ("phase1" or "phase2"); an unknown name raises ValueError."""
     known = PHASE1_ENGINES if phase == "phase1" else PHASE2_ENGINES
     base = name[: -len("_interpret")] if name.endswith("_interpret") else name
     if base in known:
         return base
-    later = _NOT_PORTED[phase].get(base)
-    if later:
-        raise NotImplementedError(f"{phase} engine {name!r} is not ported yet: {later}")
     raise ValueError(f"unknown {phase} engine {name!r}; expected one of {known}")
+
+
+def apply_rank_k_update(a: torch.Tensor, s: torch.Tensor, pf: torch.Tensor, phase2: str,
+                        w0: int | None = None) -> torch.Tensor:
+    """Phase 2 under the engine ``phase2`` (a name :func:`engine` returned),
+    in place.  ``w0`` (the panel's first word) asks for the trailing update:
+    the ``mxu`` family, ``mxu2`` and ``mxu4`` take it, each with its own rule;
+    ``pallas`` and ``jnp`` update every word whatever ``w0`` (``jnp`` is
+    plain PyTorch on either device, as the reference's is plain jnp outside
+    any kernel); ``skip`` leaves ``a`` as it is."""
+    if phase2 == "skip":
+        return a
+    if phase2 == "mxu4":
+        return update_mxu4(a, s, pf, w0)
+    if phase2 == "mxu2":
+        return update_mxu2(a, s, pf, w0)
+    if phase2.startswith("mxu"):
+        return update_full(a, s, pf) if w0 is None else update_trailing(a, s, pf, w0)
+    if phase2 == "pallas":
+        return update_pallas(a, s, pf)
+    rank_k_xor_(a, s, pf)
+    return a
 
 
 def _pick_engines(wp: int) -> tuple[str, str]:
@@ -119,6 +135,52 @@ def selector_from_prow(b_orig: torch.Tensor, prow: torch.Tensor) -> torch.Tensor
     return s_ext[:rows]
 
 
+def phase1_panel_jnp(a: torch.Tensor, b_orig: torch.Tensor, used: torch.Tensor,
+                     w0: int, K: int, cols: int):
+    """The portable ``jnp`` phase 1 of one panel, the reference's per-pivot
+    loop in plain PyTorch on either device: per column the lowest unused row
+    with the bit set pivots, its row is rebuilt at full width from the
+    matrix and the earlier pivot rows, the slice's other candidates are
+    eliminated and their coefficients recorded; then the back pass over the
+    pivot rows.  a (rows, wp) at the panel's start, b_orig (rows, kw) its
+    slice, used (1, rows).  Returns (pf (K, wp), prow (K,), used'), the
+    contract of ``phase1.phase1_panel_split``.  K small launches per panel:
+    slow by nature."""
+    rows, wp = a.shape
+    kw = K // 32
+    dev = a.device
+    b = b_orig.clone()
+    cmat = torch.zeros((rows, kw), dtype=I32, device=dev)
+    pf = torch.zeros((K, wp), dtype=I32, device=dev)
+    u = used[0] != 0
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    row_ids = torch.arange(rows, dtype=I32, device=dev)
+    pf_ids = torch.arange(K, dtype=I32, device=dev)
+    for jj in range(K):
+        if not 1 <= 32 * w0 + jj <= cols:
+            continue
+        word, shift = jj >> 5, jj & 31
+        cand = (((b[:, word] >> shift) & 1) == 1) & ~u
+        piv = torch.where(cand, row_ids, rows).amin()
+        has = piv < rows
+        ps = torch.where(has, piv, 0).long()
+        # the forward pivot row at full width: a[piv] and the earlier rows
+        # its recorded coefficients select
+        take = ((cmat[ps][(pf_ids >> 5).long()] >> (pf_ids & 31)) & 1) == 1
+        full = a[ps] ^ xor_fold(torch.where(take[:, None], pf, 0), dim=0)
+        pf[jj] = torch.where(has, full, 0)
+        elim = cand & (row_ids != piv)
+        b ^= torch.where(elim[:, None], b[ps][None, :], 0)
+        cmat[:, word] ^= torch.where(elim, _bitval(shift), 0).to(I32)
+        u = u | ((row_ids == piv) & has)
+        prow[jj] = torch.where(has, piv, -1)
+    for jj in range(K - 1, -1, -1):  # back pass -> intra-panel RREF rows
+        colb = (pf[:, w0 + (jj >> 5)] >> (jj & 31)) & 1
+        elim = (colb == 1) & (pf_ids != jj) & (prow[jj] >= 0)
+        pf ^= torch.where(elim[:, None], pf[jj][None, :], 0)
+    return pf, prow, u.to(I32)[None, :]
+
+
 class _Panels:
     """The state of one blocked elimination: the matrix (updated in place),
     the used rows and the pivot map (with its dump slot at ``cols``)."""
@@ -134,6 +196,7 @@ class _Panels:
         self.used = torch.zeros((1, self.rows), dtype=I32, device=dev)
         self.pof = torch.full((cols + 1,), -1, dtype=I32, device=dev)
         self.trailing = trailing
+        self.phase2 = phase2
         # mxu in trailing mode: the segmented update, dead tiles d = w0 // 128
         self.seg = (trailing and phase2 == "mxu" and self.wp % SEG_TILE == 0
                     and SEG_TILE % self.kw == 0)
@@ -151,10 +214,8 @@ class _Panels:
                 update_seg(a, s, pf, dead)
             else:
                 update_full(a, s, pf)
-        elif self.trailing:
-            update_trailing(a, s, pf, w0)
         else:
-            update_full(a, s, pf)
+            apply_rank_k_update(a, s, pf, self.phase2, w0 if self.trailing else None)
 
     def full_pass(self, t: int, phase1: str) -> None:
         """One panel over all rows (the reference's _panel_kernel_full)."""
@@ -162,7 +223,9 @@ class _Panels:
         w0 = t * kw
         b_orig = self.a[:, w0 : w0 + kw].clone()  # saved before the update
         bT = b_orig.T.contiguous()
-        if phase1 == "pallas":
+        if phase1 == "jnp":
+            pf, prow, self.used = phase1_panel_jnp(self.a, b_orig, self.used, w0, K, self.cols)
+        elif phase1 == "pallas":
             pf, prow, self.used = phase1_panel(self.a, bT, self.used, w0, K, self.cols)
         else:
             pf, prow, self.used = phase1_panel_split(
@@ -254,11 +317,12 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
     ``trailing=True`` (mode-0 fast path): only the tiles from the panel's on
     and word 0 stay up to date (``mxu``: panels are grouped by their count
     of dead 128-word tiles ``d = (t*kw) // 128``, and panels with ``d >= 1``
-    use the segmented update; ``mxu_noseg`` and ``mxu_la``: the trailing
-    update with the panel start).  The returned matrix is then not a full
-    RREF left of the last panel and ``inconsistent`` is unreliable; mode 0
-    verifies its solution against the original system instead
-    (:func:`rref_origin_blocked`).
+    use the segmented update; ``mxu_noseg``, ``mxu_la``, ``mxu2`` and
+    ``mxu4``: the engine's trailing update with the panel start; ``pallas``
+    and ``jnp`` update every word all the same).  The returned matrix is
+    then not a full RREF left of the last panel and ``inconsistent`` is
+    unreliable; mode 0 verifies its solution against the original system
+    instead (:func:`rref_origin_blocked`).
     """
     p1 = engine(phase1, "phase1")
     p2 = engine(phase2, "phase2")

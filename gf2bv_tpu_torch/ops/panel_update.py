@@ -20,7 +20,21 @@ though one CUDA kernel (``csrc/panel_update.cu``) serves both:
   ``panel_update_mxu_scan``, the ``mxu_la`` engine); plain twin
   :func:`update_scan_plain`.
 
-All four update ``a`` IN PLACE and return it (the reference returns a new
+* :func:`update_pallas` — the full-width update of the ``pallas`` engine
+  (``_panel_update_kernel`` via ``panel_update``); CUDA
+  ``csrc/update_table.cu``, a Four-Russians table kernel; plain twin
+  :func:`update_pallas_plain`, the TPU body's K mask-and-XOR steps.
+* :func:`update_mxu2` / :func:`update_mxu4` — the update as a tensor-core
+  product on bit planes (``_mxu2_kernel`` / ``_mxu4_kernel`` and their
+  trailing forms via ``panel_update_mxu2`` / ``panel_update_mxu4``); CUDA
+  ``csrc/update_mma.cu`` (one-bit ``mma.sync``; ``mxu4`` repacks with a
+  second ``mma.sync``); plain twins :func:`update_mxu2_plain` /
+  :func:`update_mxu4_plain`, which follow the TPU bodies (unpack to 0/1,
+  integer product, parity, repack).  Their trailing rules differ: ``mxu2``
+  only skips tiles wholly left of ``w0`` and always updates tile 0 in full;
+  ``mxu4`` also cuts tile 0 to its const word once ``tw <= w0``.
+
+All of them update ``a`` IN PLACE and return it (the reference returns a new
 array); callers that need the input afterwards pass a clone.  The words the
 segmented update does not touch keep their input values here, where the
 reference leaves them undefined; the trailing update's untouched words are
@@ -29,9 +43,10 @@ copied through by the reference too, so there the whole matrix is defined.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..core.words import srl
+from ..core.words import I32, srl
 from . import _cuda
 
 SEG_TILE = 128  # words per trailing-mode tile (pallas_update's tw)
@@ -237,3 +252,212 @@ def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     _cuda.check(rc, "fused update + scan kernel")
     _cuda.LAUNCHES["update_scan"] += 1
     return a, prow, cT, used_o
+
+
+# -- the update engines pallas, mxu2, mxu4 ------------------------------------------
+
+
+def pick_tw(wp: int) -> int:
+    """Largest word tile (a multiple of 128) dividing ``wp``
+    (``pallas_update.pick_tw``); ``wp`` itself below 128."""
+    for tw in (640, 512, 384, 256, 128):
+        if wp % tw == 0:
+            return tw
+    return wp
+
+
+def unpack_sel_bits(sel: torch.Tensor) -> torch.Tensor:
+    """(rows, kw) words -> (rows, K) int8 0/1, selector bit t in column t."""
+    rows, kw = sel.shape
+    shifts = torch.arange(32, dtype=I32, device=sel.device)
+    return ((sel[:, :, None] >> shifts) & 1).reshape(rows, 32 * kw).to(torch.int8)
+
+
+def unpack_pf_planes2(pf: torch.Tensor, tw: int) -> torch.Tensor:
+    """(K, wp) words -> (K, 32*wp) int8 0/1, columns grouped per word tile as
+    [plane b major, word minor]: column ``j*(32*tw) + b*tw + w_local``."""
+    k, wp = pf.shape
+    nj = wp // tw
+    shifts = torch.arange(32, dtype=I32, device=pf.device)
+    planes = ((pf[None, :, :] >> shifts[:, None, None]) & 1).to(torch.int8)  # (32, K, wp)
+    return planes.reshape(32, k, nj, tw).permute(1, 2, 0, 3).reshape(k, nj * 32 * tw)
+
+
+def _pack_weight_matrix(tw: int) -> np.ndarray:
+    """Block-diagonal byte-pack weights (8*tw, tw) int8: ``W[b*tw + w, w] =
+    2^b``, with b = 7 stored as -128 (the product's low byte is still 0x80,
+    and bytes are masked before assembly)."""
+    w = np.zeros((8 * tw, tw), np.int8)
+    ar = np.arange(tw)
+    for b in range(8):
+        w[b * tw + ar, ar] = (1 << b) if b < 7 else -128
+    return w
+
+
+def _int_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product for the twins.  An integer matmul
+    on the CPU; on the card, where torch has none, a float32 one (every sum
+    here is below 2**24 in magnitude, so it is exact)."""
+    if x.device.type == "cpu":
+        return x.to(I32) @ y.to(I32)
+    return (x.float() @ y.float()).to(I32)
+
+
+def _i64_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 words with the same low 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(I32)
+
+
+def _mxu_tiles(wp: int, w0: int | None) -> tuple[int, int]:
+    """(tw, number of word tiles) of the mxu2 / mxu4 engines; checks w0."""
+    if w0 is not None and not 0 <= w0 < wp:
+        raise ValueError(f"w0={w0} outside the {wp}-word rows")
+    tw = SEG_TILE if wp % SEG_TILE == 0 else wp
+    return tw, wp // tw
+
+
+def update_pallas_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
+    """Plain twin of :func:`update_pallas`: the TPU body, one mask-and-XOR
+    per selector bit on each (rows, ``pick_tw(wp)``) word tile."""
+    _, wp, kw = _check_shapes(a, sel, pf)
+    tw = pick_tw(wp)
+    for j in range(wp // tw):
+        acc = a[:, j * tw : (j + 1) * tw]
+        for w in range(kw):
+            sw = sel[:, w]
+            for b in range(32):
+                mask = -((sw >> b) & 1)  # 0 or all ones
+                acc ^= mask[:, None] & pf[32 * w + b, j * tw : (j + 1) * tw][None, :]
+    return a
+
+
+def update_pallas(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
+    """``a[i] ^= XOR{pf[t] : bit t of sel[i]}`` over every word, in place (the
+    ``pallas`` engine: it takes no panel start, so it is full-width in
+    trailing mode too).  On the card a table kernel: 256-entry XOR tables of
+    each 8 pf rows in shared memory, one table read per 8 selector bits."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    if not _cuda.on_cuda(a):
+        return update_pallas_plain(a, sel, pf)
+    dev = a.device
+    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
+                           ("pf", pf, (32 * kw, wp))):
+        _cuda.require(t, name, shape, dev)
+    if kw > 8:
+        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    rc = _cuda.lib().gf2_update_table(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "table panel update kernel")
+    _cuda.LAUNCHES["update_pallas"] += 1
+    return a
+
+
+def _plane_counts(selbits: torch.Tensor, pfbits2: torch.Tensor, j: int, tw: int):
+    """(rows, 32*tw) int32: tile j's product, plane-major."""
+    return _int_matmul(selbits, pfbits2[:, j * 32 * tw : (j + 1) * 32 * tw])
+
+
+def update_mxu2_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                      w0: int | None = None):
+    """Plain twin of :func:`update_mxu2`, the TPU body per word tile: one
+    (rows, K) x (K, 32*tw) integer product on bit planes, parity, shift/or
+    repack.  Trailing: a tile ``j >= 1`` with ``(j+1)*tw <= w0`` is kept."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    tw, nj = _mxu_tiles(wp, w0)
+    selbits = unpack_sel_bits(sel)
+    pfbits2 = unpack_pf_planes2(pf, tw)
+    for j in range(nj):
+        if w0 is not None and j > 0 and (j + 1) * tw <= w0:
+            continue
+        counts = _plane_counts(selbits, pfbits2, j, tw)
+        packed = torch.zeros((a.shape[0], tw), dtype=I32, device=a.device)
+        for b in range(32):
+            packed |= (counts[:, b * tw : (b + 1) * tw] & 1) << b
+        a[:, j * tw : (j + 1) * tw] ^= packed
+    return a
+
+
+def _const_word_update_(a: torch.Tensor, selbits: torch.Tensor, pf: torch.Tensor) -> None:
+    """The trailing kernels' tile-0 const-only path: word 0 alone, through a
+    (rows, K) x (K, 32) product against the const word's bit planes."""
+    shifts = torch.arange(32, dtype=I32, device=pf.device)
+    pfconst = ((pf[:, 0:1] >> shifts[None, :]) & 1).to(torch.int8)  # (K, 32)
+    counts = _int_matmul(selbits, pfconst)
+    word0 = ((counts & 1).long() << shifts.long()[None, :]).sum(dim=1)
+    a[:, 0] ^= _i64_words(word0)
+
+
+def update_mxu4_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                      w0: int | None = None):
+    """Plain twin of :func:`update_mxu4`, the TPU body per word tile: the
+    bit-plane product, parity, and the 32-plane -> word repack as four
+    (rows, 8*tw) x (8*tw, tw) products against power-of-two byte weights
+    (bit 7 as int8 -128, each byte masked with 0xFF).  Trailing as the
+    ``mxu`` engine: kept tiles, and tile 0 const-word-only once
+    ``tw <= w0``."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    tw, nj = _mxu_tiles(wp, w0)
+    selbits = unpack_sel_bits(sel)
+    pfbits2 = unpack_pf_planes2(pf, tw)
+    packw = torch.from_numpy(_pack_weight_matrix(tw)).to(a.device)
+    for j in range(nj):
+        if w0 is not None and j > 0 and (j + 1) * tw <= w0:
+            continue
+        if w0 is not None and j == 0 and tw <= w0:
+            _const_word_update_(a, selbits, pf)
+            continue
+        counts = _plane_counts(selbits, pfbits2, j, tw)
+        packed = torch.zeros((a.shape[0], tw), dtype=torch.int64, device=a.device)
+        for g in range(4):
+            cg = (counts[:, g * 8 * tw : (g + 1) * 8 * tw] & 1).to(torch.int8)
+            packed |= (_int_matmul(cg, packw) & 0xFF).long() << (8 * g)
+        a[:, j * tw : (j + 1) * tw] ^= _i64_words(packed)
+    return a
+
+
+def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0):
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    dev = a.device
+    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
+                           ("pf", pf, (32 * kw, wp))):
+        _cuda.require(t, name, shape, dev)
+    if kw > 8:
+        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    pf_t = torch.empty((wp, 256), dtype=I32, device=dev)  # pf transposed at bit level
+    rc = getattr(_cuda.lib(), fn_name)(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), pf_t.data_ptr(), rows, wp, kw,
+        -1 if w0 is None else int(w0), _cuda.stream_of(a),
+    )
+    _cuda.check(rc, what)
+    _cuda.LAUNCHES[key] += 1
+    return a
+
+
+def update_mxu2(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                w0: int | None = None):
+    """The rank-K update as one tensor-core product (the ``mxu2`` engine), in
+    place.  ``w0`` None: every word.  Else the trailing update for a panel
+    starting at word ``w0``: with tiles of ``tw = 128`` words (``wp`` when 128
+    does not divide it), a tile ``j >= 1`` with ``(j+1)*tw <= w0`` keeps its
+    words; tile 0 always gets the whole update."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    _mxu_tiles(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_mxu2_plain(a, sel, pf, w0)
+    return _launch_mma("gf2_update_mxu2", "update_mxu2", "mxu2 panel update kernel",
+                       a, sel, pf, w0)
+
+
+def update_mxu4(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                w0: int | None = None):
+    """The ``mxu4`` engine: the product of :func:`update_mxu2` with the
+    parity planes packed back into words by a second tensor-core product, in
+    place.  Trailing (``w0`` given) as :func:`update_trailing`: tiles wholly
+    left of ``w0`` keep their words and tile 0 then updates only word 0."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    _mxu_tiles(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_mxu4_plain(a, sel, pf, w0)
+    return _launch_mma("gf2_update_mxu4", "update_mxu4", "mxu4 panel update kernel",
+                       a, sel, pf, w0)

@@ -16,7 +16,9 @@ import torch
 
 from gf2bv_tpu_torch import LinearSystem, torch_to_u32, u32_to_torch
 from gf2bv_tpu_torch.core import packing
-from gf2bv_tpu_torch.ops import _cuda, gauss_batched, gauss_blocked, panel_update, phase1
+from gf2bv_tpu_torch.ops import (
+    _cuda, gauss_batched, gauss_blocked, launch_floor, multi_rhs, panel_update, phase1,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +97,7 @@ def test_wrapper_counts_launches(dev):
         "scan": 0, "reconstruct": 0, "update_full": 1, "update_seg": 1,
         "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
         "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
+        "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
     }
 
 
@@ -332,3 +335,100 @@ def test_engine_rref_cuda_matches_default(dev, p1, p2):
     o_w, u_w = gauss_blocked.rref_origin_blocked(a, cols)
     o_g, u_g = gauss_blocked.rref_origin_blocked(a, cols, phase1=p1, phase2=p2)
     assert torch.equal(o_g, o_w) and bool(u_g) == bool(u_w)
+
+
+# -- the update engines pallas, mxu2, mxu4 and the launch probe ---------------------------
+
+UPDATE_SHAPES = [(256, 128, 64), (300, 384, 256), (1000, 200, 96), (20224, 768, 256)]
+
+
+@pytest.mark.parametrize("rows,wp,K", UPDATE_SHAPES + [(77, 13, 32)])
+def test_update_pallas_kernel(dev, rows, wp, K):
+    """The table kernel on aligned and ragged widths (wp % 4 != 0 takes the
+    scalar loads) against the mask-and-XOR twin and the default update."""
+    rng = np.random.default_rng(rows + wp + 5)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    _cuda.reset_launches()
+    got = panel_update.update_pallas(a.clone(), sel, pf)
+    assert _cuda.LAUNCHES["update_pallas"] == 1 and _cuda.LAUNCHES["update_full"] == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, panel_update.update_full(a.clone(), sel, pf))
+    if rows <= 1000:
+        assert torch.equal(got, panel_update.update_pallas_plain(a.clone(), sel, pf))
+
+
+@pytest.mark.parametrize("rows,wp,K", UPDATE_SHAPES)
+@pytest.mark.parametrize("name", ["mxu2", "mxu4"])
+def test_update_mma_kernels(dev, name, rows, wp, K):
+    """The tensor-core kernels, full and for w0 in the first tile, on tile
+    edges and in the last tile: the whole matrix against the twin, so each
+    engine's trailing rule is held."""
+    kernel = getattr(panel_update, f"update_{name}")
+    twin = getattr(panel_update, f"update_{name}_plain")
+    rng = np.random.default_rng(rows + wp + 6)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    for w0 in [None] + sorted({0, 8, 127, 128, 160, 256, wp - 8} & set(range(wp))):
+        _cuda.reset_launches()
+        got = kernel(a.clone(), sel, pf, w0)
+        assert _cuda.LAUNCHES[f"update_{name}"] == 1
+        want = twin(a.clone(), sel, pf, w0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w0
+    assert torch.equal(kernel(a.clone(), sel, pf), panel_update.update_full(a.clone(), sel, pf))
+
+
+def test_launch_probe_kernel(dev):
+    rng = np.random.default_rng(15)
+    a = _rand(rng, launch_floor.PROBE_SHAPE, dev)
+    _cuda.reset_launches()
+    got = launch_floor.tiny_call(a)
+    assert _cuda.LAUNCHES["launch_probe"] == 1
+    assert torch.equal(got, launch_floor.tiny_call_plain(a)) and got.data_ptr() != a.data_ptr()
+    floor = launch_floor.measure(dev, n=64)
+    assert all(floor[k] > 0 for k in ("probe_us", "probe_python_us", "bitwise_xor_us",
+                                      "update_tile_us"))
+
+
+@pytest.mark.parametrize("p2", ["pallas", "mxu2", "mxu4", "jnp", "skip"])
+def test_update_engine_rref_cuda_matches_default(dev, p2):
+    rng = np.random.default_rng(19)
+    cols, rows = 8190, 600
+    bits = rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8)
+    a32 = gauss_blocked._pad(packing.pack_bits(bits, 1 + cols), 256, word_align=128)
+    a = u32_to_torch(a32, dev)
+    got = gauss_blocked.rref_blocked(a, cols, 256, False, phase2=p2)
+    if p2 == "skip":
+        assert torch.equal(got[0], a)
+        return
+    want = gauss_blocked.rref_blocked(a, cols, 256, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    o_w, u_w = gauss_blocked.rref_origin_blocked(a, cols)
+    o_g, u_g = gauss_blocked.rref_origin_blocked(a, cols, phase2=p2)
+    assert torch.equal(o_g, o_w) and bool(u_g) == bool(u_w)
+
+
+def test_multi_rhs_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(23)
+    rows, cols, nb = 300, 260, 70
+    coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
+    coeff[:, 40] = 0
+    coeff[rows - 1] = coeff[0] ^ coeff[1]
+    rhs = ((rng.integers(0, 2, size=(nb, cols)).astype(np.uint8) @ coeff.T) % 2).astype(np.uint8)
+    rhs[::4, rows - 1] ^= 1
+    bits = np.concatenate([np.zeros((rows, 1), np.uint8), coeff], axis=1)
+    eqs = packing.pack_bits(bits, 1 + cols)
+    a32 = gauss_blocked._pad(eqs, 256, word_align=128)
+    for mode in (0, 1):
+        want = multi_rhs.solve_multi_rhs(a32, cols, rhs, mode, device="cpu")
+        for p2 in (None, "pallas", "mxu2", "mxu4"):
+            got = multi_rhs.solve_multi_rhs(a32, cols, rhs, mode, phase2=p2, device=dev)
+            for g, w in zip(got, want):
+                if mode == 0 or w is None:
+                    assert g == w
+                else:
+                    assert g.origin == w.origin and g.basis == w.basis

@@ -295,9 +295,19 @@ def test_lookahead_gate_runs_mxu(monkeypatch):
     ("phase2", "skip"),
 ])
 def test_unported_engines_raise(phase, name):
+    """The engines that used to raise as not ported now run: each gives the
+    default engine's RREF, pivot map and verdict (skip, the phase-1-only
+    diagnostic, the pivot map of the first panel and the matrix untouched).
+    Nothing is left that raises NotImplementedError."""
     a32 = _system(6, 40, 30)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gb_torch.rref_blocked(t32(a32), 30, 256, **{phase: name})
+    want = gb_torch.rref_blocked(t32(a32), 30, 256)
+    got = gb_torch.rref_blocked(t32(a32), 30, 256, **{phase: name})
+    if name == "skip":
+        assert np.array_equal(torch_to_u32(got[0]), a32)
+        assert torch.equal(got[1], want[1])  # one panel: phase 1 saw the same matrix
+        return
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_unknown_engine_names_raise():
@@ -390,8 +400,7 @@ def test_lazy_cache_keeps_its_engines(monkeypatch):
 
 
 def test_batched_solvers_take_engines():
-    """solve_chained runs any engine; solve_batched takes the mxu family and
-    raises for the update engines not ported yet."""
+    """solve_chained and solve_batched run any engine."""
     cols = 140
     mats = []
     for i in range(2):
@@ -409,5 +418,7 @@ def test_batched_solvers_take_engines():
         assert ints(got) == want
     for p2 in ("mxu_la", "mxu_noseg_interpret"):
         assert ints(gauss_batched.solve_batched(mats, cols, 0, phase2=p2, device="cpu")) == want
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
-        gauss_batched.solve_batched(mats, cols, 0, phase2="mxu2", device="cpu")
+    for p2 in ("mxu2", "mxu4_interpret", "pallas", "jnp"):
+        assert ints(gauss_batched.solve_batched(mats, cols, 0, phase2=p2, device="cpu")) == want
+    with pytest.raises(ValueError, match="unknown phase2 engine"):
+        gauss_batched.solve_batched(mats, cols, 0, phase2="mxu3", device="cpu")

@@ -135,9 +135,41 @@ def test_literal_one_is_unsat():
     "name", ["capture", "solve_one_sweep", "solve_all_sweep", "get_mat_numpy", "get_mat_scipy"]
 )
 def test_later_surfaces_raise(name):
-    lin = LinearSystem([8], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(lin, name)([])
+    """The surfaces that used to raise as not ported now return the JAX
+    package's answer on a small system; QuadraticSystem still raises."""
+    secret = 0xB7
+    lin, lin_j = LinearSystem([8], device="cpu"), gf2bv_tpu.LinearSystem([8], backend="blocked")
+
+    def zeros_of(system, lazy):
+        (x,) = system.gens(lazy=lazy)
+        masks = (0x1D, 0xE3, 0x5A, 0x96, 0x0F, 0x71)  # rank 6: a 2-dimensional space
+        return x, [(x & m).sum() ^ (bin(secret & m).count("1") & 1) for m in masks]
+
+    if name == "capture":
+        def model(g, p):
+            return [(g[0] ^ (g[0] >> 3)) ^ p[0], (g[0] << 2) ^ p[1]]
+
+        vals = [secret ^ (secret >> 3), (secret << 2) & 0xFF]
+        got = lin.capture(model).solve_one(vals)
+        assert got == lin_j.capture(model).solve_one(vals) == (secret,)
+    elif name == "solve_one_sweep":
+        (x, zeros), (x_j, zeros_j) = zeros_of(lin, False), zeros_of(lin_j, False)
+        got = lin.solve_one_sweep(zeros, [x & 3])
+        assert got == lin_j.solve_one_sweep(zeros_j, [x_j & 3]) and len(got) == 4
+        assert got[secret & 3] is not None
+    elif name == "solve_all_sweep":
+        (x, zeros), (x_j, zeros_j) = zeros_of(lin, False), zeros_of(lin_j, False)
+        got = [None if g is None else sorted(g) for g in lin.solve_all_sweep(zeros, [x & 3])]
+        want = [None if g is None else sorted(g) for g in lin_j.solve_all_sweep(zeros_j, [x_j & 3])]
+        assert got == want and any((secret,) in (g or []) for g in got)
+    else:
+        (_, zeros), (_, zeros_j) = zeros_of(lin, True), zeros_of(lin_j, True)
+        a, b = getattr(lin, name)(zeros)
+        a_j, b_j = getattr(lin_j, name)(zeros_j)
+        if name == "get_mat_scipy":
+            a, a_j = a.toarray(), a_j.toarray()
+        assert a.shape == (6, 8) and np.array_equal(a, a_j) and np.array_equal(b, b_j)
+        assert np.array_equal((a @ [(secret >> i) & 1 for i in range(8)]) % 2, b)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QuadraticSystem([8], device="cpu")
 

@@ -32,8 +32,28 @@ SCRIPT = textwrap.dedent(
     assert lin.solve_one(zeros) == tuple(state), lin.solve_one(zeros)
     assert list(lin.solve_all(zeros)) == [tuple(state)]
     assert lin.solve_one_batch([zeros, zeros]) == [tuple(state)] * 2
+    from gf2bv_tpu_torch.ops import lazy_solve
+    cs = lazy_solve.cached_system(lin, zeros)
+    lazy_a = cs.a_dev
+    rhs = lazy_solve._affine_vector([z._expr for z in zeros], cs.widths)[cs.kept][None, :]
     import gf2bv_tpu_torch.parallel.batch
     import gf2bv_tpu_torch.ops.gauss_batched
+    import gf2bv_tpu_torch.ops.multi_rhs
+    import gf2bv_tpu_torch.ops.launch_floor
+    import gf2bv_tpu_torch.core.capture
+
+    def model(ws, p):
+        g = MersenneTwister(list(ws), **params)
+        return [g() ^ p[k] for k in range(8)] + [ws[0] ^ 0x80000000]
+
+    tmpl = lin.capture(model)
+    assert tmpl.solve_one_batch([outs, outs]) == [tuple(state)] * 2
+    swept = lin.solve_one_sweep(zeros, [v[1] & 3])
+    assert [s for s in swept if s is not None] == [tuple(state)]
+    for p2 in ("pallas", "mxu2", "mxu4", "jnp"):
+        got = gf2bv_tpu_torch.ops.multi_rhs.solve_multi_rhs(
+            lazy_a, lin.cols, rhs, 0, phase2=p2, device="cpu")
+        assert got == [sum(w << (32 * i) for i, w in enumerate(state))], p2
     assert "jax" not in sys.modules
     assert not any(m == "gf2bv_tpu" or m.startswith("gf2bv_tpu.") for m in sys.modules)
     assert _cuda._lib is None
