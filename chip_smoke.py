@@ -2,36 +2,48 @@
 """Smoke run of the PyTorch/CUDA port (gf2bv_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--kernels-only`` stops after phase 3 and prints no result line.)
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each of the fifteen kernels against its plain PyTorch twin on the
-   card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640
-   words, K = 256, panel 20), and times both with CUDA events: scan,
-   reconstruct, full-width update, segmented update (dead_tiles 1..4),
-   trailing update (w0 in {0, 160, 320, 632}, whole matrix), batched scan
-   and batched rebuild (4 systems), two-pivot scan, min-key scan, fused
-   phase 1, fused update + scan (full and trailing); also the batched
-   scan's time per step for 1, 4 and 16 systems and each scan's time per
-   step.  The update engines' kernels (the table kernel of engine pallas,
-   the tensor-core kernels of mxu2 and mxu4) run at panel 20 of the 768-word
-   multi-RHS matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640
-   words; the launch probe on (256, 128) words.  Beside each time stands the
-   kernel's bound: its bytes (inputs read once, outputs written once) over
-   3.35 TB/s, or its operations over the int8 tensor-core peak.
+3. Holds each kernel (the ports of the fifteen TPU kernels, and the one-block
+   scan kept beside the cluster scan) against its plain PyTorch twin on the
+   card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
+   K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
+   full-width update, segmented update (dead_tiles 1..4), trailing update
+   (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
+   rebuild (4 systems), two-pivot scan, min-key scan, fused phase 1, fused
+   update + scan (full and trailing); also the batched scan's time per step
+   for 1, 4 and 16 systems and each scan's time per step.  The update
+   engines' kernels (the table kernel of engine pallas, the tensor-core
+   kernels of mxu2 and mxu4) run at panel 20 of the 768-word multi-RHS
+   matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words; the
+   launch probe on (256, 128) words.  Beside each time stands the kernel's
+   bound: its bytes (inputs read once, outputs written once) over 3.35 TB/s,
+   or its operations over the int8 tensor-core peak.
+   The two redesigned kernels are held to more (check_redesign): the
+   cluster scan against its twin on a subset slice (one block), at an odd row
+   count and on the tall system (40192 rows), with the route, microseconds
+   per step, the one-block kernel's time and the other cluster sizes' on the
+   same inputs; the three mxu updates against their twins on 640 and 768
+   words, on an unaligned width and on a (rows, 8) slice, each timed beside
+   the mask-and-XOR kernel they replace; the table kernel's time with each
+   of four costs taken out in turn.
    Then the launch floor: microseconds per launch over 256 chained launches
    of the probe, of torch.bitwise_xor and of the one-tile update.
 4. Drives the mode-0 main path: recovers a random.Random MT19937 state from
    624 outputs through crypto.mt_torch.solve_mt19937 and through
    LinearSystem([32]*624).solve_one, and checks the kernel launch counts of
-   one solve (79 scans, 79 reconstructs, 16 full and 63 segmented updates).
+   one solve (79 cluster scans and no one-block scan, 79 reconstructs, 16
+   full and 63 segmented updates).
 5. Checks that a flipped output bit makes the system unsatisfiable.
 6. Times solve_mt19937 warm (best of 3).
-7. Mode 1: solve_mt19937(mode=1) is a space of dimension 0 at the state;
-   without the known-MSB equations LinearSystem.solve_raw_space has
-   dimension 31 (the low 31 bits of mt[0] are never read), holds the
-   state, and its origin and basis pass the parity check against the
-   system.  Launch counts 79 scans, 79 reconstructs, 79 full updates.
+7. Mode 1: solve_mt19937(mode=1) is a space of dimension 0 at the state
+   (warm time and a profile); without the known-MSB equations
+   LinearSystem.solve_raw_space has dimension 31 (the low 31 bits of mt[0]
+   are never read), holds the state, and its origin and basis pass the
+   parity check against the system.  Launch counts 79 scans, 79
+   reconstructs, 79 full updates.
 8. Batches of 4: LinearSystem.solve_all_batch (mode 1, batched kernels;
    80 batched scans and rebuilds, 320 full updates), gauss_batched.
    solve_batched mode 0 with one flipped system (3 states and None; 80/80
@@ -43,15 +55,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    mxu_noseg with pallas_scan), chosen through GF2BV_TPU_PHASE1/2,
    solve_mt19937 recovers the flagship state with the engine's launch
    counts (pallas_sub: 79 + f scans, rebuilds and updates, f its fallback
-   passes), and rref_blocked(trailing=False) gives the default engine's
-   RREF and pivot map word for word; each is timed warm (best of 3).  One
-   warm solve each under mxu_la and the default runs under torch.profiler
-   (device time by kernel).
+   passes; mxu_la: its first scan under the cluster scan, 79 fused update +
+   scan), and rref_blocked(trailing=False) gives the default engine's
+   RREF and pivot map word for word; each is timed warm (best of 3) and
+   profiled (device time by kernel, device idle share), the default too.
 10. A tall system, 1248 outputs (39968 rows, padded to 40192), is recovered
-   under the default engine, pallas_scanm (which must run the 1-pivot scan:
-   the min-key packing takes fewer than 2^15 rows) and pallas_sub, each
-   timed warm.
-
+   under the default engine (79 cluster scans), pallas_scanm (which must run
+   the 1-pivot scan: the min-key packing takes fewer than 2^15 rows) and
+   pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
+   rows: more than the largest cluster holds), under the default engine,
+   which must run the one-block scan 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -117,17 +130,21 @@ SWEEP_BITS = 12  # pinned state bits of the sweep: 4096 candidates
 HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 INT8_OPS_PER_MS = 1.979e12  # 1,979 TOP/s, dense int8 tensor cores at 700 W
 TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
+TALL_ROWS = 40192  # its padded rows
+VERY_TALL_SAMPLES = 2100  # 67328 padded rows: past the largest cluster, so scan_block
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
              "gf2bv_tpu/ops/pallas_phase1.py:233"),
+    "scan_block": ("scan_block", "gf2bv_tpu_torch/csrc/scan.cu",
+                   "gf2bv_tpu/ops/pallas_phase1.py:233"),
     "reconstruct": ("reconstruct", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                     "gf2bv_tpu/ops/pallas_phase1.py:278"),
-    "update_seg": ("update_seg", "gf2bv_tpu_torch/csrc/panel_update.cu",
+    "update_seg": ("update_seg", "gf2bv_tpu_torch/csrc/update_table.cu",
                    "gf2bv_tpu/ops/pallas_update.py:312"),
-    "update_full": ("update_full", "gf2bv_tpu_torch/csrc/panel_update.cu",
+    "update_full": ("update_full", "gf2bv_tpu_torch/csrc/update_table.cu",
                     "gf2bv_tpu/ops/pallas_update.py:65"),
-    "update_trailing": ("update_trailing", "gf2bv_tpu_torch/csrc/panel_update.cu",
+    "update_trailing": ("update_trailing", "gf2bv_tpu_torch/csrc/update_table.cu",
                         "gf2bv_tpu/ops/pallas_update.py:261"),
     "scan_batched": ("scan_batched", "gf2bv_tpu_torch/csrc/scan.cu",
                      "gf2bv_tpu/ops/gauss_batched.py:53"),
@@ -330,6 +347,7 @@ def check_kernels(dev, card: str) -> dict:
     res.update(check_batched_kernels(dev, card, used, w0))
     res.update(check_engine_kernels(dev, card, a, bT, used, w0, sel, pf))
     res.update(check_update_engine_kernels(dev, card, a, used, w0, sel, pf))
+    res.update(check_redesign(dev, card, a, bT, used, w0, sel, pf))
     for name, (_, ms, plain_ms) in res.items():
         bound_ms, by, _ = BOUNDS[name]
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -521,6 +539,135 @@ def check_update_engine_kernels(dev, card: str, a, used, w0: int, sel640, pf640)
     return res
 
 
+def scan_case(card: str, what: str, bT, used, w0: int) -> tuple:
+    """The scan the route picks for this slice against its twin, timed beside
+    the one-block kernel and the other cluster sizes on the same inputs."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import _cuda, phase1
+
+    kw, rows = bT.shape
+    route = phase1.scan_route(rows, kw)
+    _cuda.reset_launches()
+    out_k = phase1.scan(bT, used, w0, K, COLS)
+    torch.cuda.synchronize()
+    check_launches(f"scan route, {what}", {route.kernel: 1})
+    out_p = phase1.scan_plain(bT, used, w0, K, COLS)
+    err = require_equal(f"scan, {what}", zip(out_k, out_p))
+    if int((out_k[0] >= 0).sum()) == 0:
+        raise AssertionError(f"scan, {what}: the panel has no pivots")
+    ms = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
+    require_equal(f"scan_block, {what}", zip(phase1.scan_block(bT, used, w0, K, COLS), out_p))
+    block_ms = cuda_ms(lambda: phase1.scan_block(bT, used, w0, K, COLS), 3)
+    others = []
+    for nb in phase1.SCAN_CLUSTER_SIZES:
+        if nb == route.nblocks or not phase1.scan_fits(-(-rows // nb), kw) or rows < 32 * nb:
+            continue
+        require_equal(f"scan on {nb} blocks, {what}",
+                      zip(phase1.scan_cluster(bT, used, w0, K, COLS, nb), out_p))
+        t = cuda_ms(lambda: phase1.scan_cluster(bT, used, w0, K, COLS, nb), 5)
+        others.append(f"{nb} blocks {1000 * t / K:.3f}")
+    print(f"scan, {what} ({rows} rows): route {route.kernel} on {route.nblocks} blocks of "
+          f"{route.rows_per_block} rows, {route.smem_bytes} B shared memory each: {ms:.4f} ms "
+          f"per panel, {1000 * ms / K:.3f} us per step; scan_block (one block, state in "
+          f"global memory) {block_ms:.4f} ms, {1000 * block_ms / K:.3f} us per step; other "
+          f"cluster sizes, us per step: {', '.join(others) or 'none'} ({card})")
+    return err, ms, out_k, out_p
+
+
+def update_case(card: str, what: str, a, sel, pf) -> None:
+    """The three mxu updates on this matrix against their twins, each timed
+    beside the mask-and-XOR kernel on the same words."""
+    from gf2bv_tpu_torch.ops import panel_update as pu
+
+    rows, wp = a.shape
+    kw = sel.shape[1]
+    cases = [("update_full", lambda x: pu.update_full(x, sel, pf),
+              lambda x: pu.update_full_plain(x, sel, pf), 0, False)]
+    if wp % 128 == 0 and wp >= 256:
+        for dead in sorted({1, wp // 128 - 1}):
+            cases.append((f"update_seg dead_tiles={dead}",
+                          lambda x, d=dead: pu.update_seg(x, sel, pf, d),
+                          lambda x, d=dead: pu.update_seg_plain(x, sel, pf, d), 128 * dead, True))
+    for w0t in sorted({0, min(160, wp - kw), wp - kw}):
+        lo = pu._trailing_range(wp, w0t)
+        cases.append((f"update_trailing w0={w0t}",
+                      lambda x, w=w0t: pu.update_trailing(x, sel, pf, w),
+                      lambda x, w=w0t: pu.update_trailing_plain(x, sel, pf, w), lo, lo > 0))
+    scratch = a.clone()
+    for name, kern, twin, lo, const in cases:
+        require_equal(f"{name}, {what}", [(kern(a.clone()), twin(a.clone()))])
+        require_equal(f"mask-and-XOR kernel as {name}, {what}",
+                      [(pu.update_rank_k(a.clone(), sel, pf, lo, const), twin(a.clone()))])
+        ms = cuda_ms(lambda: kern(scratch), 10)
+        old = cuda_ms(lambda: pu.update_rank_k(scratch, sel, pf, lo, const), 10)
+        live = wp - lo + (1 if const else 0)
+        bound = update_bytes(rows, kw, live) / HBM_BYTES_PER_MS
+        print(f"{name}, {what} ({rows} x {wp} words, {live} live): table kernel {ms:.4f} ms, "
+              f"mask-and-XOR kernel {old:.4f} ms, byte bound {bound:.4f} ms ({card})")
+
+
+def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
+    """The two redesigned kernels beyond the flagship panel: the cluster scan
+    on one block (768 rows), at an odd row count and on the tall system, the
+    kept one-block scan against its twin, the table kernel under the mxu
+    rules on 768 words, on an unaligned width and on a (rows, 8) slice, old
+    and new kernel timed on the same inputs; what the table kernel's time is
+    made of."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS, mt19937_system_device
+    from gf2bv_tpu_torch.core.words import u32_to_torch
+    from gf2bv_tpu_torch.ops import panel_update as pu
+    from gf2bv_tpu_torch.ops import phase1
+
+    kw = K // 32
+    res = {}
+    err, _, _, out_p = scan_case(card, "flagship panel 20", bT, used, w0)
+    res["scan_block"] = (
+        err, cuda_ms(lambda: phase1.scan_block(bT, used, w0, K, COLS), 5),
+        cuda_ms(lambda: phase1.scan_plain(bT, used, w0, K, COLS), 2))
+    note_bound("scan_block", nbytes(bT, used, *out_p))
+    # SUBSET_ROWS unused rows, those with a bit in the slice first (the first
+    # SUBSET_ROWS unused rows of the raw system hold no pivot of this panel)
+    unused = torch.nonzero(used[0] == 0)[:, 0]
+    order = torch.argsort((bT[:, unused] == 0).all(dim=0).to(torch.int32), stable=True)
+    free = unused[order[: phase1.SUBSET_ROWS]].sort().values
+    scan_case(card, "a subset slice", bT[:, free].contiguous(),
+              torch.zeros((1, free.numel()), dtype=torch.int32, device=dev), w0)
+    odd = ROWS - 213
+    scan_case(card, "an odd row count", bT[:, :odd].contiguous(), used[:, :odd].contiguous(), w0)
+    touts = u32_to_torch(np.array(mt_outputs(SEED + 7, TALL_SAMPLES)[1], np.uint32), dev)
+    tall = mt19937_system_device(touts, 32, TALL_SAMPLES)
+    tall = torch.nn.functional.pad(tall, (0, 0, 0, TALL_ROWS - tall.shape[0]))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tused = (torch.rand((1, TALL_ROWS), generator=gen) < 0.25).to(torch.int32).to(dev)
+    scan_case(card, "the tall system, panel 20", tall[:, w0 : w0 + kw].T.contiguous(), tused, w0)
+    del tall
+
+    rhs = torch.randint(-2**31, 2**31 - 1, (ROWS, 128), generator=gen,
+                        dtype=torch.int64).to(torch.int32).to(dev)
+    a768 = torch.cat([a, rhs], dim=1).contiguous()
+    pf768 = torch.cat([pf, rhs[:K]], dim=1).contiguous()
+    update_case(card, "the flagship width", a, sel, pf)
+    update_case(card, "the multi-RHS width", a768, sel, pf768)
+    update_case(card, "an unaligned width", a[:, : WP - 2].contiguous(), sel,
+                pf[:, : WP - 2].contiguous())
+    update_case(card, "the look-ahead engine's slice", a[:, w0 : w0 + kw].contiguous(), sel,
+                pf[:, w0 : w0 + kw].contiguous())
+
+    # what the table kernel's time on 768 words is made of: one cost out at a time
+    scratch = a768.clone()
+    base = cuda_ms(lambda: pu.update_table_probe(scratch, sel, pf768, 0), 20)
+    zero_sel = torch.zeros_like(sel)
+    parts = {"all-zero selectors (every lane reads entry 0: no bank conflicts)":
+             cuda_ms(lambda: pu.update_table_probe(scratch, zero_sel, pf768, 0), 20)}
+    for probe, what in pu.TABLE_PROBES.items():
+        if probe:
+            parts[what] = cuda_ms(lambda: pu.update_table_probe(scratch, sel, pf768, probe), 20)
+    print(f"table kernel on {WP_MULTI} words: {base:.4f} ms as it is; with one cost taken "
+          f"out: " + "; ".join(f"{what} {ms:.4f} ms" for what, ms in parts.items())
+          + f" ({card})")
+    return res
+
+
 def check_launch_floor(dev, card: str) -> int:
     """Microseconds per launch over chains of 256; returns the probe's
     wrapper calls over the measurement (the Python-launched chain and the
@@ -634,6 +781,14 @@ def check_mode1(dev, card: str) -> None:
     if space is None or space.dimension != 0 or space.origin != state_int(state):
         raise AssertionError("solve_mt19937(mode=1) is not the dimension-0 space at the state")
     print(f"solve_mt19937 mode 1: dimension 0 at the state; launches {MODE1_LAUNCHES}")
+
+    def mode1():
+        return solve_mt19937(outs, 32, mode=1, device=dev)
+
+    times = [timed(mode1)[1] for _ in range(3)]
+    print(f"solve_mt19937 mode 1 warm, best of 3: {min(times):.4f} s "
+          f"(all {[round(t, 4) for t in times]}) ({card})")
+    profile_solve(mode1, card, "solve_mt19937 mode 1", min(times))
 
     lin = LinearSystem([32] * 624, device=dev)
     mt = lin.gens()
@@ -868,6 +1023,18 @@ def check_engines(dev, card: str) -> dict:
         print(f"tall system ({TALL_SAMPLES} outputs, 40192 x 640 words), {p1}+mxu: state "
               f"recovered; launches {counts}, {gauss_blocked.SUBSET_FALLBACKS['panels']} "
               f"subset fallback passes; solve_mt19937 warm best of 3 {best:.4f} s ({card})")
+    vstate, vouts = mt_outputs(SEED + 8, VERY_TALL_SAMPLES)
+    _cuda.reset_launches()
+    got, cold = timed(lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+    counts = check_launches("very tall system", {
+        "scan_block": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+    if got != vstate:
+        raise AssertionError("very tall system: state not recovered")
+    launches["scan_block"] = counts["scan_block"]
+    _, warm = timed(lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+    print(f"very tall system ({VERY_TALL_SAMPLES} outputs, 67328 x 640 words: more rows than "
+          f"the largest cluster holds), default engine: state recovered; launches {counts}; "
+          f"solve_mt19937 first call {cold:.4f} s, second {warm:.4f} s ({card})")
     return launches
 
 
@@ -1042,12 +1209,14 @@ def main() -> int:
     print(f"kernels built: {so.name} in {time.perf_counter() - t0:.1f} s")
 
     res = check_kernels(dev, card)
+    if "--kernels-only" in sys.argv[1:]:  # the comparisons and kernel times alone
+        return 0
     launches, single_s = check_main_path(dev, card)
     check_mode1(dev, card)
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan"):
+    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan", "scan_block"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

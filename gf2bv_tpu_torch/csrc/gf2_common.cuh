@@ -25,3 +25,10 @@ cudaError_t launch_rank_k_batched(uint32_t* out, const uint32_t* a, const uint32
                                   int word_lo, int const_word, int batch,
                                   size_t mat_stride, size_t sel_stride,
                                   size_t pf_stride, cudaStream_t stream);
+
+// The same update, a ^= S . PF in place on the words {0 if const_word} U
+// [word_lo, wp), through Four-Russians XOR tables in shared memory.  Defined
+// in update_table.cu; the panel updates of the solver go through it.
+cudaError_t launch_table_update(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
+                                int wp, int kw, int word_lo, int const_word,
+                                cudaStream_t stream);

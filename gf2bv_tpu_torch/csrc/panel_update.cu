@@ -1,46 +1,50 @@
-// GF(2) rank-K panel update for Hopper: a ^= S . PF.
+// GF(2) rank-K panel updates for Hopper: a ^= S . PF.
 //
-// Replaces four TPU kernels of gf2bv_tpu/ops/pallas_update.py:
-//   * _mxu_kernel (panel_update_mxu, w0=None): the full-width update;
+// The C entry points of four TPU kernels of gf2bv_tpu/ops/pallas_update.py:
+//   * _mxu_kernel (panel_update_mxu, w0=None): the full-width update
+//     (gf2_update_full);
 //   * _mxu_kernel_seg (panel_update_mxu_seg): the segmented trailing update,
 //     where 128-word tile 0 updates only its const word (word 0), tiles
 //     [1, dead_tiles) are never touched and tiles [dead_tiles, nj) get the
-//     full update;
+//     full update (gf2_update_seg);
 //   * _mxu_kernel_trailing (panel_update_mxu with w0): the same shape of
 //     update with the dead tiles derived from the panel start w0 at run time
 //     (tiles of tw = 128 words, or one tile of wp words when 128 does not
-//     divide wp).  The TPU kernel copies its dead tiles through; updating in
-//     place leaves them as they were, the same values;
+//     divide wp; gf2_update_trailing).  The TPU kernel copies its dead tiles
+//     through; updating in place leaves them as they were, the same values;
 //   * _make_mxu_scan_kernel (panel_update_mxu_scan, the "mxu_la" engine): the
 //     trailing or full update of panel t fused with the 1-pivot scan of
 //     panel t+1 (gf2_update_scan, below).
-// One tile body (rank_k_tile) serves all four through (word_lo, const_word);
-// each TPU kernel keeps its own C entry point, Python wrapper and launch
-// count.  The same body, with gridDim.z over a batch, is the product
-// pf = T . arows of the pivot-row rebuilds (reconstruct.cu).
+// Each entry point turns its rule into (word_lo, const_word): the live words
+// are [word_lo, wp), plus word 0 alone when const_word is set.
 //
-// What bounds it on the H100: the TPU form (int8 bit planes through the MXU)
-// exists for the TPU's matrix unit.  Here every output word takes K
-// branch-free mask-and-XOR steps (about 4 INT32 instructions each), so at
-// K = 256 a full flagship update (20224 x 640 words) is ~13 G integer
-// instructions against ~104 MB of device-memory traffic: it is bound by
-// INT32 issue, not by HBM.  The design keeps that issue rate high and the
-// memory side cheap:
-//   * a block owns a 128-row x 32-word tile; PF's 32-word column strip
-//     (K x 32 words, 32 KB at K = 256) and the block's selector rows are
-//     staged once in shared memory;
-//   * each thread owns one word column and 16 rows, so one shared-memory
-//     load of a PF word feeds 16 mask-and-XORs held in registers;
-//   * the matrix is read and written exactly once per update.
-// Four-Russians tables or an int8 tensor-core bit-plane GEMM are later
-// optimisations, to be chosen by measurement.
+// What bounds the update on the H100, and the two bodies here.  The TPU form
+// (int8 bit planes through the MXU) exists for the TPU's matrix unit.  Written
+// for the CUDA cores as it stands, every output word takes K branch-free
+// mask-and-XOR steps (about 4 INT32 operations each): at K = 256 a full
+// flagship update (20224 x 640 words) is ~13 G integer operations against
+// ~104 MB of device-memory traffic, bound by the INT32 pipes at 21-23x its
+// byte bound.  So the first three entry points run the Four-Russians table kernel
+// of update_table.cu (launch_table_update: one shared-memory table read per 8
+// selector bits), under their own rules.  The mask-and-XOR tile body
+// (rank_k_tile, below) stays for what gains nothing from tables:
+//   * the product pf = T . arows of the pivot-row rebuilds (reconstruct.cu,
+//     through launch_rank_k / launch_rank_k_batched): K = 256 rows, so a
+//     table build would cost more than the rows it serves;
+//   * the update tiles of the fused update + scan, which hide under the
+//     scan block's time;
+//   * gf2_update_rank_k, which launches it on a panel update's arguments so
+//     that the two bodies can be timed on the same inputs.
+// In rank_k_tile a block owns a 128-row x 32-word tile; PF's 32-word column
+// strip (32 KB at K = 256) and the block's selector rows are staged once in
+// shared memory, and each thread owns one word column and 16 rows, so one
+// shared-memory load of a PF word feeds 16 mask-and-XORs held in registers.
 //
 // The fused update + scan: on the TPU the two phases could only overlap
 // inside one kernel, since its kernels run one after another on one core.
-// On Hopper the scan is one latency-bound 1024-thread block on one SM while
-// the update wants the whole card, so the launch holds both: block 0 runs
-// the scan (scan_system.cuh, on its own kernel parameters, as gf2_scan does)
-// and blocks 1.. run 256-row x 32-word update tiles on the other SMs.  The
+// Here the launch holds both: block 0 runs the one-block scan (scan_system in
+// scan_system.cuh, on its own kernel parameters, as gf2_scan_block does) and
+// blocks 1.. run 256-row x 32-word update tiles on the other SMs.  The
 // two parts share no data (the scan reads the separate, already-updated next
 // slice bTn; the update writes a), so no block waits on another, and the
 // scan block, having the lowest index, is dispatched first.
@@ -194,7 +198,7 @@ cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
 // a ^= S . PF over every word (replaces pallas_update._mxu_kernel).
 extern "C" int gf2_update_full(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
                                int rows, int wp, int kw, cudaStream_t stream) {
-  return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, 0, 0, stream);
+  return (int)launch_table_update(a, sel, pf, rows, wp, kw, 0, 0, stream);
 }
 
 // Segmented trailing update (replaces pallas_update._mxu_kernel_seg): word 0
@@ -203,7 +207,8 @@ extern "C" int gf2_update_full(uint32_t* a, const uint32_t* sel, const uint32_t*
 extern "C" int gf2_update_seg(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
                               int rows, int wp, int kw, int dead_tiles,
                               cudaStream_t stream) {
-  return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, 128 * dead_tiles, 1, stream);
+  if (dead_tiles < 1 || 128 * dead_tiles > wp) return (int)cudaErrorInvalidValue;
+  return (int)launch_table_update(a, sel, pf, rows, wp, kw, 128 * dead_tiles, 1, stream);
 }
 
 // Trailing update with a runtime panel start w0 (replaces
@@ -222,7 +227,18 @@ extern "C" int gf2_update_trailing(uint32_t* a, const uint32_t* sel, const uint3
   if (w0 < 0 || w0 >= wp) return (int)cudaErrorInvalidValue;
   int word_lo, const_only;
   trailing_range(wp, w0, &word_lo, &const_only);
-  return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, word_lo, const_only, stream);
+  return (int)launch_table_update(a, sel, pf, rows, wp, kw, word_lo, const_only, stream);
+}
+
+// The mask-and-XOR body on a panel update's arguments, in place on the words
+// {0 if const_word} U [word_lo, wp): the earlier design of the three updates
+// above, kept callable so that both can be timed on the same inputs.
+extern "C" int gf2_update_rank_k(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
+                                 int rows, int wp, int kw, int word_lo, int const_word,
+                                 cudaStream_t stream) {
+  if (word_lo < 0 || word_lo > wp) return (int)cudaErrorInvalidValue;
+  return (int)launch_rank_k(a, a, sel, pf, rows, wp, kw, word_lo,
+                            const_word && word_lo > 0, stream);
 }
 
 // The update of panel t fused with the scan of panel t+1 (replaces

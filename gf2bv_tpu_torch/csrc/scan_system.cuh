@@ -1,6 +1,9 @@
-// The forward pivot scan of one system by one block (kernel 1's body), shared
-// by the scan kernels (scan.cu) and the fused update + scan kernel
-// (panel_update.cu), plus the block-wide election the other scans use.
+// The forward pivot scan of one system by ONE block with its state in global
+// memory: the body of the one-block scan and of the batched scan (scan.cu)
+// and of the scan block of the fused update + scan kernel (panel_update.cu),
+// plus the block-wide election the two-pivot and min-key scans use.  The
+// cluster scan (scan.cu, gf2_scan) keeps the same contract with the state in
+// the shared memory of several blocks.
 //
 // Contract of scan_system (pallas_phase1.py: _make_scan_kernel):
 //   in : bT_in (kw, rows) transposed panel slice, used_in (rows,) 0/1, w0, cols
@@ -86,7 +89,7 @@ eliminate(const uint32_t* col, int32_t* used, uint32_t* cT, uint32_t* bT,
   }
 }
 
-// kernel 1's steps, written out: built from first_candidate, block_min and
+// the one-block scan's steps, written out: built from first_candidate, block_min and
 // eliminate instead, the batched scan (offset pointers) ran 1.5% slower on the
 // H100 (2.28 against 2.24 ms per flagship panel at B = 4, in one run).
 __device__ __forceinline__ void

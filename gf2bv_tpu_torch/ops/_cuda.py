@@ -40,13 +40,16 @@ LAUNCHES = {
     "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
     "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
     "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
+    "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
+    "gf2_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
-    "gf2_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_scan_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, wp, kw, w0, stream)
     "gf2_reconstruct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
@@ -69,6 +72,10 @@ _SIGNATURES = {
     "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_table": [_P, _P, _P, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, word_lo, const_word, stream)
+    "gf2_update_rank_k": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, probe, stream)
+    "gf2_update_table_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, pfT scratch (wp * 256 words), rows, wp, kw, w0 (-1: full), stream)
     "gf2_update_mxu2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gf2_update_mxu4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

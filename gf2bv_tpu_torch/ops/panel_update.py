@@ -1,8 +1,10 @@
 """Phase 2 of the blocked solver: the GF(2) rank-K panel update ``a ^= S·PF``.
 
-Port of ``gf2bv_tpu/ops/pallas_update.py``.  Two TPU kernels are on the
-main path, and each keeps its own wrapper, plain twin and launch count,
-though one CUDA kernel (``csrc/panel_update.cu``) serves both:
+Port of ``gf2bv_tpu/ops/pallas_update.py``.  Each TPU kernel keeps its own
+wrapper, plain twin and launch count.  The first three and
+:func:`update_pallas` share one CUDA kernel, the Four-Russians table kernel
+of ``csrc/update_table.cu``, under their own rules for the words they update
+(:func:`live_strips`; C entry points in ``csrc/panel_update.cu``):
 
 * :func:`update_full` — the full-width update (``_mxu_kernel`` via
   ``panel_update_mxu`` with ``w0=None``); plain twin :func:`update_full_plain`.
@@ -77,6 +79,32 @@ def _check_shapes(a, sel, pf) -> tuple[int, int, int]:
     return rows, wp, K // 32
 
 
+def _require_update_args(a, sel, pf, rows: int, wp: int, kw: int) -> None:
+    """The checks every update kernel makes on its CUDA arguments."""
+    dev = a.device
+    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
+                           ("pf", pf, (32 * kw, wp))):
+        _cuda.require(t, name, shape, dev)
+    if kw > 8:
+        raise ValueError(f"K={32 * kw} above the kernel's 256")
+
+
+STRIP_WORDS = 4  # words of one table entry: a strip of the table kernel
+
+
+def live_strips(wp: int, word_lo: int, const_word: bool) -> list[tuple[int, int]]:
+    """The strips (first word, words) the table kernel's grid covers for the
+    rule ``(word_lo, const_word)``, as ``csrc/update_table.cu`` enumerates
+    them: word 0 alone when ``const_word`` is set and ``word_lo > 0``, then
+    ``STRIP_WORDS`` words at a time from ``word_lo`` on, the last strip cut at
+    ``wp``.  Words in no strip are neither read nor written."""
+    if not 0 <= word_lo <= wp:
+        raise ValueError(f"word_lo={word_lo} outside the {wp}-word rows")
+    strips = [(0, 1)] if const_word and word_lo > 0 else []
+    strips += [(w, min(STRIP_WORDS, wp - w)) for w in range(word_lo, wp, STRIP_WORDS)]
+    return strips
+
+
 def update_full_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
     """Plain twin of :func:`update_full`."""
     _check_shapes(a, sel, pf)
@@ -90,12 +118,7 @@ def update_full(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
     rows, wp, kw = _check_shapes(a, sel, pf)
     if not _cuda.on_cuda(a):
         return update_full_plain(a, sel, pf)
-    dev = a.device
-    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
-                           ("pf", pf, (32 * kw, wp))):
-        _cuda.require(t, name, shape, dev)
-    if kw > 8:
-        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    _require_update_args(a, sel, pf, rows, wp, kw)
     rc = _cuda.lib().gf2_update_full(
         a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw,
         _cuda.stream_of(a),
@@ -134,12 +157,7 @@ def update_seg(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     _seg_range(wp, dead_tiles)
     if not _cuda.on_cuda(a):
         return update_seg_plain(a, sel, pf, dead_tiles)
-    dev = a.device
-    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
-                           ("pf", pf, (32 * kw, wp))):
-        _cuda.require(t, name, shape, dev)
-    if kw > 8:
-        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    _require_update_args(a, sel, pf, rows, wp, kw)
     rc = _cuda.lib().gf2_update_seg(
         a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw,
         int(dead_tiles), _cuda.stream_of(a),
@@ -179,18 +197,38 @@ def update_trailing(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, w0: in
     _trailing_range(wp, w0)
     if not _cuda.on_cuda(a):
         return update_trailing_plain(a, sel, pf, w0)
-    dev = a.device
-    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
-                           ("pf", pf, (32 * kw, wp))):
-        _cuda.require(t, name, shape, dev)
-    if kw > 8:
-        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    _require_update_args(a, sel, pf, rows, wp, kw)
     rc = _cuda.lib().gf2_update_trailing(
         a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0),
         _cuda.stream_of(a),
     )
     _cuda.check(rc, "trailing panel update kernel")
     _cuda.LAUNCHES["update_trailing"] += 1
+    return a
+
+
+def update_rank_k(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                  word_lo: int = 0, const_word: bool = False):
+    """``a ^= S·PF`` in place on the words ``[word_lo, wp)`` (and word 0 when
+    ``const_word``) through the mask-and-XOR kernel, K steps per word: the
+    updates' earlier kernel, which the pivot-row rebuild's product still
+    runs.  Kept callable on an update's arguments so that it can be timed
+    beside the table kernel; nothing in the solver calls it."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    if not 0 <= word_lo <= wp:
+        raise ValueError(f"word_lo={word_lo} outside the {wp}-word rows")
+    if not _cuda.on_cuda(a):
+        if const_word and word_lo:
+            rank_k_xor_(a[:, :1], sel, pf[:, :1])
+        rank_k_xor_(a[:, word_lo:], sel, pf[:, word_lo:])
+        return a
+    _require_update_args(a, sel, pf, rows, wp, kw)
+    rc = _cuda.lib().gf2_update_rank_k(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(word_lo),
+        int(bool(const_word)), _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "mask-and-XOR panel update kernel")
+    _cuda.LAUNCHES["update_rank_k"] += 1
     return a
 
 
@@ -334,22 +372,41 @@ def update_pallas_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
 def update_pallas(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
     """``a[i] ^= XOR{pf[t] : bit t of sel[i]}`` over every word, in place (the
     ``pallas`` engine: it takes no panel start, so it is full-width in
-    trailing mode too).  On the card a table kernel: 256-entry XOR tables of
-    each 8 pf rows in shared memory, one table read per 8 selector bits."""
+    trailing mode too).  On the card the table kernel: 256-entry XOR tables of
+    each 8 pf rows in shared memory, one table read per 8 selector bits; the
+    ``mxu`` family's updates run the same kernel under their trailing rules."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     if not _cuda.on_cuda(a):
         return update_pallas_plain(a, sel, pf)
-    dev = a.device
-    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
-                           ("pf", pf, (32 * kw, wp))):
-        _cuda.require(t, name, shape, dev)
-    if kw > 8:
-        raise ValueError(f"K={32 * kw} above the kernel's 256")
+    _require_update_args(a, sel, pf, rows, wp, kw)
     rc = _cuda.lib().gf2_update_table(
         a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, _cuda.stream_of(a),
     )
     _cuda.check(rc, "table panel update kernel")
     _cuda.LAUNCHES["update_pallas"] += 1
+    return a
+
+
+TABLE_PROBES = {0: "the kernel as it is", 1: "selector rows from a resident 16 KB",
+                2: "a strip's rows of a packed densely", 4: "no table build"}
+
+
+def update_table_probe(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, probe: int):
+    """The full-width table kernel with one of its costs taken out
+    (``TABLE_PROBES``), for timing on the card only: with ``probe != 0`` the
+    words written to ``a`` are wrong by design, so ``a`` is scratch."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    if probe not in TABLE_PROBES:
+        raise ValueError(f"unknown probe {probe}; expected one of {sorted(TABLE_PROBES)}")
+    if a.device.type != "cuda":
+        raise ValueError("the table kernel's timing probe runs on a CUDA device only")
+    _require_update_args(a, sel, pf, rows, wp, kw)
+    rc = _cuda.lib().gf2_update_table_probe(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(probe),
+        _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "table kernel timing probe")
+    _cuda.LAUNCHES["update_table_probe"] += 1
     return a
 
 
@@ -418,13 +475,8 @@ def update_mxu4_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
 
 def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0):
     rows, wp, kw = _check_shapes(a, sel, pf)
-    dev = a.device
-    for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
-                           ("pf", pf, (32 * kw, wp))):
-        _cuda.require(t, name, shape, dev)
-    if kw > 8:
-        raise ValueError(f"K={32 * kw} above the kernel's 256")
-    pf_t = torch.empty((wp, 256), dtype=I32, device=dev)  # pf transposed at bit level
+    _require_update_args(a, sel, pf, rows, wp, kw)
+    pf_t = torch.empty((wp, 256), dtype=I32, device=a.device)  # pf transposed at bit level
     rc = getattr(_cuda.lib(), fn_name)(
         a.data_ptr(), sel.data_ptr(), pf.data_ptr(), pf_t.data_ptr(), rows, wp, kw,
         -1 if w0 is None else int(w0), _cuda.stream_of(a),

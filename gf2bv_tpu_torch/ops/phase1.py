@@ -8,7 +8,11 @@ step structure:
   of ``_call_scan_kernel`` over its variants:
 
   - ``""``: one pivot per step (``_make_scan_kernel``); CUDA
-    ``csrc/scan.cu`` ``gf2_scan``, twin :func:`scan_plain`;
+    ``csrc/scan.cu`` ``gf2_scan``, a thread-block cluster with the state in
+    shared memory, or, for more rows than the largest cluster holds,
+    ``gf2_scan_block`` (:func:`scan_block`: one block, state in global
+    memory); :func:`scan_route` picks between them from the shape alone;
+    twin of both :func:`scan_plain`;
   - ``"2"``: two pivots per step (``_make_scan_kernel2``), :func:`scan2`;
     CUDA ``gf2_scan2``, twin :func:`scan2_plain`;
   - ``"m"``: election and extraction through packed min-keys
@@ -34,6 +38,8 @@ tensors holding the reference's uint32 bit patterns (core/words.py).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -95,8 +101,11 @@ def scan_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int)
 
 
 def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
-                 w0: int, K: int, cols: int):
-    """Launch one of the single-system scan kernels (same C signature)."""
+                 w0: int, K: int, cols: int, nblocks: int | None = None):
+    """Launch one of the single-system scan kernels.  The one-block kernels
+    (``nblocks`` None) share a C signature and take a working copy of the
+    slice in global memory; the cluster scan takes its block count instead
+    and keeps the slice in shared memory."""
     kw, rows = bT.shape
     dev = bT.device
     _cuda.require(bT, "bT", (kw, rows), dev)
@@ -104,15 +113,91 @@ def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
     prow = torch.empty((K,), dtype=I32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bT)
-    work = torch.empty_like(bT)
+    if nblocks is None:
+        work = torch.empty_like(bT)
+        state = (cT.data_ptr(), work.data_ptr(), rows, kw, int(w0), int(cols))
+    else:
+        state = (cT.data_ptr(), rows, kw, int(w0), int(cols), int(nblocks))
     rc = getattr(_cuda.lib(), fn_name)(
-        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
-        cT.data_ptr(), work.data_ptr(), rows, kw, int(w0), int(cols),
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), *state,
         _cuda.stream_of(bT),
     )
     _cuda.check(rc, f"{key} kernel")
     _cuda.LAUNCHES[key] += 1
     return prow, used_o, cT
+
+
+# The route of the 1-pivot scan: a pure function of (rows, kw), taken before
+# the launch and never after a failure.  The constants mirror csrc/scan.cu.
+SCAN_THREADS = 512  # threads per block of the cluster scan
+SCAN_MAX_SLOTS = 8  # rows a thread can own
+SCAN_SMEM_MAX = 232448  # bytes of shared memory a block may use (227 KB)
+SCAN_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SCAN_BLOCK_ROWS = 3 * SCAN_THREADS  # rows per block the route aims at: three a thread
+_SCAN_HEADER_BYTES = 16 * (2 * 16 * 3) + 4 * (2 * 32) + 16  # slots, warp minima, mbarriers
+
+
+class ScanRoute(NamedTuple):
+    kernel: str  # "scan" (the cluster kernel) or "scan_block"
+    nblocks: int  # blocks of the cluster; 1 for scan_block
+    rows_per_block: int
+    smem_bytes: int  # dynamic shared memory of one block; 0 for scan_block
+
+
+def scan_smem_bytes(rows_per_block: int, kw: int) -> int:
+    """Shared memory of one block of the cluster scan: the header, then the
+    slice words of each row in 16-byte halves of four, rows padded to 32."""
+    return _SCAN_HEADER_BYTES + 16 * (-(-kw // 4)) * (-(-rows_per_block // 32) * 32)
+
+
+def scan_fits(rows_per_block: int, kw: int) -> bool:
+    """Whether one block of the cluster scan can own that many rows."""
+    return (rows_per_block <= SCAN_MAX_SLOTS * SCAN_THREADS
+            and scan_smem_bytes(rows_per_block, kw) <= SCAN_SMEM_MAX)
+
+
+def scan_max_rows(kw: int) -> int:
+    """The most rows the largest cluster holds; a taller slice takes
+    :func:`scan_block`."""
+    per_block = (SCAN_SMEM_MAX - _SCAN_HEADER_BYTES) // (16 * (-(-kw // 4))) // 32 * 32
+    return SCAN_CLUSTER_SIZES[-1] * min(per_block, SCAN_MAX_SLOTS * SCAN_THREADS)
+
+
+def scan_route(rows: int, kw: int) -> ScanRoute:
+    """Which kernel scans a (kw, rows) slice, and on how many blocks: the
+    smallest cluster whose blocks own at most ``SCAN_BLOCK_ROWS`` rows each;
+    failing that the largest cluster, if its blocks hold the state (shared
+    memory, and ``SCAN_MAX_SLOTS`` rows a thread); else the one-block kernel
+    with its state in global memory."""
+    if rows < 1 or not 1 <= kw <= 8:
+        raise ValueError(f"no scan kernel for rows={rows}, kw={kw}")
+    for nb in SCAN_CLUSTER_SIZES:
+        rpb = -(-rows // nb)
+        if scan_fits(rpb, kw) and (rpb <= SCAN_BLOCK_ROWS or nb == SCAN_CLUSTER_SIZES[-1]):
+            return ScanRoute("scan", nb, rpb, scan_smem_bytes(rpb, kw))
+    return ScanRoute("scan_block", 1, rows, 0)
+
+
+def scan_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The 1-pivot scan by one block with its state in global memory: the
+    kernel for slices taller than the largest cluster holds
+    (:func:`scan_route`); outputs as :func:`scan`."""
+    _check_k(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan_block", "scan_block", bT, used, w0, K, cols)
+
+
+def scan_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                 nblocks: int):
+    """The 1-pivot scan on a cluster of ``nblocks`` blocks whatever
+    :func:`scan_route` would pick (:func:`scan` asks the route); raises when
+    the state does not fit the blocks or the card cannot place the cluster.
+    Outputs as :func:`scan`."""
+    _check_k(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan", "scan", bT, used, w0, K, cols, nblocks)
 
 
 def _check_k(bT: torch.Tensor, K: int) -> None:
@@ -130,7 +215,8 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
     ``variant`` picks the kernel, as ``_call_scan_kernel`` does: ``""`` the
     1-pivot scan, ``"2"`` :func:`scan2`, ``"m"`` :func:`scan_minkey` (the
     1-pivot scan for ``MINKEY_MAX_ROWS`` rows or more).  All three give the
-    same outputs."""
+    same outputs.  On the card the 1-pivot scan is the cluster kernel or, past
+    the largest cluster's rows, :func:`scan_block` (:func:`scan_route`)."""
     if variant == "m" and bT.shape[1] >= MINKEY_MAX_ROWS:
         variant = ""
     if variant == "2":
@@ -142,7 +228,10 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
     _check_k(bT, K)
     if not _cuda.on_cuda(bT):
         return scan_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan", "scan", bT, used, w0, K, cols)
+    route = scan_route(bT.shape[1], bT.shape[0])
+    if route.kernel == "scan_block":
+        return scan_block(bT, used, w0, K, cols)
+    return scan_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
 # -- kernel 6: two pivots per step --------------------------------------------------

@@ -34,18 +34,61 @@ def _rand(rng, shape, dev):
     return u32_to_torch(rng.integers(0, 2**32, size=shape, dtype=np.uint32), dev)
 
 
-@pytest.mark.parametrize("rows,K,w0,cols", [
+# rows that take each route of the 1-pivot scan: one block, clusters of 2, 4, 8
+# and 16 blocks, and the one-block kernel past the largest cluster
+SCAN_ROUTE_SHAPES = [
     (512, 64, 0, 5000), (512, 64, 2, 80), (2048, 256, 8, 300),
     (3000, 256, 0, 10**6), (20224, 256, 160, 19968),
-])
-def test_scan_kernel(dev, rows, K, w0, cols):
+    (768, 256, 160, 19968), (1, 32, 1, 64), (255, 96, 0, 70), (5001, 256, 8, 10**6),
+    (10000, 256, 8, 10**6), (40192, 256, 160, 19968), (20011, 128, 3, 200),
+    (70001, 256, 8, 10**6),
+]
+
+
+@pytest.mark.parametrize("used_frac", [0.3, 0.0, 1.0, 0.25])
+@pytest.mark.parametrize("rows,K,w0,cols", SCAN_ROUTE_SHAPES)
+def test_scan_kernel(dev, rows, K, w0, cols, used_frac):
+    """Every route against the twin: no row used, all used, some used;
+    several shapes have columns outside 1..cols (bit 0 at w0 = 0, and a panel
+    that crosses cols)."""
     rng = np.random.default_rng(rows + K + w0)
     bT = _rand(rng, (K // 32, rows), dev)
-    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    used = u32_to_torch((rng.random((1, rows)) < used_frac).astype(np.uint32), dev)
+    route = phase1.scan_route(rows, K // 32)
+    _cuda.reset_launches()
     got = phase1.scan(bT, used, w0, K, cols)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {route.kernel: 1}
     want = phase1.scan_plain(bT, used, w0, K, cols)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_scan_routes_are_all_taken():
+    taken = {(r.kernel, r.nblocks) for r in
+             (phase1.scan_route(rows, K // 32) for rows, K, _, _ in SCAN_ROUTE_SHAPES)}
+    assert taken == {("scan", nb) for nb in phase1.SCAN_CLUSTER_SIZES} | {("scan_block", 1)}
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rows,K,w0,cols", [(4000, 256, 8, 10**6), (20224, 64, 160, 5150)])
+def test_scan_cluster_and_scan_block_kernels(dev, rows, K, w0, cols, nblocks):
+    """Any cluster size that holds the state, and the one-block kernel, give
+    the twin's outputs on the same inputs; a cluster that cannot hold it
+    raises instead of running something else."""
+    rng = np.random.default_rng(rows + nblocks)
+    bT = _rand(rng, (K // 32, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
+    want = phase1.scan_plain(bT, used, w0, K, cols)
+    if phase1.scan_fits(-(-rows // nblocks), K // 32):
+        got = phase1.scan_cluster(bT, used, w0, K, cols, nblocks)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        with pytest.raises(RuntimeError, match="scan kernel"):
+            phase1.scan_cluster(bT, used, w0, K, cols, nblocks)
+    for g, w in zip(phase1.scan_block(bT, used, w0, K, cols), want):
         assert torch.equal(g, w)
 
 
@@ -66,8 +109,17 @@ def test_reconstruct_kernel(dev, K, w0, cols, wp, consistent):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("rows,wp,K", [(256, 128, 64), (300, 384, 256), (20224, 640, 256)])
+# aligned widths, widths that are no multiple of 4 (scalar loads and stores), the
+# look-ahead engine's (rows, 8) slice, rows that are no multiple of a row chunk
+UPDATE_RULE_SHAPES = [(256, 128, 64), (300, 384, 256), (20224, 640, 256), (77, 13, 32),
+                      (1000, 202, 96), (2048, 8, 256), (20224, 8, 256), (4100, 384, 256),
+                      (33, 640, 128), (20224, 768, 256)]
+
+
+@pytest.mark.parametrize("rows,wp,K", UPDATE_RULE_SHAPES)
 def test_update_kernels(dev, rows, wp, K):
+    """The whole matrix against the twins: the words outside an update's
+    rule stay as they were, not copied through."""
     rng = np.random.default_rng(rows + wp)
     a = _rand(rng, (rows, wp), dev)
     sel = _rand(rng, (rows, K // 32), dev)
@@ -75,11 +127,13 @@ def test_update_kernels(dev, rows, wp, K):
     got = panel_update.update_full(a.clone(), sel, pf)
     want = panel_update.update_full_plain(a.clone(), sel, pf)
     assert torch.equal(got, want)
-    for dead in range(1, wp // 128):
+    assert torch.equal(panel_update.update_rank_k(a.clone(), sel, pf), want)
+    for dead in range(1, wp // 128 if wp % 128 == 0 else 0):
         got = panel_update.update_seg(a.clone(), sel, pf, dead)
         want = panel_update.update_seg_plain(a.clone(), sel, pf, dead)
-        assert torch.equal(got[:, :128], want[:, :128])
-        assert torch.equal(got[:, 128 * dead :], want[:, 128 * dead :])
+        assert torch.equal(got, want)
+        assert torch.equal(got[:, 1 : 128 * dead], a[:, 1 : 128 * dead])
+        assert torch.equal(panel_update.update_rank_k(a.clone(), sel, pf, 128 * dead, True), want)
     torch.cuda.synchronize()
 
 
@@ -98,6 +152,7 @@ def test_wrapper_counts_launches(dev):
         "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
         "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
         "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
+        "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
     }
 
 
@@ -134,7 +189,9 @@ def test_reconstruct_batched_kernel(dev, K, w0, cols, wp, consistent):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("rows,wp,K", [(256, 200, 64), (300, 384, 256), (20224, 640, 256)])
+@pytest.mark.parametrize("rows,wp,K", [(256, 200, 64), (300, 384, 256), (20224, 640, 256),
+                                       (77, 13, 32), (2048, 8, 256), (4100, 384, 256),
+                                       (1000, 202, 96), (20224, 768, 256)])
 def test_update_trailing_kernel(dev, rows, wp, K):
     """The whole matrix, for w0 in the first tile, on tile edges and in the
     last tile."""
@@ -142,11 +199,27 @@ def test_update_trailing_kernel(dev, rows, wp, K):
     a = _rand(rng, (rows, wp), dev)
     sel = _rand(rng, (rows, K // 32), dev)
     pf = _rand(rng, (K, wp), dev)
-    for w0 in sorted({0, 8, 120, 128, 160, wp // 2, wp - 8} & set(range(wp))):
+    for w0 in sorted({0, 8, 120, 128, 160, wp // 2, wp - 8, wp - 1} & set(range(wp))):
         got = panel_update.update_trailing(a.clone(), sel, pf, w0)
         want = panel_update.update_trailing_plain(a.clone(), sel, pf, w0)
         assert torch.equal(got, want), w0
     torch.cuda.synchronize()
+
+
+def test_table_probe_kernel(dev):
+    """Probe 0 is the table kernel as it is; the others run and are timing
+    aids whose output is wrong by design."""
+    rng = np.random.default_rng(31)
+    a = _rand(rng, (1024, 256), dev)
+    sel = _rand(rng, (1024, 8), dev)
+    pf = _rand(rng, (256, 256), dev)
+    want = panel_update.update_full_plain(a.clone(), sel, pf)
+    _cuda.reset_launches()
+    assert torch.equal(panel_update.update_table_probe(a.clone(), sel, pf, 0), want)
+    for probe in (1, 2, 4):
+        panel_update.update_table_probe(a.clone(), sel, pf, probe)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["update_table_probe"] == 4
 
 
 @pytest.mark.parametrize("trailing", [False, True])
