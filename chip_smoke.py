@@ -21,7 +21,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    launch probe on (256, 128) words.  Beside each time stands the kernel's
    bound: its bytes (inputs read once, outputs written once) over 3.35 TB/s,
    or its operations over the int8 tensor-core peak.
-   The two redesigned kernels are held to more (check_redesign): the
+   The redesigned kernels are held to more (check_redesign): the rebuild's
+   blocked coefficient solve against the step-by-step kernel it replaced and
+   against the plain twin at K = 64, 128 and 256, at the first, a middle and
+   the last panel of 640, 768 and 333 words, on solver inputs and on
+   arbitrary ones, for one system and for four, both kernels, the product
+   (table kernel and mask-and-XOR tiles) and the whole rebuild timed apart
+   from a CUDA graph's replay; the
    cluster scan against its twin on a subset slice (one block), at an odd row
    count and on the tall system (40192 rows), with the route, microseconds
    per step, the one-block kernel's time and the other cluster sizes' on the
@@ -30,7 +36,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the mask-and-XOR kernel they replace; the table kernel's time with each
    of four costs taken out in turn.
    Then the launch floor: microseconds per launch over 256 chained launches
-   of the probe, of torch.bitwise_xor and of the one-tile update.
+   of the probe (many blocks, 16-byte accesses), of torch.bitwise_xor and of
+   the one-tile update.
 4. Drives the mode-0 main path: recovers a random.Random MT19937 state from
    624 outputs through crypto.mt_torch.solve_mt19937 and through
    LinearSystem([32]*624).solve_one, and checks the kernel launch counts of
@@ -225,6 +232,15 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, n: int = 64) -> float:
+    """Milliseconds per call of ``fn`` over ``n`` calls replayed from a CUDA
+    graph: the card's time alone, for kernels shorter than the host's pace."""
+    from gf2bv_tpu_torch.ops import launch_floor
+
+    x = torch.zeros(1, device="cuda")
+    return launch_floor.chain_us(lambda y: (fn(), y)[1], x, n, graph=True) / 1000
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -606,8 +622,144 @@ def update_case(card: str, what: str, a, sel, pf) -> None:
               f"mask-and-XOR kernel {old:.4f} ms, byte bound {bound:.4f} ms ({card})")
 
 
+def rebuild_inputs(dev, k: int, w0: int, wp: int, kind: str, nb: int, gen):
+    """arows (nb, k, wp), coeff (nb, k, kw), prow (nb, k) of ``nb`` systems.
+    ``solver``: a random matrix is scanned and its pivot rows and their
+    coefficients gathered, as the solver does (the panel crosses cols, so its
+    last columns have no pivot); ``arbitrary``: random rows, random
+    coefficients, about a tenth of prow at -1."""
+    from gf2bv_tpu_torch.ops import gauss_batched
+
+    def rand(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32).to(dev)
+
+    kw = k // 32
+    if kind == "arbitrary":
+        prow = torch.where(torch.rand((nb, k), generator=gen) < 0.1, -1, 3)
+        return rand((nb, k, wp)), rand((nb, k, kw)), prow.to(torch.int32).to(dev)
+    rows = 1536
+    a = rand((nb, rows, wp))
+    bT = a[:, :, w0 : w0 + kw].transpose(1, 2).contiguous()
+    used = torch.zeros((nb, rows), dtype=torch.int32, device=dev)
+    prow, _, cT = gauss_batched.scan_batched(bT, used, w0, k, 32 * (w0 + kw) - 9)
+    ps = prow.clamp(min=0).long()
+    arows = torch.gather(a, 1, ps[:, :, None].expand(nb, k, wp)).contiguous()
+    coeff = torch.gather(cT, 2, ps[:, None, :].expand(nb, kw, k)).transpose(1, 2).contiguous()
+    return arows, coeff, prow
+
+
+def rebuild_case(what: str, arows, coeff, prow, w0: int) -> None:
+    """The blocked coefficient solve against the step-by-step kernel, and the
+    rebuild that runs it against the plain twin; arows (K, wp) for one system
+    or (B, K, wp) for a batch."""
+    from gf2bv_tpu_torch.ops import gauss_batched, phase1
+
+    new = phase1.reconstruct_coeff(arows, coeff, prow, w0)
+    old = phase1.reconstruct_coeff_steps(arows, coeff, prow, w0)
+    torch.cuda.synchronize()
+    require_equal(f"coefficient solve, blocked against step by step, {what}", [(new, old)])
+    if arows.dim() == 2:
+        pf, pf_p = (phase1.reconstruct(arows, coeff, prow, w0),
+                    phase1.reconstruct_plain(arows, coeff, prow, w0))
+    else:
+        pf, pf_p = (gauss_batched.reconstruct_batched(arows, coeff, prow, w0),
+                    gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0))
+    require_equal(f"rebuild against its twin, {what}", [(pf, pf_p)])
+
+
+def check_rebuild(dev, card: str, a, bT, used, w0: int) -> None:
+    """The rebuild's blocked coefficient solve beyond the flagship panel, and
+    old and new kernel, the product and the whole rebuild timed on the card
+    alone (a CUDA graph's replay) at the flagship panel, for one system and
+    for NB."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import gauss_batched, launch_floor, phase1
+    from gf2bv_tpu_torch.ops import panel_update as pu
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    cases = 0
+    for k in (64, 128, 256):
+        kw = k // 32
+        for wp in (WP, WP_MULTI, 333):
+            for w0c in sorted({0, (wp // 2) // kw * kw, wp - kw}):
+                for kind in ("solver", "arbitrary"):
+                    arows, coeff, prow = rebuild_inputs(dev, k, w0c, wp, kind, NB, gen)
+                    if kind == "solver" and int((prow >= 0).sum(dim=1).min()) < k // 2:
+                        raise AssertionError(f"K={k} wp={wp} w0={w0c}: too few pivots")
+                    what = f"K={k}, {wp} words, w0={w0c}, {kind} inputs"
+                    rebuild_case(what + ", one system", arows[0].contiguous(),
+                                 coeff[0].contiguous(), prow[0].contiguous(), w0c)
+                    rebuild_case(what + f", B={NB}", arows, coeff, prow, w0c)
+                    cases += 2
+    print(f"rebuild: the blocked coefficient solve = the step-by-step kernel, and the rebuild "
+          f"= its plain twin, in {cases} cases (K 64/128/256; 640, 768 and 333 words; "
+          f"first, middle and last panel; solver and arbitrary inputs; one system and "
+          f"B={NB}), max_abs_err 0")
+
+    # the flagship panel: one system, and NB systems that differ in their used rows
+    kw = K // 32
+    useds = torch.cat([used] + [
+        (torch.rand((1, ROWS), generator=gen) < 0.25).to(torch.int32).to(dev)
+        for _ in range(NB - 1)])
+    prow, _, cT = gauss_batched.scan_batched(bT.expand(NB, kw, ROWS).contiguous(), useds,
+                                             w0, K, COLS)
+    ps = prow.clamp(min=0).long()
+    arows = a[ps]  # (NB, K, WP)
+    coeff = torch.gather(cT, 2, ps[:, None, :].expand(NB, kw, K)).transpose(1, 2).contiguous()
+    rebuild_case("flagship panel 20, one system", arows[0], coeff[0], prow[0], w0)
+    rebuild_case(f"flagship panel 20, B={NB}", arows, coeff, prow, w0)
+    one = (arows[0], coeff[0], prow[0], w0)
+    many = (arows, coeff, prow, w0)
+    tbits = phase1.reconstruct_coeff(*one)
+    pf0 = torch.zeros_like(arows[0])
+    t = {
+        "new": graph_ms(lambda: phase1.reconstruct_coeff(*one)),
+        "old": graph_ms(lambda: phase1.reconstruct_coeff_steps(*one)),
+        "old again": graph_ms(lambda: phase1.reconstruct_coeff_steps(*one)),
+        "new again": graph_ms(lambda: phase1.reconstruct_coeff(*one)),
+        "new B": graph_ms(lambda: phase1.reconstruct_coeff(*many)),
+        "old B": graph_ms(lambda: phase1.reconstruct_coeff_steps(*many)),
+        "product": graph_ms(lambda: pu.update_rank_k(pf0, tbits, arows[0])),
+        "table": graph_ms(lambda: pu.update_full(pf0, tbits, arows[0])),
+        "whole": graph_ms(lambda: phase1.reconstruct(*one)),
+        "whole B": graph_ms(lambda: gauss_batched.reconstruct_batched(*many)),
+    }
+    print(f"coefficient solve at K = {K}, flagship panel 20, per launch replayed from a CUDA "
+          f"graph: blocked kernel {t['new']:.4f} ms (again {t['new again']:.4f}), step-by-step "
+          f"kernel {t['old']:.4f} ms (again {t['old again']:.4f}); B={NB}: blocked "
+          f"{t['new B']:.4f} ms, step by step {t['old B']:.4f} ms ({card})")
+    print(f"the rebuild's product pf = T.arows on ({K}, {WP}) words, timed as an update in "
+          f"place on a zeroed pf: the table kernel (whose body is the rebuild's second "
+          f"launch) {t['table']:.4f} ms, the mask-and-XOR tiles that ran it before "
+          f"{t['product']:.4f} ms; the whole rebuild (both launches) {t['whole']:.4f} ms, "
+          f"B={NB} {t['whole B']:.4f} ms ({card})")
+    for k in (64, 128):
+        ak, ck, pk = (x[0].contiguous() for x in rebuild_inputs(dev, k, 8, WP, "solver", 1, gen))
+        print(f"coefficient solve at K = {k} ({2 * k} steps): blocked kernel "
+              f"{graph_ms(lambda: phase1.reconstruct_coeff(ak, ck, pk, 8)):.4f} ms, step by "
+              f"step {graph_ms(lambda: phase1.reconstruct_coeff_steps(ak, ck, pk, 8)):.4f} ms "
+              f"({card})")
+    # a reading, not a bound: the chain as groups x one group's 32 steps alone.  At
+    # K = 32 the kernel is one forward and one back group of 32 steps, each step a
+    # broadcast and the thread's one row to serve.
+    gen32 = torch.Generator().manual_seed(SEED + 5)
+    a32, c32, p32 = (x[0].contiguous() for x in rebuild_inputs(dev, 32, 8, WP, "solver", 1, gen32))
+    t32 = graph_ms(lambda: phase1.reconstruct_coeff(a32, c32, p32, 8))
+    floor = launch_floor.chain_us(launch_floor.tiny_call, a[:256, :128].contiguous(), 64,
+                                  graph=True) / 1000
+    group = max(0.0, t32 - floor) / 2
+    print(f"coefficient solve, a reading and no bound: at K = 32 (one group forward, one "
+          f"back, a row a thread) {t32:.4f} ms a launch against the launch floor "
+          f"{floor:.4f} ms, so a group's 32 steps alone {1000 * group:.3f} us "
+          f"({1e6 * group / 32:.1f} ns a step); {2 * kw} groups x that = "
+          f"{2 * kw * group:.4f} ms of the {t['new']:.4f} ms at K = {K}, the rest being the "
+          f"other rows each step serves ({card})")
+
+
 def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
-    """The two redesigned kernels beyond the flagship panel: the cluster scan
+    """The redesigned kernels beyond the flagship panel: the rebuild's
+    coefficient solve (check_rebuild); the cluster scan
     on one block (768 rows), at an odd row count and on the tall system, the
     kept one-block scan against its twin, the table kernel under the mxu
     rules on 768 words, on an unaligned width and on a (rows, 8) slice, old
@@ -620,6 +772,7 @@ def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
 
     kw = K // 32
     res = {}
+    check_rebuild(dev, card, a, bT, used, w0)
     err, _, _, out_p = scan_case(card, "flagship panel 20", bT, used, w0)
     res["scan_block"] = (
         err, cuda_ms(lambda: phase1.scan_block(bT, used, w0, K, COLS), 5),
@@ -961,7 +1114,7 @@ def profile_solve(solve, card: str, what: str, warm_s: float) -> None:
     print(f"profile {what}: wall {1000 * wall:.1f} ms under the profiler, device self "
           f"time {total / 1000:.1f} ms; against the warm {1000 * warm_s:.1f} ms the device "
           f"is idle {100 * max(0.0, 1 - total / 1e6 / warm_s):.1f}% ({card})")
-    for dev_us, key, count in rows[:6]:
+    for dev_us, key, count in rows[:8]:
         print(f"  {dev_us / 1000:9.2f} ms {count:5d}x {key[:90]}")
 
 

@@ -20,6 +20,7 @@ column of a single elimination, ops/multi_rhs.py) and the interop exports
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -73,10 +74,13 @@ class LinearSystem:
 
     # -- generators ---------------------------------------------------------
 
-    def gens(self, *, lazy: bool = True) -> tuple[BitVec, ...]:
+    def gens(self, *, lazy: bool | None = None) -> tuple[BitVec, ...]:
         """The symbolic variable blocks: lazy bitvecs by default (ops record
         a trace DAG, so the coefficient matrix is built and cached once per
-        structure); ``lazy=False`` returns the eager packed variables."""
+        structure); ``lazy=False`` (or ``GF2BV_TPU_LAZY=0`` when ``lazy`` is
+        not given) returns the eager packed variables."""
+        if lazy is None:
+            lazy = os.environ.get("GF2BV_TPU_LAZY", "1") != "0"
         if not lazy:
             return self._vars
         if self._lazy_vars is None:

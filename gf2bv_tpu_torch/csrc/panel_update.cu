@@ -26,11 +26,10 @@
 // ~104 MB of device-memory traffic, bound by the INT32 pipes at 21-23x its
 // byte bound.  So the first three entry points run the Four-Russians table kernel
 // of update_table.cu (launch_table_update: one shared-memory table read per 8
-// selector bits), under their own rules.  The mask-and-XOR tile body
-// (rank_k_tile, below) stays for what gains nothing from tables:
-//   * the product pf = T . arows of the pivot-row rebuilds (reconstruct.cu,
-//     through launch_rank_k / launch_rank_k_batched): K = 256 rows, so a
-//     table build would cost more than the rows it serves;
+// selector bits), under their own rules, and so does the product
+// pf = T . arows of the pivot-row rebuilds (reconstruct.cu: measured on its 256
+// rows the tables take a sixth of the tiles' time).  The mask-and-XOR tile
+// body (rank_k_tile, below) stays for:
 //   * the update tiles of the fused update + scan, which hide under the
 //     scan block's time;
 //   * gf2_update_rank_k, which launches it on a panel update's arguments so
@@ -133,13 +132,8 @@ rank_k_tile(uint32_t* out, const uint32_t* a, const uint32_t* __restrict__ sel,
 __global__ void __launch_bounds__(kTileWords * kThreadRows)
 rank_k_kernel(uint32_t* out, const uint32_t* a,
               const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pf,
-              int rows, int wp, int kw, int word_lo, int const_word,
-              size_t mat_stride, size_t sel_stride, size_t pf_stride) {
+              int rows, int wp, int kw, int word_lo, int const_word) {
   extern __shared__ uint32_t smem[];
-  out += blockIdx.z * mat_stride;
-  if (a) a += blockIdx.z * mat_stride;
-  sel += blockIdx.z * sel_stride;
-  pf += blockIdx.z * pf_stride;
   rank_k_tile<kThreadRows, kRowsPerThread>(
       out, a, sel, pf, rows, wp, kw, word_lo, const_word && blockIdx.x == gridDim.x - 1,
       blockIdx.x, blockIdx.y, threadIdx.x, threadIdx.y, smem);
@@ -172,27 +166,19 @@ update_scan_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
 
 }  // namespace
 
-cudaError_t launch_rank_k_batched(uint32_t* out, const uint32_t* a, const uint32_t* sel,
-                                  const uint32_t* pf, int rows, int wp, int kw,
-                                  int word_lo, int const_word, int batch,
-                                  size_t mat_stride, size_t sel_stride,
-                                  size_t pf_stride, cudaStream_t stream) {
+// out[i] = (a ? a[i] : 0) ^ XOR_{t : bit t of sel[i]} pf[t] on the words
+// {0 if const_word} U [word_lo, wp), by the mask-and-XOR tiles; out may equal a.
+static cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
+                                 const uint32_t* pf, int rows, int wp, int kw,
+                                 int word_lo, int const_word, cudaStream_t stream) {
   const int live = wp - word_lo;
   const int gx = (live + kTileWords - 1) / kTileWords + (const_word ? 1 : 0);
   const int gy = (rows + kTileRows - 1) / kTileRows;
-  if (gx <= 0 || gy <= 0 || batch <= 0) return cudaGetLastError();
+  if (gx <= 0 || gy <= 0) return cudaGetLastError();
   const size_t smem = (size_t)(32 * kw * kTileWords + kTileRows * kw) * sizeof(uint32_t);
-  rank_k_kernel<<<dim3(gx, gy, batch), dim3(kTileWords, kThreadRows), smem, stream>>>(
-      out, a, sel, pf, rows, wp, kw, word_lo, const_word, mat_stride, sel_stride,
-      pf_stride);
+  rank_k_kernel<<<dim3(gx, gy), dim3(kTileWords, kThreadRows), smem, stream>>>(
+      out, a, sel, pf, rows, wp, kw, word_lo, const_word);
   return cudaGetLastError();
-}
-
-cudaError_t launch_rank_k(uint32_t* out, const uint32_t* a, const uint32_t* sel,
-                          const uint32_t* pf, int rows, int wp, int kw,
-                          int word_lo, int const_word, cudaStream_t stream) {
-  return launch_rank_k_batched(out, a, sel, pf, rows, wp, kw, word_lo, const_word, 1,
-                               0, 0, 0, stream);
 }
 
 // a ^= S . PF over every word (replaces pallas_update._mxu_kernel).

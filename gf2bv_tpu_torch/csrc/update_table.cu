@@ -4,7 +4,10 @@
 //
 // One kernel body (table_update_kernel, launched by launch_table_update)
 // replaces four TPU kernels of gf2bv_tpu/ops/pallas_update.py, each of which
-// keeps its own C entry point, Python wrapper and launch count:
+// keeps its own C entry point, Python wrapper and launch count; the same body
+// with no input matrix (kProduct: out = S . PF, launch_table_product) is the
+// second launch of the pivot-row rebuilds of reconstruct.cu, over one system
+// or a batch (gridDim.z):
 //   * _panel_update_kernel (panel_update, the "pallas" engine): every word,
 //     no panel start (gf2_update_table, below);
 //   * _mxu_kernel, _mxu_kernel_seg and _mxu_kernel_trailing (the "mxu"
@@ -98,12 +101,20 @@ constexpr int kProbeSelResident = 1;  // selector rows from the first 512 rows o
 constexpr int kProbeDenseA = 2;       // a strip's rows packed densely (16-byte stride)
 constexpr int kProbeNoBuild = 4;      // no table build
 
-template <int kProbe>
+// kProduct: a is written, never read (out = S . PF), and problem blockIdx.z
+// of a batch lies at z * mat_stride (a), z * sel_stride and z * pf_stride words.
+template <int kProbe, bool kProduct>
 __global__ void __launch_bounds__(kTabThreads)
 table_update_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
                     const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
-                    int const_word, int chunk_rows, int aligned, int sel_vec) {
+                    int const_word, int chunk_rows, int aligned, int sel_vec,
+                    size_t mat_stride, size_t sel_stride, size_t pf_stride) {
   extern __shared__ uint4 smem4[];
+  if (kProduct) {
+    a += blockIdx.z * mat_stride;
+    sel += blockIdx.z * sel_stride;
+    pf += blockIdx.z * pf_stride;
+  }
   const int ngroups = 4 * kw;            // groups of 8 selector bits
   uint4* tab = smem4;                    // [ngroups][256]
   uint4* pf_s = smem4 + ngroups * 256;   // [32 * kw]: pf's rows on this strip
@@ -158,7 +169,7 @@ table_update_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
       const uint32_t* ap = (kProbe & kProbeDenseA)
                                ? a + ((size_t)blockIdx.x * rows + rr) * kStrip
                                : a + (size_t)rr * wp + w;
-      acc[j] = load4(ap, n, vec);
+      acc[j] = kProduct ? make_uint4(0u, 0u, 0u, 0u) : load4(ap, n, vec);
       const uint32_t* sp = sel + (size_t)((kProbe & kProbeSelResident) ? (rr & 511) : rr) * kw;
       if (sel_vec) {
         const uint4 lo = *reinterpret_cast<const uint4*>(sp);
@@ -189,7 +200,8 @@ table_update_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
 // 2 rows' worth for the table build plus its rows per thread; the grid runs
 // in waves of one block per SM.  Among the chunk counts from the fewest
 // (4096 rows a chunk, or what fills the SMs once) up to 8 more, take the one
-// with the least waves x cost.
+// with the least waves x cost.  nstrips counts the strips of every problem of
+// a batch.
 int pick_chunks(int rows, int nstrips, int nsm) {
   const int by_rows = (rows + 4095) / 4096;
   const int to_fill = (nsm + nstrips - 1) / nstrips;
@@ -210,10 +222,12 @@ int pick_chunks(int rows, int nstrips, int nsm) {
   return best;
 }
 
-template <int kProbe>
+template <int kProbe, bool kProduct = false>
 cudaError_t launch_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
-                         int wp, int kw, int word_lo, int const_word, cudaStream_t stream) {
-  if (kw < 1 || kw > 8 || rows < 1 || wp < 1 || word_lo < 0 || word_lo > wp)
+                         int wp, int kw, int word_lo, int const_word, cudaStream_t stream,
+                         int batch = 1, size_t mat_stride = 0, size_t sel_stride = 0,
+                         size_t pf_stride = 0) {
+  if (kw < 1 || kw > 8 || rows < 1 || wp < 1 || word_lo < 0 || word_lo > wp || batch < 1)
     return cudaErrorInvalidValue;
   const_word = const_word ? 1 : 0;
   if (word_lo == 0) const_word = 0;  // word 0 is in the live range already
@@ -229,18 +243,21 @@ cudaError_t launch_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf, i
   }
   const size_t smem = (size_t)(4 * kw * 256 + 32 * kw) * sizeof(uint4);
   cudaError_t rc = cudaFuncSetAttribute(
-      table_update_kernel<kProbe>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      table_update_kernel<kProbe, kProduct>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (rc != cudaSuccess) return rc;
+  // every problem of a batch is as aligned as the first: the strides are whole rows
   const int aligned = wp % 4 == 0 && word_lo % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(pf) % 16 == 0;
   const int sel_vec = kw == 8 && reinterpret_cast<uintptr_t>(sel) % 16 == 0;
-  const int chunks = pick_chunks(rows, nstrips, nsm);
+  const int chunks = pick_chunks(rows, nstrips * batch, nsm);
   int chunk_rows = (rows + chunks - 1) / chunks;
   chunk_rows = (chunk_rows + 31) & ~31;
-  const dim3 grid(nstrips, (rows + chunk_rows - 1) / chunk_rows);
-  table_update_kernel<kProbe><<<grid, kTabThreads, smem, stream>>>(
-      a, sel, pf, rows, wp, kw, word_lo, const_word, chunk_rows, aligned, sel_vec);
+  const dim3 grid(nstrips, (rows + chunk_rows - 1) / chunk_rows, batch);
+  table_update_kernel<kProbe, kProduct><<<grid, kTabThreads, smem, stream>>>(
+      a, sel, pf, rows, wp, kw, word_lo, const_word, chunk_rows, aligned, sel_vec,
+      mat_stride, sel_stride, pf_stride);
   return cudaGetLastError();
 }
 
@@ -250,6 +267,13 @@ cudaError_t launch_table_update(uint32_t* a, const uint32_t* sel, const uint32_t
                                 int wp, int kw, int word_lo, int const_word,
                                 cudaStream_t stream) {
   return launch_table<0>(a, sel, pf, rows, wp, kw, word_lo, const_word, stream);
+}
+
+cudaError_t launch_table_product(uint32_t* out, const uint32_t* sel, const uint32_t* pf,
+                                 int rows, int wp, int kw, int batch, size_t mat_stride,
+                                 size_t sel_stride, size_t pf_stride, cudaStream_t stream) {
+  return launch_table<0, true>(out, sel, pf, rows, wp, kw, 0, 0, stream, batch, mat_stride,
+                               sel_stride, pf_stride);
 }
 
 // a ^= S . PF over every word (replaces pallas_update._panel_update_kernel).

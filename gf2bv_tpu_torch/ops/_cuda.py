@@ -41,6 +41,7 @@ LAUNCHES = {
     "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
     "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
     "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
+    "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +53,10 @@ _SIGNATURES = {
     "gf2_scan_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, wp, kw, w0, stream)
     "gf2_reconstruct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (arows, coeff, prow, tbits, batch, wp, kw, w0, stream): the coefficient solve
+    # alone, by the blocked kernel and by the earlier step-by-step one
+    "gf2_reconstruct_coeff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_reconstruct_coeff_steps": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_full": [_P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, dead_tiles, stream)

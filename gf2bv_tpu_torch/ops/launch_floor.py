@@ -1,9 +1,12 @@
 """The launch floor: what one kernel launch costs when it does nothing.
 
 Port of the probe in ``scripts/bench_launch_floor.py`` (``_copy_kernel`` via
-``tiny_call``): ``out = a ^ 1`` on a (256, 128)-word array by ONE block.  A
-chain of such launches prices a launch on this card; a solve makes some 400
-of them, and the scan's microseconds per pivot step are read against it.
+``tiny_call``): ``out = a ^ 1`` on a (256, 128)-word array in ONE launch of
+a kernel that does no work worth the name (32 blocks of 256 threads, one
+16-byte vector a thread: no single SM's bandwidth is in the way, as it was
+when one block streamed the 256 KB).  A chain of such launches prices a
+launch on this card; a solve makes some 400 of them, and the scan's
+microseconds per pivot step are read against it.
 
 * :func:`tiny_call` — the probe; CUDA ``csrc/launch_probe.cu``
   (``gf2_launch_probe``), plain twin :func:`tiny_call_plain`.
@@ -36,7 +39,8 @@ def tiny_call_plain(a: torch.Tensor) -> torch.Tensor:
 
 
 def tiny_call(a: torch.Tensor) -> torch.Tensor:
-    """``a ^ 1`` as a new tensor, computed by one block in one launch."""
+    """``a ^ 1`` as a new tensor, computed in one launch (16-byte accesses,
+    one vector a thread; the ``numel % 4`` last words one by one)."""
     if not _cuda.on_cuda(a):
         return tiny_call_plain(a)
     _cuda.require(a, "a", tuple(a.shape), a.device)

@@ -10,14 +10,17 @@ Reference semantics kept: all-zero traced rows are dropped, and a dropped
 row whose affine bit is set (the literal 1) makes the system unsatisfiable
 before any device work.  Mode 0 runs the trailing solver with its parity
 check; mode 1 the full-width RREF and the basis extraction.  The solver's
-engines (``gauss_blocked._pick_engines``) are read once, when a structure is
-cached, and kept with it, as the reference does: a later change of
-``GF2BV_TPU_PHASE1`` / ``GF2BV_TPU_PHASE2`` reaches a cached structure only
-after :func:`clear_cache`.
+engines (``gauss_blocked._pick_engines``) are resolved when a structure is
+cached and kept with the entry; ``GF2BV_TPU_PHASE1`` / ``GF2BV_TPU_PHASE2``
+and the resolved backend are part of the cache key, as in the reference, so
+a change of either reaches the next solve at once (as a new entry) and a
+cache hit never runs stale engines.  ``GF2BV_TPU_TRACE_CACHE`` (read at
+import, default 4) is the number of structures kept.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -29,7 +32,8 @@ from ..core.words import I32, u32_to_torch
 from . import solver
 from .gauss_blocked import K_PANEL, _pad, _pick_engines, solve_on_device
 
-_MAX_CACHED = 4  # cached structures (each one device matrix)
+# cached structures (each one device matrix)
+_MAX_CACHED = int(os.environ.get("GF2BV_TPU_TRACE_CACHE", "4"))
 _CACHE: "OrderedDict[bytes, _CachedSystem]" = OrderedDict()
 
 
@@ -79,10 +83,18 @@ def _affine_vector(exprs, widths, env=None) -> np.ndarray:
 def cached_system(system, zeros) -> _CachedSystem:
     """The device-cached coefficient structure for a lazy zeros list,
     building (and LRU-inserting) it on first sight.  The key covers the
-    trace structure, the column count and the device."""
+    trace structure, the column count, the device, the resolved backend and
+    the two engine knobs of the environment."""
     exprs = [z._expr for z in zeros]
+    knobs = ":".join(
+        os.environ.get(k, "") for k in ("GF2BV_TPU_PHASE1", "GF2BV_TPU_PHASE2")
+    )
     key = lazy.struct_key(
-        exprs, extra=lazy._ints(system._cols) + str(system._device).encode()
+        exprs,
+        extra=lazy._ints(system._cols)
+        + str(system._device).encode()
+        + solver._resolve_backend(system._backend).encode()
+        + knobs.encode(),
     )
     cs = _CACHE.get(key)
     if cs is None:

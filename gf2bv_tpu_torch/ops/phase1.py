@@ -23,7 +23,13 @@ step structure:
 
 * :func:`reconstruct` — full-width pivot-row rebuild + triangular back pass
   (``_make_reconstruct_kernel`` via ``phase1_reconstruct``); CUDA source
-  ``csrc/reconstruct.cu``, plain twin :func:`reconstruct_plain`.
+  ``csrc/reconstruct.cu`` (a coefficient solve blocked by groups of 32 rows
+  whose dependent steps are warp-wide broadcasts, then the product
+  ``pf = T.arows`` through the table kernel), plain twin
+  :func:`reconstruct_plain`; :func:`reconstruct_coeff_blocked_plain` is the
+  twin of the kernel's own order, :func:`reconstruct_coeff` and
+  :func:`reconstruct_coeff_steps` launch the new and the earlier
+  coefficient solve alone.
 * :func:`phase1_panel` — the fused phase 1 (``_make_kernel``, the
   ``pallas`` engine): scan, per-pivot rebuild and back pass in one kernel;
   CUDA source ``csrc/phase1_fused.cu``, plain twin :func:`phase1_panel_plain`.
@@ -347,29 +353,36 @@ def scan_minkey(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int
 # -- kernel 2: pivot-row rebuild + back pass -------------------------------------
 
 
-def reconstruct_plain(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
-                      w0: int) -> torch.Tensor:
-    """Plain twin of the reconstruct kernel.  arows (K, wp), coeff (K, kw),
-    prow (K,).  Returns pf (K, wp).
+def _row_ints(t: torch.Tensor) -> list[int]:
+    """The rows of a packed int32 matrix as Python ints (bit j = column j)."""
+    return [int.from_bytes(r.tobytes(), "little") for r in torch_to_u32(t)]
+
+
+def _ints_to_words(vals: list[int], kw: int, device) -> torch.Tensor:
+    """Python ints of 32*kw bits as a packed (len, kw) int32 tensor."""
+    words = np.frombuffer(
+        b"".join(v.to_bytes(4 * kw, "little") for v in vals), dtype="<u4"
+    ).reshape(len(vals), kw)
+    return u32_to_torch(words, device)
+
+
+def reconstruct_coeff_plain(sl: torch.Tensor, coeff: torch.Tensor,
+                            prow: torch.Tensor) -> torch.Tensor:
+    """The coefficient solve of the rebuild, step by step.  sl (K, kw) is the
+    panel's slice of the gathered pivot rows, coeff (K, kw), prow (K,).
+    Returns tbits (K, kw): the K x K bit matrix T with ``pf = T.arows``.
 
     Both passes are GF(2) row operations, so they run on Python-int rows of
     ``[T | slice]`` (K bits each: the combination of arows rows, and the
-    pivot-column slice that decides the back pass), and ``pf = T·arows`` is
-    one rank-K product at the end."""
-    K, wp = arows.shape
-    kw = K // 32
+    pivot-column slice that decides the back pass)."""
+    K, kw = sl.shape
     has = (prow >= 0).tolist()
-
-    def ints(t: torch.Tensor) -> list[int]:
-        return [int.from_bytes(r.tobytes(), "little") for r in torch_to_u32(t)]
-
-    cf = ints(coeff)
-    sl = ints(arows[:, w0 : w0 + kw])
+    cf, sl_i = _row_ints(coeff), _row_ints(sl)
     T, S = [0] * K, [0] * K
     for j in range(K):  # forward: row j from the final rows t < j
         if not has[j]:
             continue
-        tj, sj = 1 << j, sl[j]
+        tj, sj = 1 << j, sl_i[j]
         c = cf[j] & ((1 << j) - 1)
         while c:
             low = c & -c
@@ -385,12 +398,128 @@ def reconstruct_plain(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tens
             if k != j and (S[k] >> j) & 1:
                 T[k] ^= T[j]
                 S[k] ^= S[j]
-    tbits = np.frombuffer(
-        b"".join(v.to_bytes(4 * kw, "little") for v in T), dtype="<u4"
-    ).reshape(K, kw)
+    return _ints_to_words(T, kw, sl.device)
+
+
+def reconstruct_coeff_blocked_plain(sl: torch.Tensor, coeff: torch.Tensor,
+                                    prow: torch.Tensor) -> torch.Tensor:
+    """The coefficient solve in the order the CUDA kernel
+    (``csrc/reconstruct.cu``) takes it, group of 32 rows by group: same
+    arguments and result as :func:`reconstruct_coeff_plain`, bit for bit.
+    The tests hold the kernel's control flow through it; no solve runs it.
+
+    Forward, group g ascending, steps t = 0..31: row ``32 g + t`` is final and
+    is pushed, in the same step, into the later rows of the group (the
+    diagonal part) and into every row of the later groups (the panel part)
+    whose bit t of the ONE coefficient word ``coeff[k][g]`` is set.  A row
+    without a pivot is never pushed, and is zeroed only when its group is
+    done: nothing reads it before.
+
+    Back, group g descending, steps j = 31..0: row ``32 g + j`` AS IT IS AT
+    STEP j (the snapshot: a later step of the same group may change it again,
+    since the window covers the whole group) is taken by every other row of
+    this and the lower groups whose bit j is set at that moment.  The
+    decisions need only the row's word g of the slice, which a row carries
+    as ``d`` beside its ``[T | slice]`` words and updates with the
+    snapshot's own ``d``, as the kernel's threads do: the word is read from
+    the row once per group, not once per step."""
+    K, kw = sl.shape
+    mask32 = 0xFFFFFFFF
+    has = (prow >= 0).tolist()
+    cf, sl_i = _row_ints(coeff), _row_ints(sl)
+    # a row is one int: T in bits [0, K), the slice in bits [K, 2K)
+    row = [(1 << k) | (sl_i[k] << K) for k in range(K)]
+    for g in range(kw):  # forward
+        base = 32 * g
+        pivots = sum(1 << t for t in range(32) if has[base + t])
+        takes = {k: (cf[k] >> base) & pivots for k in range(base, K)}
+        for k in range(base, base + 32):  # the group's own rows: only steps before them
+            takes[k] &= (1 << (k - base)) - 1
+        for t in range(32):
+            final = row[base + t]
+            for k in range(base, K):
+                if (takes[k] >> t) & 1:
+                    row[k] ^= final
+        for t in range(32):
+            if not has[base + t]:
+                row[base + t] = 0
+    for g in range(kw - 1, -1, -1):  # back
+        base = 32 * g
+        shift = K + base  # word g of the slice
+        pivots = sum(1 << j for j in range(32) if has[base + j])
+        d = [(row[k] >> shift) & mask32 for k in range(base + 32)]
+        for j in range(31, -1, -1):
+            snap, dsnap = row[base + j], d[base + j]
+            for k in range(base + 32):
+                if k != base + j and ((d[k] & pivots) >> j) & 1:
+                    row[k] ^= snap
+                    d[k] ^= dsnap
+        for k in range(base + 32):  # the carried word is the row's own
+            assert d[k] == (row[k] >> shift) & mask32
+    return _ints_to_words([r & ((1 << K) - 1) for r in row], kw, sl.device)
+
+
+def reconstruct_plain(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
+                      w0: int) -> torch.Tensor:
+    """Plain twin of the reconstruct kernel.  arows (K, wp), coeff (K, kw),
+    prow (K,).  Returns pf (K, wp): the coefficient solve
+    (:func:`reconstruct_coeff_plain`) on the panel's slice, then the rank-K
+    product ``pf = T.arows``."""
+    kw = arows.shape[0] // 32
+    tbits = reconstruct_coeff_plain(arows[:, w0 : w0 + kw], coeff, prow)
     pf = torch.zeros_like(arows)
-    rank_k_xor_(pf, u32_to_torch(tbits, arows.device), arows)
+    rank_k_xor_(pf, tbits, arows)
     return pf
+
+
+def _launch_reconstruct_coeff(fn_name: str, key: str, arows: torch.Tensor,
+                              coeff: torch.Tensor, prow: torch.Tensor, w0: int):
+    """Launch a coefficient solve alone on arows (K, wp) or (B, K, wp);
+    returns tbits (K, kw) or (B, K, kw)."""
+    if arows.dim() not in (2, 3):
+        raise ValueError(f"arows: shape {tuple(arows.shape)}, expected (K, wp) or (B, K, wp)")
+    lead, (K, wp) = arows.shape[:-2], arows.shape[-2:]
+    kw = K // 32
+    if not _cuda.on_cuda(arows):
+        flat = [reconstruct_coeff_plain(a[:, w0 : w0 + kw], c, p)
+                for a, c, p in zip(arows.reshape(-1, K, wp), coeff.reshape(-1, K, kw),
+                                   prow.reshape(-1, K))]
+        return torch.stack(flat).reshape(*lead, K, kw)
+    dev = arows.device
+    _cuda.require(arows, "arows", (*lead, K, wp), dev)
+    _cuda.require(coeff, "coeff", (*lead, K, kw), dev)
+    _cuda.require(prow, "prow", (*lead, K), dev)
+    if not 0 <= w0 <= wp - kw:
+        raise ValueError(f"w0={w0} outside the {wp}-word rows")
+    tbits = torch.empty((*lead, K, kw), dtype=I32, device=dev)
+    rc = getattr(_cuda.lib(), fn_name)(
+        arows.data_ptr(), coeff.data_ptr(), prow.data_ptr(), tbits.data_ptr(),
+        lead[0] if lead else 1, wp, kw, int(w0), _cuda.stream_of(arows),
+    )
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += 1
+    return tbits
+
+
+def reconstruct_coeff(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
+                      w0: int) -> torch.Tensor:
+    """The first launch of :func:`reconstruct` alone: the coefficient solve
+    on the slice ``arows[..., w0 : w0 + kw]`` by the blocked warp-level
+    kernel, one block per system.  arows (K, wp) or (B, K, wp); returns tbits
+    of the same leading shape.  No solve calls it: it is there to time and
+    check the coefficient solve apart from the product."""
+    return _launch_reconstruct_coeff("gf2_reconstruct_coeff", "reconstruct_coeff",
+                                     arows, coeff, prow, w0)
+
+
+def reconstruct_coeff_steps(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
+                            w0: int) -> torch.Tensor:
+    """The coefficient solve as the rebuild ran it before the blocked
+    kernel: one block walking the 2K steps with a block barrier after each.
+    Arguments and result as :func:`reconstruct_coeff`.  It is on no solve's
+    path and is kept so that both kernels can be timed on the same inputs."""
+    return _launch_reconstruct_coeff("gf2_reconstruct_coeff_steps",
+                                     "reconstruct_coeff_steps", arows, coeff, prow, w0)
 
 
 def reconstruct(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,

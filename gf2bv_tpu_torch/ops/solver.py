@@ -9,7 +9,9 @@ Backends:
 
 * ``blocked`` — panel-blocked elimination (ops/gauss_blocked.py), the
   Hopper kernels' path, with the engines of ``gauss_blocked._pick_engines``;
-  ``None`` and ``"auto"`` resolve to it at every size;
+  ``None`` and ``"auto"`` resolve to it at every size, unless
+  ``GF2BV_TPU_BACKEND`` names another (read when no ``backend`` argument is
+  given, as in the reference);
 * ``jax`` — the per-pivot solver (ops/gauss_jax.py), plain torch.
 
 The reference's size-based auto routing and its host backends ``native``
@@ -18,6 +20,8 @@ backends raise.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -34,7 +38,8 @@ _LATER = {
 
 
 def _resolve_backend(backend: str | None) -> str:
-    if backend in (None, "auto", "blocked"):
+    backend = backend or os.environ.get("GF2BV_TPU_BACKEND")
+    if not backend or backend in ("auto", "blocked"):
         return "blocked"
     if backend == "jax":
         return "jax"

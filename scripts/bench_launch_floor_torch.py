@@ -4,7 +4,7 @@ Chains 256 launches of each of three rungs, replays the chain from a CUDA
 graph (the card alone, no host work between launches) and prints
 microseconds per launch beside the card's name and power limit:
 
-  probe   : out = a ^ 1 on (256, 128) words by one block: the launch floor
+  probe   : out = a ^ 1 on (256, 128) words, one launch: the launch floor
             (also launched from Python, the host's enqueue included)
   xor     : torch.bitwise_xor on the same array (PyTorch's own launch)
   1-tile  : the rank-256 panel update on one (256-row, 128-word) tile: a
@@ -39,7 +39,7 @@ def main() -> int:
     best = {k: min(r[k] for r in runs) for k in runs[0]}
     print(f"{card}: chains of {best['n']} launches replayed from a CUDA graph, best of 3, "
           f"us per launch")
-    for label, key in (("probe (one block, a ^ 1): the floor", "probe_us"),
+    for label, key in (("probe (one launch, a ^ 1): the floor", "probe_us"),
                        ("probe launched from Python", "probe_python_us"),
                        ("torch.bitwise_xor", "bitwise_xor_us"),
                        ("rank-256 update, one tile (latency)", "update_tile_us")):

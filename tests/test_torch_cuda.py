@@ -92,21 +92,89 @@ def test_scan_cluster_and_scan_block_kernels(dev, rows, K, w0, cols, nblocks):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("consistent", [True, False])
-@pytest.mark.parametrize("K,w0,cols,wp", [(64, 2, 80, 128), (256, 8, 3000, 640)])
-def test_reconstruct_kernel(dev, K, w0, cols, wp, consistent):
-    rng = np.random.default_rng(K + w0 + wp)
-    a = _rand(rng, (1024, wp), dev)
-    bT = a[:, w0 : w0 + K // 32].T.contiguous()
-    used = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
-    prow, _, cT = phase1.scan(bT, used, w0, K, cols)
-    src = a if consistent else _rand(rng, (1024, wp), dev)
-    ps = prow.clamp(min=0).long()
-    arows, coeff = src[ps], cT[:, ps].T.contiguous()
+# (K, w0, wp): the first, a middle and the last panel of 640- and 768-word rows,
+# an unaligned width, and the narrower panels
+RECONSTRUCT_SHAPES = [
+    (64, 2, 128), (256, 8, 640), (256, 0, 640), (256, 160, 640), (256, 632, 640),
+    (256, 0, 768), (256, 320, 768), (256, 760, 768), (256, 40, 333), (128, 4, 640),
+    (128, 636, 640), (64, 0, 200), (32, 5, 13), (96, 3, 50), (224, 7, 77),
+]
+
+
+def _reconstruct_inputs(dev, K, w0, wp, kind, seed, B=None):
+    """``solver``: the pivot rows of a scanned random matrix and their
+    coefficients; ``inconsistent``: the scan's coefficients on unrelated
+    rows; ``arbitrary``: random rows, random coefficients and about a tenth
+    of prow at -1 (rows above the back pass's window with bit j set, rows
+    k > j inside the group too).  With B: a (B, ...) stack of such systems."""
+    rng = np.random.default_rng(seed)
+    kw = K // 32
+    nb, rows = B or 1, 1024
+    cols = 32 * (w0 + kw) - 9  # the panel crosses cols: its last columns have no pivot
+    if kind == "arbitrary":
+        arows = _rand(rng, (nb, K, wp), dev)
+        coeff = _rand(rng, (nb, K, kw), dev)
+        prow = torch.from_numpy(np.where(rng.random((nb, K)) < 0.1, -1, 7).astype(np.int32)).to(dev)
+    else:
+        a = _rand(rng, (nb, rows, wp), dev)
+        bT = a[:, :, w0 : w0 + kw].transpose(1, 2).contiguous()
+        used = torch.zeros((nb, rows), dtype=torch.int32, device=dev)
+        prow, _, cT = gauss_batched.scan_batched(bT, used, w0, K, cols)
+        src = a if kind == "solver" else _rand(rng, (nb, rows, wp), dev)
+        ps = prow.clamp(min=0).long()
+        arows = torch.gather(src, 1, ps[:, :, None].expand(nb, K, wp)).contiguous()
+        coeff = torch.gather(cT, 2, ps[:, None, :].expand(nb, kw, K)).transpose(1, 2).contiguous()
+    if B is None:
+        return arows[0].contiguous(), coeff[0].contiguous(), prow[0].contiguous()
+    return arows, coeff, prow
+
+
+@pytest.mark.parametrize("kind", ["solver", "inconsistent", "arbitrary"])
+@pytest.mark.parametrize("K,w0,wp", RECONSTRUCT_SHAPES)
+def test_reconstruct_kernel(dev, K, w0, wp, kind):
+    arows, coeff, prow = _reconstruct_inputs(dev, K, w0, wp, kind, seed=K + w0 + wp)
+    _cuda.reset_launches()
     got = phase1.reconstruct(arows, coeff, prow, w0)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"reconstruct": 1}
     want = phase1.reconstruct_plain(arows, coeff, prow, w0)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["solver", "arbitrary"])
+@pytest.mark.parametrize("K,w0,wp", RECONSTRUCT_SHAPES)
+def test_coefficient_solves_agree(dev, K, w0, wp, kind):
+    """The blocked coefficient solve, the step-by-step kernel it replaced and
+    both plain twins give the same T, for one system and for a batch; each
+    launch is counted under its own name and never as a rebuild."""
+    kw = K // 32
+    for B in (None, 4):
+        arows, coeff, prow = _reconstruct_inputs(dev, K, w0, wp, kind, seed=K + w0 + wp + 1, B=B)
+        _cuda.reset_launches()
+        new = phase1.reconstruct_coeff(arows, coeff, prow, w0)
+        old = phase1.reconstruct_coeff_steps(arows, coeff, prow, w0)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+            "reconstruct_coeff": 1, "reconstruct_coeff_steps": 1}
+        assert torch.equal(new, old)
+        for b in range(B or 1):
+            one = (lambda t: t if B is None else t[b])
+            sl = one(arows)[:, w0 : w0 + kw].cpu().contiguous()
+            args = (sl, one(coeff).cpu(), one(prow).cpu())
+            want = phase1.reconstruct_coeff_plain(*args)
+            assert torch.equal(one(new).cpu(), want)
+            assert torch.equal(phase1.reconstruct_coeff_blocked_plain(*args), want)
+
+
+def test_coefficient_solve_rejects_what_the_kernel_does_not_take(dev):
+    arows, coeff, prow = _reconstruct_inputs(dev, 64, 2, 128, "arbitrary", seed=1)
+    for fn in (phase1.reconstruct_coeff, phase1.reconstruct_coeff_steps, phase1.reconstruct):
+        with pytest.raises(ValueError, match="outside"):
+            fn(arows, coeff, prow, 127)
+        with pytest.raises(ValueError):
+            fn(arows, coeff[:, :1].contiguous(), prow, 2)
+    with pytest.raises(ValueError, match="expected"):
+        phase1.reconstruct_coeff(arows[None, None], coeff[None, None], prow[None, None], 2)
 
 
 # aligned widths, widths that are no multiple of 4 (scalar loads and stores), the
@@ -153,6 +221,7 @@ def test_wrapper_counts_launches(dev):
         "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
         "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
         "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
+        "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
     }
 
 
@@ -170,20 +239,13 @@ def test_scan_batched_kernel(dev, B, rows, K, w0, cols):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("consistent", [True, False])
-@pytest.mark.parametrize("K,w0,cols,wp", [(64, 2, 80, 128), (256, 8, 3000, 640)])
-def test_reconstruct_batched_kernel(dev, K, w0, cols, wp, consistent):
-    rng = np.random.default_rng(K + w0 + wp + 1)
-    B, rows = 3, 1024
-    a = _rand(rng, (B, rows, wp), dev)
-    bT = a[:, :, w0 : w0 + K // 32].transpose(1, 2).contiguous()
-    used = torch.zeros((B, rows), dtype=torch.int32, device=dev)
-    prow, _, cT = gauss_batched.scan_batched(bT, used, w0, K, cols)
-    src = a if consistent else _rand(rng, (B, rows, wp), dev)
-    ps = prow.clamp(min=0).long()
-    arows = torch.gather(src, 1, ps[:, :, None].expand(B, K, wp)).contiguous()
-    coeff = torch.gather(cT, 2, ps[:, None, :].expand(B, K // 32, K)).transpose(1, 2).contiguous()
+@pytest.mark.parametrize("kind", ["solver", "inconsistent", "arbitrary"])
+@pytest.mark.parametrize("K,w0,wp", RECONSTRUCT_SHAPES)
+def test_reconstruct_batched_kernel(dev, K, w0, wp, kind):
+    arows, coeff, prow = _reconstruct_inputs(dev, K, w0, wp, kind, seed=K + w0 + wp + 2, B=3)
+    _cuda.reset_launches()
     got = gauss_batched.reconstruct_batched(arows, coeff, prow, w0)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"reconstruct_batched": 1}
     want = gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -454,13 +516,28 @@ def test_update_mma_kernels(dev, name, rows, wp, K):
     assert torch.equal(kernel(a.clone(), sel, pf), panel_update.update_full(a.clone(), sel, pf))
 
 
-def test_launch_probe_kernel(dev):
+# the probe's own shape, sizes with n % 4 != 0, fewer words than one vector, nothing,
+# more vectors than the grid has threads
+PROBE_SIZES = [launch_floor.PROBE_SHAPE, (1,), (3,), (4,), (5,), (1023,), (257, 3), (0,),
+               (2_000_003,)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SIZES)
+def test_launch_probe_kernel(dev, shape):
     rng = np.random.default_rng(15)
-    a = _rand(rng, launch_floor.PROBE_SHAPE, dev)
+    a = _rand(rng, shape, dev)
     _cuda.reset_launches()
     got = launch_floor.tiny_call(a)
     assert _cuda.LAUNCHES["launch_probe"] == 1
-    assert torch.equal(got, launch_floor.tiny_call_plain(a)) and got.data_ptr() != a.data_ptr()
+    assert torch.equal(got, launch_floor.tiny_call_plain(a))
+    assert a.numel() == 0 or got.data_ptr() != a.data_ptr()
+    if a.numel() > 8:  # a view that starts 4 bytes into an allocation: no 16-byte alignment
+        off = a.flatten()[1:]
+        assert off.data_ptr() % 16 and off.is_contiguous()
+        assert torch.equal(launch_floor.tiny_call(off), launch_floor.tiny_call_plain(off))
+
+
+def test_launch_floor_measure(dev):
     floor = launch_floor.measure(dev, n=64)
     assert all(floor[k] > 0 for k in ("probe_us", "probe_python_us", "bitwise_xor_us",
                                       "update_tile_us"))

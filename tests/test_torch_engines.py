@@ -15,7 +15,10 @@ import torch
 
 import jax.numpy as jnp
 
+from gf2bv_tpu import LinearSystem as LinearSystemJax
 from gf2bv_tpu.core import packing
+from gf2bv_tpu.crypto.mt import MersenneTwister as MersenneTwisterJax
+from gf2bv_tpu.ops import lazy_solve as lazy_solve_jax
 from gf2bv_tpu.ops import gauss_blocked as gb_jax
 from gf2bv_tpu.ops import pallas_phase1
 from gf2bv_tpu.ops.pallas_phase1 import _call_scan_kernel, phase1_panel
@@ -374,29 +377,54 @@ def test_entry_points_take_engines_from_the_environment(monkeypatch):
 
 
 def test_lazy_cache_keeps_its_engines(monkeypatch):
-    """A lazily traced structure keeps the engines it was cached with, as in
-    the reference; clear_cache lets a new environment through."""
+    """The engines cached with a lazily traced structure are those of the
+    environment at the time of the solve: GF2BV_TPU_PHASE1 / PHASE2 are part
+    of the cache key, as in the reference, so a change reaches the next
+    solve_one without clear_cache, and going back finds the first entry."""
     params = dict(MT19937.PARAMS, n=8, m=3)
     state = [0x80000000, 1, 2, 3, 0xDEADBEEF, 5, 6, 0x12345678]
     gen = MersenneTwister(list(state), **params)
     outs = [gen() for _ in range(8)]
+
+    def traced(linear_system, model):
+        v = linear_system.gens()
+        sym = model(list(v), **params)
+        return [sym() ^ o for o in outs] + [v[0] ^ 0x80000000]
+
     lin = LinearSystem([32] * 8, device="cpu")
-    v = lin.gens()
-    sym = MersenneTwister(list(v), **params)
-    zeros = [sym() ^ o for o in outs] + [v[0] ^ 0x80000000]
-    assert lazy_solve.eligible(lin, zeros)
+    zeros = traced(lin, MersenneTwister)
+    lin_j = LinearSystemJax([32] * 8, backend="blocked")
+    zeros_j = traced(lin_j, MersenneTwisterJax)
+    assert lazy_solve.eligible(lin, zeros) and lazy_solve_jax.eligible(lin_j, zeros_j)
 
     lazy_solve.clear_cache()
+    lazy_solve_jax.clear_cache()
     monkeypatch.delenv("GF2BV_TPU_PHASE1", raising=False)
-    assert lin.solve_one(zeros) == tuple(state)
+    monkeypatch.delenv("GF2BV_TPU_PHASE2", raising=False)
     calls = _count_calls(monkeypatch, phase1, "scan_minkey")
+    assert lin.solve_one(zeros) == tuple(state)
+    assert calls == []
+    first = lazy_solve.cached_system(lin, zeros)
+    assert first.phase1 == "pallas_scan"
+    first_j = lazy_solve_jax.cached_system(lin_j, zeros_j)
+
     monkeypatch.setenv("GF2BV_TPU_PHASE1", "pallas_scanm")
+    assert lin.solve_one(zeros) == tuple(state)  # no clear_cache
+    assert calls  # the min-key scan ran: the new engine, not the cached one
+    second = lazy_solve.cached_system(lin, zeros)
+    second_j = lazy_solve_jax.cached_system(lin_j, zeros_j)
+    assert second is not first and second_j is not first_j
+    assert second.phase1 == second_j.phase1 == "pallas_scanm"
+    assert len(lazy_solve._CACHE) == len(lazy_solve_jax._CACHE) == 2
+
+    monkeypatch.delenv("GF2BV_TPU_PHASE1")
+    assert lazy_solve.cached_system(lin, zeros) is first
+    assert lazy_solve_jax.cached_system(lin_j, zeros_j) is first_j
+    n = len(calls)
     assert lin.solve_one(zeros) == tuple(state)
-    assert calls == []  # the cached structure keeps pallas_scan
+    assert len(calls) == n  # back on pallas_scan
     lazy_solve.clear_cache()
-    assert lin.solve_one(zeros) == tuple(state)
-    assert calls  # rebuilt with pallas_scanm
-    lazy_solve.clear_cache()
+    lazy_solve_jax.clear_cache()
 
 
 def test_batched_solvers_take_engines():

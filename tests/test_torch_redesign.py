@@ -111,13 +111,19 @@ def test_route_constants_mirror_the_cuda_source():
 
 def test_new_entry_points_are_declared():
     """Every C entry point a wrapper calls has its signature and its count."""
-    for fn in ("gf2_scan", "gf2_scan_block", "gf2_update_rank_k", "gf2_update_table_probe"):
+    for fn in ("gf2_scan", "gf2_scan_block", "gf2_update_rank_k", "gf2_update_table_probe",
+               "gf2_reconstruct_coeff", "gf2_reconstruct_coeff_steps"):
         assert fn in _cuda._SIGNATURES
-        source = "scan.cu" if "scan" in fn else (
+        source = "reconstruct.cu" if "reconstruct" in fn else "scan.cu" if "scan" in fn else (
             "panel_update.cu" if fn.endswith("rank_k") else "update_table.cu")
         assert f'extern "C" int {fn}(' in (CSRC / source).read_text()
-    for key in ("scan", "scan_block", "update_rank_k", "update_table_probe"):
+    for key in ("scan", "scan_block", "update_rank_k", "update_table_probe",
+                "reconstruct_coeff", "reconstruct_coeff_steps"):
         assert key in _cuda.LAUNCHES
+    # the two coefficient solves share a signature: four pointers, batch, three ints, stream
+    assert (_cuda._SIGNATURES["gf2_reconstruct_coeff"]
+            == _cuda._SIGNATURES["gf2_reconstruct_coeff_steps"])
+    assert len(_cuda._SIGNATURES["gf2_reconstruct_coeff"]) == 9
     # gf2_scan takes no working copy: five pointers, five ints, the stream
     assert len(_cuda._SIGNATURES["gf2_scan"]) == 11
     assert len(_cuda._SIGNATURES["gf2_scan_block"]) == 11
