@@ -6,15 +6,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each kernel (the ports of the fifteen TPU kernels, and the one-block
-   scan kept beside the cluster scan) against its plain PyTorch twin on the
+3. Holds each kernel (the ports of the fifteen TPU kernels, and the three
+   one-block kernels kept beside the cluster scan, the batched scan and the
+   fused update + scan) against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
    (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
    rebuild (4 systems), two-pivot scan, min-key scan, fused phase 1, fused
-   update + scan (full and trailing); also the batched scan's time per step
-   for 1, 4 and 16 systems and each scan's time per step.  The update
+   update + scan (full and trailing; beside the one-block kernel, the scan
+   and the update apart, and its update part alone); also the batched scan's
+   time per step for 1, 4, 8 and 16 systems on each cluster size that holds a
+   slice, beside the one-block kernel and the clusters of each size the card
+   runs at once, and each scan's time per step.  The update
    engines' kernels (the table kernel of engine pallas, the tensor-core
    kernels of mxu2 and mxu4) run at panel 20 of the 768-word multi-RHS
    matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words; the
@@ -54,9 +58,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 8. Batches of 4: LinearSystem.solve_all_batch (mode 1, batched kernels;
    80 batched scans and rebuilds, 320 full updates), gauss_batched.
    solve_batched mode 0 with one flipped system (3 states and None; 80/80
-   and 320 trailing updates), LinearSystem.solve_one_batch and
+   and 320 trailing updates; a profile), LinearSystem.solve_one_batch and
    solve_mt19937_batch (both a loop of the single-system solver), each
-   timed warm as recoveries per second.
+   timed warm as recoveries per second; the batched solver's full RREF is
+   the default engine's, system by system; two very tall systems through
+   solve_batched run the one-block batched scan 80 times.
 9. Engines: for each engine of the blocked solver other than the default
    (pallas_scan2, pallas_scanm, pallas, pallas_sub with mxu; mxu_la and
    mxu_noseg with pallas_scan), chosen through GF2BV_TPU_PHASE1/2,
@@ -71,7 +77,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the 1-pivot scan: the min-key packing takes fewer than 2^15 rows) and
    pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
    rows: more than the largest cluster holds), under the default engine,
-   which must run the one-block scan 79 times.
+   which must run the one-block scan 79 times, and under mxu_la, which must
+   run the one-block fused update + scan 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -138,7 +145,8 @@ HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 INT8_OPS_PER_MS = 1.979e12  # 1,979 TOP/s, dense int8 tensor cores at 700 W
 TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 TALL_ROWS = 40192  # its padded rows
-VERY_TALL_SAMPLES = 2100  # 67328 padded rows: past the largest cluster, so scan_block
+VERY_TALL_SAMPLES = 2100  # past the largest cluster, so the one-block kernels
+VERY_TALL_ROWS = 67328  # its padded rows
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
@@ -155,6 +163,8 @@ KERNELS = {
                         "gf2bv_tpu/ops/pallas_update.py:261"),
     "scan_batched": ("scan_batched", "gf2bv_tpu_torch/csrc/scan.cu",
                      "gf2bv_tpu/ops/gauss_batched.py:53"),
+    "scan_batched_block": ("scan_batched_block", "gf2bv_tpu_torch/csrc/scan.cu",
+                           "gf2bv_tpu/ops/gauss_batched.py:53"),
     "reconstruct_batched": ("reconstruct_batched", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                             "gf2bv_tpu/ops/gauss_batched.py:107"),
     "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
@@ -164,6 +174,8 @@ KERNELS = {
                      "gf2bv_tpu/ops/pallas_phase1.py:39"),
     "update_scan": ("update_scan", "gf2bv_tpu_torch/csrc/panel_update.cu",
                     "gf2bv_tpu/ops/pallas_update.py:514"),
+    "update_scan_block": ("update_scan_block", "gf2bv_tpu_torch/csrc/panel_update.cu",
+                          "gf2bv_tpu/ops/pallas_update.py:514"),
     "update_pallas": ("update_pallas", "gf2bv_tpu_torch/csrc/update_table.cu",
                       "gf2bv_tpu/ops/pallas_update.py:35"),
     "update_mxu2": ("update_mxu2", "gf2bv_tpu_torch/csrc/update_mma.cu",
@@ -262,14 +274,15 @@ def mt_outputs(seed: int, n: int = 624):
     return state, [rand.getrandbits(32) for _ in range(n)]
 
 
-def flagship_system(dev, outs) -> torch.Tensor:
-    """The (ROWS, WP) padded MT19937 recovery system of ``outs``."""
+def flagship_system(dev, outs, rows: int = ROWS) -> torch.Tensor:
+    """The (rows, WP) padded MT19937 recovery system of ``outs`` (624 of them
+    at the flagship's ROWS; more outputs make a taller system)."""
     from gf2bv_tpu_torch.core.words import u32_to_torch
     from gf2bv_tpu_torch.crypto.mt_torch import mt19937_system_device
 
-    eqs = mt19937_system_device(u32_to_torch(np.array(outs, np.uint32), dev), 32, 624)
-    a = torch.nn.functional.pad(eqs, (0, 0, 0, ROWS - eqs.shape[0])).contiguous()
-    assert tuple(a.shape) == (ROWS, WP), a.shape
+    eqs = mt19937_system_device(u32_to_torch(np.array(outs, np.uint32), dev), 32, len(outs))
+    a = torch.nn.functional.pad(eqs, (0, 0, 0, rows - eqs.shape[0])).contiguous()
+    assert tuple(a.shape) == (rows, WP), a.shape
     return a
 
 
@@ -378,34 +391,62 @@ def check_kernels(dev, card: str) -> dict:
 
 
 def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
-    """The batched scan and rebuild on NB systems from different seeds, at
-    panel 20 with the same pre-used rows; the scan's time per step for 1, NB
-    and 16 systems."""
+    """The batched scan (one cluster per system), the kept one-block kernel
+    and the batched rebuild on NB systems from different seeds, at panel 20,
+    each system with its own pre-used rows; old and new scan timed in the
+    same run from a CUDA graph's replay, for 1, NB, 8 and 16 systems on each
+    cluster size that holds a slice."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
-    from gf2bv_tpu_torch.ops import gauss_batched
+    from gf2bv_tpu_torch.ops import gauss_batched, phase1
 
+    kw = K // 32
     mats = torch.stack([flagship_system(dev, mt_outputs(SEED + 10 + b)[1]) for b in range(NB)])
-    bT = mats[:, :, w0 : w0 + K // 32].transpose(1, 2).contiguous()
-    used = used0.expand(NB, ROWS).contiguous()
+    bT = mats[:, :, w0 : w0 + kw].transpose(1, 2).contiguous()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    used = torch.cat([used0] + [
+        (torch.rand((1, ROWS), generator=gen) < 0.25).to(torch.int32).to(dev)
+        for _ in range(NB - 1)])
     res = {}
     out_k = gauss_batched.scan_batched(bT, used, w0, K, COLS)
     out_p = gauss_batched.scan_batched_plain(bT, used, w0, K, COLS)
     res["scan_batched"] = (
         require_equal("scan_batched", zip(out_k, out_p)),
-        cuda_ms(lambda: gauss_batched.scan_batched(bT, used, w0, K, COLS), 5),
+        graph_ms(lambda: gauss_batched.scan_batched(bT, used, w0, K, COLS), 16),
         cuda_ms(lambda: gauss_batched.scan_batched_plain(bT, used, w0, K, COLS), 2),
     )
     prow, _, cT = out_k
     if int((prow >= 0).sum(dim=1).min()) == 0:
         raise AssertionError("a batched scan system has no pivots")
     note_bound("scan_batched", nbytes(bT, used, *out_k))
-    for nb in (1, NB, 16):
+    out_b = gauss_batched.scan_batched_block(bT, used, w0, K, COLS)
+    res["scan_batched_block"] = (
+        require_equal("scan_batched_block", zip(out_b, out_p)),
+        graph_ms(lambda: gauss_batched.scan_batched_block(bT, used, w0, K, COLS), 8),
+        res["scan_batched"][2],
+    )
+    note_bound("scan_batched_block", nbytes(bT, used, *out_b))
+    sizes = [nb for nb in phase1.SCAN_CLUSTER_SIZES if phase1.scan_fits(-(-ROWS // nb), kw)]
+    print(f"clusters holding a ({kw}, {ROWS}) slice that the card runs at once "
+          f"(cudaOccupancyMaxActiveClusters): "
+          + ", ".join(f"{phase1.scan_occupancy(ROWS, kw, nb)} of {nb} blocks" for nb in sizes)
+          + f" ({card})")
+    for nb in (1, NB, 8, 16):
         reps = -(-nb // NB)
         bTn = bT.repeat(reps, 1, 1)[:nb].contiguous()
         usedn = used.repeat(reps, 1)[:nb].contiguous()
-        ms = cuda_ms(lambda: gauss_batched.scan_batched(bTn, usedn, w0, K, COLS), 5)
-        print(f"scan_batched B={nb}: {ms:.4f} ms per panel, {1000 * ms / K:.3f} us per "
-              f"step, {ms / nb:.4f} ms per system ({card})")
+        want = gauss_batched.scan_batched_plain(bTn, usedn, w0, K, COLS)
+        route = phase1.scan_batched_route(nb, ROWS, kw)
+        old = graph_ms(lambda: gauss_batched.scan_batched_block(bTn, usedn, w0, K, COLS), 8)
+        per_size = []
+        for c in sizes:
+            require_equal(f"scan_batched B={nb} on {c} blocks", zip(
+                gauss_batched.scan_batched_cluster(bTn, usedn, w0, K, COLS, c), want))
+            ms = graph_ms(
+                lambda: gauss_batched.scan_batched_cluster(bTn, usedn, w0, K, COLS, c), 16)
+            per_size.append(f"{c} blocks a system {ms:.4f} ms ({1000 * ms / K:.3f} us per step)")
+        print(f"scan_batched B={nb}: route {route.kernel} on {route.nblocks} blocks a system; "
+              + "; ".join(per_size) + f"; one block a system (scan_batched_block) {old:.4f} ms "
+              f"({1000 * old / K:.3f} us per step) ({card})")
 
     ps = prow.clamp(min=0).long()
     arows = torch.gather(mats, 1, ps[:, :, None].expand(NB, K, WP)).contiguous()
@@ -464,30 +505,41 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     print(f"phase1 at panel 20: fused kernel {res['phase1_fused'][1]:.4f} ms, split engine "
           f"(scan + gathers + reconstruct) {split_ms:.4f} ms ({card})")
 
-    # the next panel's slice after this panel's update, as the look-ahead loop has it
+    # the next panel's slice after this panel's update, as the look-ahead loop has it;
+    # the fused kernel (cluster scan beside table updates) and the kept one-block
+    # kernel against the twin, both timed in the same run from a CUDA graph's replay
     kw = K // 32
-    errs, ms_k, ms_p = [], [], []
+    errs, errs_b, ms_k, ms_b, ms_p = [], [], [], [], []
     scratch = a.clone()
+    scan_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 16)
     for w0t in (None, w0):
         nxt = panel_update.update_full_plain(a.clone(), sel, pf) if w0t is None else \
             panel_update.update_trailing_plain(a.clone(), sel, pf, w0t)
         bTn = nxt[:, w0 + kw : w0 + 2 * kw].T.contiguous()
-        out_k = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
-        out_p = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        args = (sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        out_k = panel_update.update_scan(a.clone(), *args)
+        out_b = panel_update.update_scan_block(a.clone(), *args)
+        out_p = panel_update.update_scan_plain(a.clone(), *args)
         upd_bytes = update_bytes(ROWS, kw, WP if w0t is None else 1 + WP - 128 * (w0t // 128))
-        note_bound("update_scan", upd_bytes + nbytes(bTn, used, *out_k[1:]))
+        for name in ("update_scan", "update_scan_block"):
+            note_bound(name, upd_bytes + nbytes(bTn, used, *out_k[1:]))
         errs.append(require_equal(f"update_scan w0={w0t}", zip(out_k, out_p)))
-        ms_k.append(cuda_ms(lambda: panel_update.update_scan(
-            scratch, sel, pf, bTn, used, w0 + kw, COLS, w0t), 5))
-        ms_p.append(cuda_ms(lambda: panel_update.update_scan_plain(
-            scratch, sel, pf, bTn, used, w0 + kw, COLS, w0t), 2))
-        upd_ms = cuda_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
-                         else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 10)
-        print(f"update_scan w0={w0t}: fused kernel {ms_k[-1]:.4f} ms against scan "
-              f"{scan_ms['scan']:.4f} ms + update {upd_ms:.4f} ms apart; plain "
-              f"{ms_p[-1]:.4f} ms ({card})")
+        errs_b.append(require_equal(f"update_scan_block w0={w0t}", zip(out_b, out_p)))
+        ms_k.append(graph_ms(lambda: panel_update.update_scan(scratch, *args), 16))
+        ms_b.append(graph_ms(lambda: panel_update.update_scan_block(scratch, *args), 8))
+        ms_p.append(cuda_ms(lambda: panel_update.update_scan_plain(scratch, *args), 2))
+        # cols = 0: no column is valid, so the scan cluster only loads and stores
+        part = graph_ms(lambda: panel_update.update_scan(
+            scratch, sel, pf, bTn, used, w0 + kw, 0, w0t), 16)
+        upd_ms = graph_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
+                          else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 16)
+        print(f"update_scan w0={w0t}: fused kernel {ms_k[-1]:.4f} ms (one-block kernel "
+              f"update_scan_block {ms_b[-1]:.4f} ms) against scan {scan_g:.4f} ms + update "
+              f"{upd_ms:.4f} ms apart; its update part alone (a scan with no valid column) "
+              f"{part:.4f} ms; plain {ms_p[-1]:.4f} ms ({card})")
     # the fused update + scan's time is the mean of the full and trailing cases
     res["update_scan"] = (max(errs), sum(ms_k) / 2, sum(ms_p) / 2)
+    res["update_scan_block"] = (max(errs_b), sum(ms_b) / 2, sum(ms_p) / 2)
     return res
 
 
@@ -991,7 +1043,7 @@ def check_batches(dev, card: str, single_s: float) -> dict:
     from gf2bv_tpu_torch import LinearSystem
     from gf2bv_tpu_torch.crypto.mt import MT19937
     from gf2bv_tpu_torch.crypto.mt_torch import COLS, _state_words, solve_mt19937_batch
-    from gf2bv_tpu_torch.ops import _cuda, gauss_batched
+    from gf2bv_tpu_torch.ops import _cuda, gauss_batched, gauss_blocked
 
     pairs = [mt_outputs(SEED + 100 + b) for b in range(NB)]
     states = [s for s, _ in pairs]
@@ -1027,8 +1079,17 @@ def check_batches(dev, card: str, single_s: float) -> dict:
     mode0 = check_launches("solve_batched mode 0", BATCH0_LAUNCHES)
     if got != want:
         raise AssertionError("solve_batched mode 0 did not give 3 states and None")
-    _, t = timed(batched0)
-    rates["gauss_batched.solve_batched mode 0 (batched kernels, trailing)"] = t
+    t = min(timed(batched0)[1] for _ in range(3))
+    rates["gauss_batched.solve_batched mode 0 (batched kernels, trailing; best of 3)"] = t
+    profile_solve(batched0, card, f"solve_batched mode 0 B={NB}", t)
+    # the batched solver's full RREF and pivot map, system by system, are the
+    # single-system default engine's
+    rref_b, pof_b, _ = gauss_batched.rref_blocked_batched(mats, COLS)
+    for b in range(NB):
+        rref_d, pof_d, _ = gauss_blocked.rref_blocked(mats[b], COLS, K, False)
+        require_equal(f"rref_blocked_batched system {b} against the default engine",
+                      [(rref_b[b], rref_d), (pof_b[b], pof_d)])
+    del rref_b, pof_b
 
     got, _ = timed(lambda: lin.solve_one_batch(zb))
     if got != states:
@@ -1042,11 +1103,27 @@ def check_batches(dev, card: str, single_s: float) -> dict:
     _, t = timed(lambda: solve_mt19937_batch(outs_b, 32, device=dev))
     rates["solve_mt19937_batch (chained single-system solver)"] = t
 
-    print(f"batch paths recover their states; single warm solve_mt19937 "
-          f"{single_s:.4f} s = {1 / single_s:.3f} recoveries/s ({card})")
+    print(f"batch paths recover their states, the batched solver's full RREF = the default "
+          f"engine's; single warm solve_mt19937 {single_s:.4f} s = {1 / single_s:.3f} "
+          f"recoveries/s ({card})")
     for name, t in rates.items():
         print(f"{name}: B={NB} warm {t:.4f} s = {NB / t:.3f} recoveries/s ({card})")
+
+    # two very tall systems (more rows than the largest cluster holds): the batch
+    # takes the kept one-block scan, one block a system
+    del mats
+    vpairs = [mt_outputs(SEED + 200 + b, VERY_TALL_SAMPLES) for b in range(2)]
+    vmats = torch.stack([flagship_system(dev, outs, VERY_TALL_ROWS) for _, outs in vpairs])
+    _cuda.reset_launches()
+    got, t = timed(lambda: gauss_batched.solve_batched(vmats, COLS, 0, device=dev))
+    tall = check_launches("solve_batched mode 0, very tall", {
+        "scan_batched_block": 80, "reconstruct_batched": 80, "update_trailing": 160})
+    if [_state_words(o) for o in got] != [s for s, _ in vpairs]:
+        raise AssertionError("solve_batched on the very tall systems did not recover the states")
+    print(f"solve_batched mode 0 on 2 very tall systems ({VERY_TALL_ROWS} x {WP} words): "
+          f"states recovered; launches {tall}; {t:.4f} s ({card})")
     return {"scan_batched": mode1["scan_batched"],
+            "scan_batched_block": tall["scan_batched_block"],
             "reconstruct_batched": mode1["reconstruct_batched"],
             "update_trailing": mode0["update_trailing"]}
 
@@ -1184,10 +1261,20 @@ def check_engines(dev, card: str) -> dict:
     if got != vstate:
         raise AssertionError("very tall system: state not recovered")
     launches["scan_block"] = counts["scan_block"]
-    _, warm = timed(lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
-    print(f"very tall system ({VERY_TALL_SAMPLES} outputs, 67328 x 640 words: more rows than "
-          f"the largest cluster holds), default engine: state recovered; launches {counts}; "
-          f"solve_mt19937 first call {cold:.4f} s, second {warm:.4f} s ({card})")
+    print(f"very tall system ({VERY_TALL_SAMPLES} outputs, {VERY_TALL_ROWS} x {WP} words: more "
+          f"rows than the largest cluster holds), default engine: state recovered; launches "
+          f"{counts}; solve_mt19937 {cold:.4f} s ({card})")
+    with engines_env("pallas_scan", "mxu_la"):
+        _cuda.reset_launches()
+        got, cold = timed(
+            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+        counts = check_launches("very tall system, mxu_la", {
+            "scan_block": 1, "reconstruct": 79, "update_scan_block": 79, "update_full": 79})
+    if got != vstate:
+        raise AssertionError("very tall system, mxu_la: state not recovered")
+    launches["update_scan_block"] = counts["update_scan_block"]
+    print(f"very tall system, pallas_scan+mxu_la: state recovered; launches {counts}; "
+          f"solve_mt19937 {cold:.4f} s ({card})")
     return launches
 
 
@@ -1369,7 +1456,8 @@ def main() -> int:
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan", "scan_block"):
+    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan", "scan_block",
+                "update_scan_block"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

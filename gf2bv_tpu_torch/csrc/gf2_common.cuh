@@ -8,6 +8,29 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace gf2 {
+
+__device__ __forceinline__ uint4 xor4(uint4 x, uint4 y) {
+  return make_uint4(x.x ^ y.x, x.y ^ y.y, x.z ^ y.z, x.w ^ y.w);
+}
+
+// The SMs of the current device, asked once (the port drives one device per
+// process).
+inline cudaError_t sm_count(int* nsm) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, n = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return rc;
+    cached = n;
+  }
+  *nsm = cached;
+  return cudaSuccess;
+}
+
+}  // namespace gf2
+
 // a[i] ^= XOR_{t : bit t of sel[i]} pf[t] (GF(2) rank-K update) in place on
 // the words {0 if const_word} U [word_lo, wp), through Four-Russians XOR tables
 // in shared memory; words outside that set are neither read nor written.

@@ -28,27 +28,49 @@
 // of update_table.cu (launch_table_update: one shared-memory table read per 8
 // selector bits), under their own rules, and so does the product
 // pf = T . arows of the pivot-row rebuilds (reconstruct.cu: measured on its 256
-// rows the tables take a sixth of the tiles' time).  The mask-and-XOR tile
-// body (rank_k_tile, below) stays for:
-//   * the update tiles of the fused update + scan, which hide under the
-//     scan block's time;
+// rows the tables take a sixth of the tiles' time), and so do the update
+// clusters of the fused update + scan.  The mask-and-XOR tile body
+// (rank_k_tile, below) stays for:
 //   * gf2_update_rank_k, which launches it on a panel update's arguments so
-//     that the two bodies can be timed on the same inputs.
+//     that the two bodies can be timed on the same inputs;
+//   * the update tiles of gf2_update_scan_block, the fused kernel's earlier
+//     design, where they hide under the one-block scan's time.
 // In rank_k_tile a block owns a 128-row x 32-word tile; PF's 32-word column
 // strip (32 KB at K = 256) and the block's selector rows are staged once in
 // shared memory, and each thread owns one word column and 16 rows, so one
 // shared-memory load of a PF word feeds 16 mask-and-XORs held in registers.
 //
-// The fused update + scan: on the TPU the two phases could only overlap
-// inside one kernel, since its kernels run one after another on one core.
-// Here the launch holds both: block 0 runs the one-block scan (scan_system in
-// scan_system.cuh, on its own kernel parameters, as gf2_scan_block does) and
-// blocks 1.. run 256-row x 32-word update tiles on the other SMs.  The
-// two parts share no data (the scan reads the separate, already-updated next
-// slice bTn; the update writes a), so no block waits on another, and the
-// scan block, having the lowest index, is dispatched first.
+// The fused update + scan (gf2_update_scan): on the TPU the two phases could
+// only overlap inside one kernel, since its kernels run one after another on
+// one core.  Here ONE launch holds both, as blocks of 512 threads in clusters
+// of nb blocks, nb the cluster size the scan's route picks for (rows, kw):
+//   * cluster 0 (blocks 0 .. nb-1: the lowest indices, so it is dispatched
+//     first) runs the cluster scan of scan_cluster.cuh on the next panel's
+//     slice bTn, its state in shared memory, 0.85 us a step on 20224 rows;
+//   * every other cluster's blocks run the table body of update_table.cuh,
+//     block u of them on strip u % nstrips and row chunk u / nstrips of the
+//     live words: the strips launch_table_update would launch, their rows cut
+//     into chunks for the SMs left beside the scan cluster (the clusters the
+//     card holds at once, less one).  The grid is padded to a whole number of
+//     clusters; a surplus block returns at once.
+// The two parts share no data (the scan reads the separate, already-updated
+// next slice; the update writes a), so no block waits on another: only
+// cluster 0 touches a cluster barrier or another block's shared memory, and
+// an update block may exit whenever it is done.  Every block asks for the
+// larger of the two bodies' shared memory (the tables' 132 KB at K = 256
+// against the scan block's 43 KB at the flagship shape), so one block runs on
+// an SM.  What bounds it: the scan's chain of K steps (0.20 ms at the
+// flagship shape), under which the update (0.11-0.12 ms on the SMs that are
+// left) hides.
+//
+// gf2_update_scan_block is that kernel's earlier design under its own name,
+// for rows past what the largest cluster holds: block 0 runs the one-block
+// scan with its state in global memory (scan_system.cuh), blocks 1.. run
+// 256-row x 32-word mask-and-XOR tiles.
 
+#include "scan_cluster.cuh"
 #include "scan_system.cuh"
+#include "update_table.cuh"
 
 namespace {
 
@@ -139,19 +161,21 @@ rank_k_kernel(uint32_t* out, const uint32_t* a,
       blockIdx.x, blockIdx.y, threadIdx.x, threadIdx.y, smem);
 }
 
-// The fused update + scan (gf2_update_scan): 1024-thread blocks, so the
-// update tiles are 32 words x 256 rows (8 rows per thread keeps the tile
-// under the 64 registers a thread of a 1024-thread block may use).
+// The fused update + scan's earlier design (gf2_update_scan_block):
+// 1024-thread blocks, so the update tiles are 32 words x 256 rows (8 rows per
+// thread keeps the tile under the 64 registers a thread of a 1024-thread
+// block may use).
 constexpr int kUsThreadRows = gf2::kScanThreads / kTileWords;  // 32
 constexpr int kUsRowsPerThread = 8;
 constexpr int kUsTileRows = kUsThreadRows * kUsRowsPerThread;   // 256
 
 __global__ void __launch_bounds__(gf2::kScanThreads)
-update_scan_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
-                   const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
-                   int const_word, int gx, const uint32_t* __restrict__ bTn,
-                   const int32_t* __restrict__ used_in, int32_t* __restrict__ prow,
-                   int32_t* used, uint32_t* cT, uint32_t* bT, int w0n, int cols) {
+update_scan_block_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
+                         const uint32_t* __restrict__ pf, int rows, int wp, int kw,
+                         int word_lo, int const_word, int gx,
+                         const uint32_t* __restrict__ bTn, const int32_t* __restrict__ used_in,
+                         int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
+                         int w0n, int cols) {
   if (blockIdx.x == 0) {  // the scan block: first in the grid, so it starts first
     gf2::scan_system(bTn, used_in, prow, used, cT, bT, rows, kw, w0n, cols);
     return;
@@ -162,6 +186,76 @@ update_scan_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
   rank_k_tile<kUsThreadRows, kUsRowsPerThread>(
       a, a, sel, pf, rows, wp, kw, word_lo, const_word && bx == gx - 1, bx, by,
       threadIdx.x % kTileWords, threadIdx.x / kTileWords, smem);
+}
+
+// The fused update + scan: blocks [0, nb) are the scan cluster, block nb + u
+// for u < nupdate is update block u (strip u % nstrips, row chunk
+// u / nstrips), the rest pad the last cluster.
+static_assert(gf2::kClusterThreads == gf2::kTabThreads, "one block size for both bodies");
+
+struct UpdatePart {  // the update, cut into blocks as launch_table_update would
+  uint32_t* a;
+  const uint32_t* sel;
+  const uint32_t* pf;
+  int rows, wp, kw, word_lo;
+  gf2::TableGrid grid;
+};
+
+struct ScanPart {  // the scan as gf2_scan would launch it
+  const uint32_t* bTn;
+  const int32_t* used_in;
+  int32_t* prow;
+  int32_t* used_out;
+  uint32_t* cT;
+  int w0n, cols, rpb, rpb_pad, nb;
+};
+
+template <bool kCluster, int kSlots>
+__global__ void __launch_bounds__(gf2::kClusterThreads, 1)
+update_scan_kernel(const UpdatePart up, const ScanPart sc) {
+  extern __shared__ uint4 smem4[];
+  if ((int)blockIdx.x < sc.nb) {
+    gf2::scan_cluster_body<kCluster, kSlots>(sc.bTn, sc.used_in, sc.prow, sc.used_out, sc.cT,
+                                             up.rows, up.kw, sc.w0n, sc.cols, sc.rpb,
+                                             sc.rpb_pad, smem4, (int)blockIdx.x, sc.nb);
+    return;
+  }
+  const gf2::TableGrid& g = up.grid;
+  const int u = (int)blockIdx.x - sc.nb;
+  if (u >= g.nstrips * g.nchunks) return;
+  gf2::table_update_body<0, false>(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo,
+                                   g.const_word, g.chunk_rows, g.aligned, g.sel_vec,
+                                   u % g.nstrips, u / g.nstrips, smem4);
+}
+
+// const_word: the caller's; up.grid is filled here.
+template <bool kCluster, int kSlots>
+cudaError_t launch_update_scan(UpdatePart up, int const_word, const ScanPart& sc,
+                               const gf2::ScanGeometry& g, cudaStream_t stream) {
+  static gf2::ClusterLaunchState state;
+  auto kernel = update_scan_kernel<kCluster, kSlots>;
+  const size_t table = gf2::table_smem_bytes(up.kw);
+  const size_t smem = g.smem > table ? g.smem : table;
+  cudaError_t rc = gf2::prepare_cluster_launch(kernel, &state, sc.nb, smem, stream);
+  int nsm = 0;
+  if (rc == cudaSuccess) rc = gf2::sm_count(&nsm);
+  if (rc != cudaSuccess) return rc;
+  // the update's blocks run beside the scan cluster: on the blocks the card
+  // holds at once in clusters of nb (at most one per SM), less the scan's
+  int beside = state.max_clusters[sc.nb] * sc.nb;
+  if (beside > nsm) beside = nsm;
+  beside -= sc.nb;
+  if (beside < 1) beside = sc.nb;  // nothing beside it: they run after it
+  if (!gf2::table_grid(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo, const_word, 1,
+                       beside, &up.grid))
+    return cudaErrorInvalidValue;
+  const int nupdate = up.grid.nstrips * up.grid.nchunks;
+  const int grid = sc.nb + (nupdate + sc.nb - 1) / sc.nb * sc.nb;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  gf2::cluster_config(&cfg, &attr, grid, sc.nb, smem, stream);
+  rc = cudaLaunchKernelEx(&cfg, kernel, up, sc);
+  return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 
 }  // namespace
@@ -229,21 +323,50 @@ extern "C" int gf2_update_rank_k(uint32_t* a, const uint32_t* sel, const uint32_
 
 // The update of panel t fused with the scan of panel t+1 (replaces
 // pallas_update._make_mxu_scan_kernel, launched by panel_update_mxu_scan):
-// the trailing update (w0 >= 0, as gf2_update_trailing) or the full update
-// (w0 < 0) of a, and in the same launch the 1-pivot scan (gf2_scan) of bTn,
-// the next panel's slice already carrying this update, at word w0n.
+// the update of a on the words {0 if const_word} U [word_lo, wp) (the
+// wrapper's trailing or full rule), and in the same launch the 1-pivot scan
+// (gf2_scan) of bTn, the next panel's slice already carrying this update, at
+// word w0n, on a cluster of nblocks blocks (the scan's route).  Returns an
+// error, and launches nothing, when the slice does not fit the cluster or the
+// card cannot place it.
 extern "C" int gf2_update_scan(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                               int rows, int wp, int kw, int w0, const uint32_t* bTn,
-                               const int32_t* used_in, int32_t* prow, int32_t* used_out,
-                               uint32_t* cT, uint32_t* bT_work, int w0n, int cols,
-                               cudaStream_t stream) {
-  if (kw < 1 || kw > gf2::kMaxKw || w0 >= wp || rows < 1) return (int)cudaErrorInvalidValue;
-  int word_lo = 0, const_only = 0;
-  if (w0 >= 0) trailing_range(wp, w0, &word_lo, &const_only);
+                               int rows, int wp, int kw, int word_lo, int const_word,
+                               const uint32_t* bTn, const int32_t* used_in, int32_t* prow,
+                               int32_t* used_out, uint32_t* cT, int w0n, int cols,
+                               int nblocks, cudaStream_t stream) {
+  gf2::ScanGeometry g;
+  if (!gf2::scan_geometry(rows, kw, nblocks, &g)) return (int)cudaErrorInvalidValue;
+  const UpdatePart up = {a, sel, pf, rows, wp, kw, word_lo, {}};
+  const ScanPart sc = {bTn, used_in, prow, used_out, cT, w0n, cols, g.rpb, g.rpb_pad, nblocks};
+#define GF2_UPDATE_SCAN_SLOTS(n)                                                          \
+  if (g.slots <= n)                                                                       \
+    return (int)(nblocks == 1 ? launch_update_scan<false, n>(up, const_word, sc, g, stream) \
+                              : launch_update_scan<true, n>(up, const_word, sc, g, stream));
+  GF2_UPDATE_SCAN_SLOTS(1)
+  GF2_UPDATE_SCAN_SLOTS(2)
+  GF2_UPDATE_SCAN_SLOTS(3)
+  GF2_UPDATE_SCAN_SLOTS(5)
+  GF2_UPDATE_SCAN_SLOTS(gf2::kMaxSlots)
+#undef GF2_UPDATE_SCAN_SLOTS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same function by the earlier design: block 0 the one-block scan with
+// its state in global memory (bT_work (kw, rows) its working copy), blocks 1..
+// the mask-and-XOR tiles.
+extern "C" int gf2_update_scan_block(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
+                                     int rows, int wp, int kw, int word_lo, int const_word,
+                                     const uint32_t* bTn, const int32_t* used_in,
+                                     int32_t* prow, int32_t* used_out, uint32_t* cT,
+                                     uint32_t* bT_work, int w0n, int cols,
+                                     cudaStream_t stream) {
+  if (kw < 1 || kw > gf2::kMaxKw || word_lo < 0 || word_lo > wp || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const int const_only = const_word && word_lo > 0;
   const int gx = (wp - word_lo + kTileWords - 1) / kTileWords + const_only;
   const int gy = (rows + kUsTileRows - 1) / kUsTileRows;
   const size_t smem = (size_t)(32 * kw * kTileWords + kUsTileRows * kw) * sizeof(uint32_t);
-  update_scan_kernel<<<1 + gx * gy, gf2::kScanThreads, smem, stream>>>(
+  update_scan_block_kernel<<<1 + gx * gy, gf2::kScanThreads, smem, stream>>>(
       a, sel, pf, rows, wp, kw, word_lo, const_only, gx, bTn, used_in, prow, used_out, cT,
       bT_work, w0n, cols);
   return (int)cudaGetLastError();

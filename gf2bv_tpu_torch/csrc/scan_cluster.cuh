@@ -1,0 +1,386 @@
+// The forward pivot scan of one system by a thread-block cluster with its
+// state in shared memory, as a body other kernels call: the 1-pivot scan and
+// the batched scan (scan.cu: one cluster, or one cluster per system) and the
+// scan cluster of the fused update + scan (panel_update.cu: cluster 0 of a
+// grid whose other clusters update the matrix).  The contract is
+// scan_system.cuh's (pallas_phase1.py: _make_scan_kernel): in bT (kw, rows),
+// used (rows,), w0, cols; out prow (K,), used' (rows,), cT (kw, rows); the
+// pivot of a column is the lowest unused row with the bit set.
+//
+// What bounds a scan on the H100: latency.  K = 256 dependent steps per panel,
+// each an election of the lowest candidate row followed by an elimination
+// sweep; the arithmetic and the 1.5 MB moved are negligible.  With the state
+// in global memory and one block (scan_system.cuh) a step costs each thread a
+// serial walk over its ~20 rows through L2 latency, twice: 7.5 us per step on
+// 20224 rows against 0.58 us on 768.
+//
+// What this body does about it: the rows are cut into nb contiguous ranges,
+// one per block of the cluster (nb = 1, 2, 4, 8 or 16, chosen by the wrapper
+// from the shape); a block keeps its rows' kw slice words in shared memory as
+// 16-byte halves ([half][row], so a warp's accesses are conflict-free), and
+// each thread owns the rows tid, tid + 512, ... of the range with their used
+// flags in a register mask and their coefficient word in registers.  A step:
+//   1. each thread loads its unused rows' half that holds the column's word
+//      and tests the bit; __reduce_min_sync gives the warp's lowest candidate,
+//      one __syncthreads and a second reduction, made by every warp for
+//      itself, the block's;
+//   2. the block's first warp reads that row's halves from shared memory and
+//      lane b sends (words, row) into slot [parity][rank] of block b with
+//      st.async through distributed shared memory, counted on block b's
+//      mbarrier;
+//   3. each block waits on its own mbarrier for the nb slots (no cluster
+//      barrier: data flow alone keeps the blocks within one step of each
+//      other, which is what makes two slot buffers enough);
+//   4. every warp reads the nb slots, takes the lowest row (the ranges ascend
+//      with the rank, so it is the first block that has a candidate), has the
+//      pivot's words from the slot without a dependent load, and each thread
+//      sweeps its own rows in shared memory.
+// Both skips of a step are cluster-uniform: an invalid column depends on the
+// arguments alone, and "no pivot" is decided after the exchange, from the same
+// slots in every block.  bT is read once at the start; a coefficient word is
+// written once, after its 32 columns; used' is written once at the end.  There
+// is no working copy in global memory.  With nb = 1 there is no exchange:
+// every thread reads the pivot's words straight from the block's shared
+// memory and a step has one __syncthreads.
+//
+// The body takes the block's rank and the cluster's size as arguments: the
+// caller's grid may hold many clusters (one per system of a batch) or other
+// work beside the one scan cluster.  Its two cluster barriers (before the
+// first exchange and before exit) are the calling cluster's own.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "gf2_common.cuh"
+
+namespace gf2 {
+
+constexpr int kClusterThreads = 512;  // threads per block: up to 128 registers each
+constexpr int kMaxSlots = 8;          // rows a thread can own (kernels for 1, 2, 3, 5, 8)
+constexpr int kMaxCluster = 16;       // blocks per cluster (above 8: non-portable size)
+constexpr int kSlotQuads = 3;         // one slot: words 0-3, words 4-7, (row, -, -, -)
+// Shared memory of a scanning block, in 16-byte quads: the exchange slots
+// [2][kMaxCluster][kSlotQuads], the warp minima [2][32] ints, the two
+// mbarriers of the exchange (one quad), then the state [halves][rpb_pad]
+// (half h of a row: its slice words 4h .. 4h+3).
+constexpr int kScanHeaderQuads = 2 * kMaxCluster * kSlotQuads + 2 * 32 / 4 + 1;
+constexpr size_t kMaxBlockSmem = 232448;  // 227 KB
+
+// The exchange's primitives (PTX: mbarrier, mapa, st.async).  Addresses are
+// 32-bit shared-memory addresses; a remote one is the same offset mapped into
+// the window of another block of the cluster.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t remote_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(arrivals) : "memory");
+}
+
+// One arrival that also announces `bytes` of st.async traffic for this phase.
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes into another block's shared memory; their arrival is counted on
+// that block's mbarrier.
+__device__ __forceinline__ void store_async16(uint32_t dst, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The scan of one system by the calling cluster.  kCluster: the block is one
+// of nb > 1 blocks of a cluster and `rank` its rank there; else nb == 1 and
+// rank == 0 (no exchange, no cluster barrier).  kSlots: rows a thread owns at
+// most (its loops over them are unrolled, so a thread pays for kSlots rows
+// whatever it has).  rpb: rows per block, at most kSlots * kClusterThreads;
+// rpb_pad: rpb rounded up to a multiple of 32.  smem4: the block's
+// kScanHeaderQuads + halves * rpb_pad quads of shared memory.  Every thread of
+// every block of the cluster must call it.
+template <bool kCluster, int kSlots>
+__device__ __forceinline__ void
+scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
+                  int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
+                  uint32_t* __restrict__ cT, int rows, int kw, int w0, int cols, int rpb,
+                  int rpb_pad, uint4* smem4, int rank, int nb) {
+  uint4* slots = smem4;                                        // [2][kMaxCluster][kSlotQuads]
+  int* warp_min = reinterpret_cast<int*>(smem4 + 2 * kMaxCluster * kSlotQuads);  // [2][32]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem4 + kScanHeaderQuads - 1);  // [2]
+  uint4* bT_s = smem4 + kScanHeaderQuads;                      // [halves][rpb_pad]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int nthreads = kClusterThreads, nwarps = kClusterThreads / 32;
+  const unsigned full = 0xffffffffu;
+  const int halves = (kw + 3) >> 2;
+  const int row0 = rank * rpb;
+  const int nloc = max(0, min(rpb, rows - row0));       // rows of this block
+  const bool writer = rank == 0 && tid == 0;
+
+  // Thread tid owns the rows row0 + i * nthreads + tid, i < kSlots.  Bit i of
+  // live: that row exists and is unused; c[i]: its coefficient word for the
+  // current 32 columns.
+  uint32_t live = 0u;
+  uint32_t c[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    c[i] = 0u;
+    const int loc = i * nthreads + tid;
+    if (loc < nloc) {
+      const int r = row0 + loc;
+      if (!used_in[r]) live |= 1u << i;
+      for (int h = 0; h < halves; ++h) {
+        uint32_t w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          w[q] = 4 * h + q < kw ? bT_in[(size_t)(4 * h + q) * rows + r] : 0u;
+        bT_s[h * rpb_pad + loc] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+  // no block writes into another's shared memory before that block runs and
+  // has its mbarriers ready (one arrival each: the thread that arms it)
+  uint32_t wait_parity = 0u;  // bit p: the parity mbarrier p's next phase completes with
+  if (kCluster) {
+    if (tid == 0) {
+      mbar_init(smem_addr(&mbar[0]), 1);
+      mbar_init(smem_addr(&mbar[1]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cooperative_groups::this_cluster().sync();
+  }
+
+  // the valid columns of the panel are the steps [jlo, jhi): arguments only
+  const long long first = 1LL - 32LL * w0, last = (long long)cols - 32LL * w0;
+  const int K = 32 * kw;
+  const int jlo = (int)max(0LL, min((long long)K, first));
+  const int jhi = (int)max(0LL, min((long long)K, last + 1));
+  int p = 0;  // parity of the valid steps: which slots and warp minima are in use
+  for (int jj = 0; jj < K; ++jj) {
+    const int sw = jj >> 5, hs = sw >> 2, q = sw & 3;
+    const uint32_t bit = 1u << (jj & 31);
+    int piv = rows;
+    if (jj >= jlo && jj < jhi) {  // cluster-uniform
+      // this thread's rows: the half that holds the column's word, and for
+      // the candidates the half above it, all kept in registers for the sweep
+      uint4 v[kSlots], u[kSlots];
+      uint32_t cm = 0u;  // bit i: row i of this thread is a candidate
+      int mine = rows;
+#pragma unroll
+      for (int i = kSlots - 1; i >= 0; --i) {
+        v[i] = make_uint4(0u, 0u, 0u, 0u);
+        if ((live >> i) & 1u) v[i] = bT_s[hs * rpb_pad + i * nthreads + tid];
+      }
+      const bool upper = hs == 0 && halves == 2;
+#pragma unroll
+      for (int i = kSlots - 1; i >= 0; --i) {
+        const uint32_t w = q == 0 ? v[i].x : q == 1 ? v[i].y : q == 2 ? v[i].z : v[i].w;
+        if (w & bit) {
+          cm |= 1u << i;
+          mine = row0 + i * nthreads + tid;  // rows ascend with i: the last hit is lowest
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i)
+        if (upper && ((cm >> i) & 1u)) u[i] = bT_s[rpb_pad + i * nthreads + tid];
+      mine = __reduce_min_sync(full, mine);
+      if (lane == 0) warp_min[p * 32 + warp] = mine;
+      __syncthreads();
+      int bmin = lane < nwarps ? warp_min[p * 32 + lane] : rows;
+      bmin = __reduce_min_sync(full, bmin);  // every warp reduces for itself
+
+      uint4 bp0 = make_uint4(0u, 0u, 0u, 0u), bp1 = bp0;  // the pivot row's halves
+      if (!kCluster) {
+        piv = bmin;
+        if (piv < rows) {
+          bp0 = bT_s[piv - row0];
+          if (halves == 2) bp1 = bT_s[rpb_pad + piv - row0];
+        }
+      } else {
+        // this block expects a slot of kSlotQuads quads from every block
+        const uint32_t bar = smem_addr(&mbar[p]);
+        if (tid == 0) mbar_arrive_expect(bar, (uint32_t)(nb * kSlotQuads * sizeof(uint4)));
+        if (warp == 0) {
+          uint4 w0q = bp0, w1q = bp0;
+          if (bmin < rows) {
+            w0q = bT_s[bmin - row0];
+            if (halves == 2) w1q = bT_s[rpb_pad + bmin - row0];
+          }
+          if (lane < nb) {
+            const uint32_t dst = remote_addr(
+                smem_addr(slots + (p * kMaxCluster + rank) * kSlotQuads), lane);
+            const uint32_t rbar = remote_addr(bar, lane);
+            store_async16(dst, w0q, rbar);
+            store_async16(dst + 16, w1q, rbar);
+            store_async16(dst + 32, make_uint4((uint32_t)bmin, 0u, 0u, 0u), rbar);
+          }
+        }
+        mbar_wait(bar, (wait_parity >> p) & 1u);
+        wait_parity ^= 1u << p;
+        const uint4* sl = slots + p * kMaxCluster * kSlotQuads;
+        const int r = lane < nb ? (int)sl[lane * kSlotQuads + 2].x : rows;
+        const unsigned has = __ballot_sync(full, r < rows);
+        if (has) {  // the ranges ascend with the rank: the first block with a candidate
+          const int wb = __ffs(has) - 1;
+          piv = __shfl_sync(full, r, wb);
+          bp0 = sl[wb * kSlotQuads];
+          bp1 = sl[wb * kSlotQuads + 1];
+        }
+      }
+      p ^= 1;
+
+      if (piv < rows) {  // cluster-uniform: decided from the exchanged slots
+        // only the words from sw on change: clear the pivot's words below it
+        uint4 bph = hs ? bp1 : bp0;
+        if (q > 0) bph.x = 0u;
+        if (q > 1) bph.y = 0u;
+        if (q > 2) bph.z = 0u;
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          if (!((cm >> i) & 1u)) continue;
+          const int loc = i * nthreads + tid;
+          if (row0 + loc == piv) {
+            live &= ~(1u << i);
+            continue;
+          }
+          bT_s[hs * rpb_pad + loc] = xor4(v[i], bph);
+          if (upper) bT_s[rpb_pad + loc] = xor4(u[i], bp1);
+          c[i] ^= bit;
+        }
+      }
+    }
+    if (writer) prow[jj] = piv < rows ? piv : -1;
+    if ((jj & 31) == 31) {  // word sw of the coefficients is final
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        const int loc = i * nthreads + tid;
+        if (loc < nloc) cT[(size_t)sw * rows + row0 + loc] = c[i];
+        c[i] = 0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int loc = i * nthreads + tid;
+    if (loc < nloc) used_out[row0 + loc] = (int32_t)(((live >> i) & 1u) ^ 1u);
+  }
+  // no block exits while another may still write into its shared memory
+  if (kCluster) cooperative_groups::this_cluster().sync();
+}
+
+// -- host side: the geometry of a cluster scan and its launch ------------------
+
+// How a (kw, rows) slice lies on nblocks blocks.
+struct ScanGeometry {
+  int rpb;      // rows per block
+  int rpb_pad;  // rounded up to a multiple of 32
+  int slots;    // rows a thread owns at most
+  size_t smem;  // shared memory of one block, bytes
+};
+
+// False when no cluster of nblocks blocks holds the slice (shared memory,
+// kMaxSlots rows a thread) or the arguments are none a kernel takes.
+inline bool scan_geometry(int rows, int kw, int nblocks, ScanGeometry* g) {
+  if (kw < 1 || kw > 8 || rows < 1 || nblocks < 1 || nblocks > kMaxCluster ||
+      (nblocks & (nblocks - 1)))
+    return false;
+  g->rpb = (rows + nblocks - 1) / nblocks;
+  g->rpb_pad = (g->rpb + 31) & ~31;
+  g->smem = sizeof(uint4) * (kScanHeaderQuads + (size_t)((kw + 3) / 4) * g->rpb_pad);
+  g->slots = (g->rpb + kClusterThreads - 1) / kClusterThreads;
+  return g->smem <= kMaxBlockSmem && g->slots <= kMaxSlots;
+}
+
+// What one kernel instantiation remembers between launches (the port drives
+// one device per process: ops/_cuda.py requires the current device).
+struct ClusterLaunchState {
+  bool attributes_set = false;
+  // per cluster size: the largest shared-memory size found placeable, and
+  // how many such clusters the card holds at once
+  size_t placeable[kMaxCluster + 1] = {};
+  int max_clusters[kMaxCluster + 1] = {};
+};
+
+// cfg for `grid` blocks of kClusterThreads threads in clusters of `cluster`
+// blocks (1: no cluster attribute); attr must outlive cfg's use.
+inline void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int grid,
+                           int cluster, size_t smem, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = cluster > 1 ? 1 : 0;
+}
+
+// Before a kernel's launches in clusters of `cluster` blocks with `smem` bytes
+// each: its function attributes, set once per instantiation (shared memory up
+// to the block's 227 KB, the non-portable cluster size 16), and, once per
+// cluster size and largest shared-memory size, whether the card can place such
+// a cluster at all.  Leaves the number of clusters the card holds at once in
+// st->max_clusters[cluster].  A card that cannot place one is an error.
+template <typename Kernel>
+cudaError_t prepare_cluster_launch(Kernel kernel, ClusterLaunchState* st, int cluster,
+                                   size_t smem, cudaStream_t stream) {
+  cudaError_t rc;
+  if (!st->attributes_set) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kMaxBlockSmem);
+    if (rc != cudaSuccess) return rc;
+    if (cluster > 1) {  // an instantiation is launched either always or never in clusters
+      rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (rc != cudaSuccess) return rc;
+    }
+    st->attributes_set = true;
+  }
+  if (smem > st->placeable[cluster]) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, cluster, cluster, smem, stream);
+    int nclusters = 0;
+    if (cluster > 1) {
+      rc = cudaOccupancyMaxActiveClusters(&nclusters, kernel, &cfg);
+    } else {
+      int per_sm = 0, nsm = 0;
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kClusterThreads,
+                                                         smem);
+      if (rc == cudaSuccess) rc = sm_count(&nsm);
+      nclusters = per_sm * nsm;
+    }
+    if (rc != cudaSuccess) return rc;
+    if (nclusters < 1) return cudaErrorLaunchOutOfResources;
+    st->placeable[cluster] = smem;
+    st->max_clusters[cluster] = nclusters;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace gf2

@@ -1,8 +1,9 @@
 // The forward pivot scan of one system by ONE block with its state in global
-// memory: the body of the one-block scan and of the batched scan (scan.cu)
-// and of the scan block of the fused update + scan kernel (panel_update.cu),
-// plus the block-wide election the two-pivot and min-key scans use.  The
-// cluster scan (scan.cu, gf2_scan) keeps the same contract with the state in
+// memory: the body of the one-block kernels that take the systems too tall
+// for a cluster (scan.cu: gf2_scan_block, gf2_scan_batched_block;
+// panel_update.cu: the scan block of gf2_update_scan_block), whose helpers
+// the fused phase 1 and the two-pivot and min-key scans also use.  The
+// cluster scan (scan_cluster.cuh) keeps the same contract with the state in
 // the shared memory of several blocks.
 //
 // Contract of scan_system (pallas_phase1.py: _make_scan_kernel):

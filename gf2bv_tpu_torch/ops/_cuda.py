@@ -42,6 +42,7 @@ LAUNCHES = {
     "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
     "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
     "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
+    "scan_batched_block": 0, "update_scan_block": 0,
 }
 
 _P = ctypes.c_void_p
@@ -63,8 +64,12 @@ _SIGNATURES = {
     "gf2_update_seg": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, w0, stream)
     "gf2_update_trailing": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, batch, rows, kw, w0, cols, nblocks, stream)
+    "gf2_scan_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, batch, rows, kw, w0, cols, stream)
-    "gf2_scan_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gf2_scan_batched_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (rows, kw, nblocks, out: resident clusters of that size)
+    "gf2_scan_occupancy": [_I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)
     "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
@@ -72,9 +77,13 @@ _SIGNATURES = {
     "gf2_scan_minkey": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols, stream)
     "gf2_phase1_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (a, sel, pf, rows, wp, kw, w0 (-1: full), bTn, used_in, prow, used_out, cT,
+    # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT,
+    #  w0n, cols, nblocks, stream)
+    "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT,
     #  bT_work, w0n, cols, stream)
-    "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gf2_update_scan_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_table": [_P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, word_lo, const_word, stream)

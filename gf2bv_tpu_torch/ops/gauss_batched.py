@@ -4,8 +4,10 @@ Port of ``gf2bv_tpu/ops/gauss_batched.py``.  Per K-column panel:
 
 * :func:`scan_batched` — the forward pivot scan of all B systems in one
   launch (``_make_scan_kernel_b`` via ``_scan_batched``); CUDA source
-  ``csrc/scan.cu`` (``gf2_scan_batched``, one block per system), plain twin
-  :func:`scan_batched_plain`;
+  ``csrc/scan.cu`` (``gf2_scan_batched``: one thread-block cluster per system
+  with its state in shared memory, body in ``csrc/scan_cluster.cuh``; past the
+  largest cluster's rows ``gf2_scan_batched_block``, one block per system,
+  :func:`scan_batched_block`), plain twin :func:`scan_batched_plain`;
 * gathers of each system's pivot rows and coefficient words;
 * :func:`reconstruct_batched` — pivot-row rebuild + triangular back pass of
   all B systems (``_make_reconstruct_kernel_b`` via ``_reconstruct_batched``);
@@ -42,13 +44,13 @@ from .gauss_blocked import (
     rref_origin_blocked,
     selector_from_prow,
 )
-from .phase1 import reconstruct_plain, scan_steps_plain
+from .phase1 import reconstruct_plain, scan_batched_route, scan_steps_plain
 
 # Systems per batched elimination.  The reference's VMEM_BATCH_MAX = 16 was
 # the TPU's scoped-VMEM compile limit; here it bounds the device memory of a
-# chunk (two copies of B padded matrices: 1.7 GB at the flagship shape) and
-# the L2 footprint of the batched scan (about 2 MB per system).  A TPU value
-# kept for parity, to be re-derived on the H100.
+# chunk (two copies of B padded matrices: 1.7 GB at the flagship shape); at 16
+# flagship systems the batched scan's clusters of 8 blocks just fill the card.
+# A TPU value kept for parity, to be re-derived on the H100.
 BATCH_CHUNK_MAX = 16
 
 
@@ -60,30 +62,76 @@ def scan_batched_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, co
     return scan_steps_plain(bT, used, w0, K, cols)
 
 
-def scan_batched(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The forward scan of one panel in each of B systems: bT (B, kw, rows),
-    used (B, rows) int32.  Returns (prow (B, K), used' (B, rows), cT
-    (B, kw, rows)); per system the contract of ``phase1.scan``."""
+def _launch_scan_batched(fn_name: str, key: str, bT, used, w0: int, K: int, cols: int,
+                         nblocks: int | None):
+    """Launch a batched scan kernel: the cluster kernel on ``nblocks`` blocks
+    per system, or (``nblocks`` None) the one-block kernel, which takes a
+    working copy of the slices in global memory."""
     nb, kw, rows = bT.shape
-    if K != 32 * kw:
-        raise ValueError(f"K={K} does not match bT's {kw} words")
-    if not _cuda.on_cuda(bT):
-        return scan_batched_plain(bT, used, w0, K, cols)
     dev = bT.device
     _cuda.require(bT, "bT", (nb, kw, rows), dev)
     _cuda.require(used, "used", (nb, rows), dev)
     prow = torch.empty((nb, K), dtype=I32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bT)
-    work = torch.empty_like(bT)
-    rc = _cuda.lib().gf2_scan_batched(
-        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
-        cT.data_ptr(), work.data_ptr(), nb, rows, kw, int(w0), int(cols),
-        _cuda.stream_of(bT),
+    shape = (nb, rows, kw, int(w0), int(cols))
+    if nblocks is None:
+        work = torch.empty_like(bT)
+        args = (work.data_ptr(), *shape)
+    else:
+        args = (*shape, int(nblocks))
+    rc = getattr(_cuda.lib(), fn_name)(
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        *args, _cuda.stream_of(bT),
     )
-    _cuda.check(rc, "batched scan kernel")
-    _cuda.LAUNCHES["scan_batched"] += 1
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += 1
     return prow, used_o, cT
+
+
+def _check_batched(bT: torch.Tensor, K: int) -> None:
+    if K != 32 * bT.shape[1]:
+        raise ValueError(f"K={K} does not match bT's {bT.shape[1]} words")
+
+
+def scan_batched_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The batched scan by one block per system with the state in global
+    memory: the kernel for slices taller than the largest cluster holds
+    (``phase1.scan_batched_route``); outputs as :func:`scan_batched`."""
+    _check_batched(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_batched_plain(bT, used, w0, K, cols)
+    return _launch_scan_batched("gf2_scan_batched_block", "scan_batched_block", bT, used,
+                                w0, K, cols, None)
+
+
+def scan_batched_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                         nblocks: int):
+    """The batched scan on one cluster of ``nblocks`` blocks per system
+    whatever the route would pick (:func:`scan_batched` asks the route); raises
+    when a slice does not fit such a cluster or the card cannot place one.
+    Outputs as :func:`scan_batched`."""
+    _check_batched(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_batched_plain(bT, used, w0, K, cols)
+    return _launch_scan_batched("gf2_scan_batched", "scan_batched", bT, used, w0, K, cols,
+                                nblocks)
+
+
+def scan_batched(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The forward scan of one panel in each of B systems: bT (B, kw, rows),
+    used (B, rows) int32.  Returns (prow (B, K), used' (B, rows), cT
+    (B, kw, rows)); per system the contract of ``phase1.scan``.  On the card
+    one launch of B clusters, or past the largest cluster's rows of B single
+    blocks (``phase1.scan_batched_route``, decided from the shape alone)."""
+    _check_batched(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan_batched_plain(bT, used, w0, K, cols)
+    nb, kw, rows = bT.shape
+    route = scan_batched_route(nb, rows, kw)
+    if route.kernel == "scan_batched_block":
+        return scan_batched_block(bT, used, w0, K, cols)
+    return scan_batched_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
 # -- kernel 14: batched pivot-row rebuild + back pass ------------------------------

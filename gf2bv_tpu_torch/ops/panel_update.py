@@ -19,8 +19,12 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
   :func:`update_trailing_plain`.
 * :func:`update_scan` — the trailing (or full) update of panel t fused with
   the 1-pivot scan of panel t+1 (``_make_mxu_scan_kernel`` via
-  ``panel_update_mxu_scan``, the ``mxu_la`` engine); plain twin
-  :func:`update_scan_plain`.
+  ``panel_update_mxu_scan``, the ``mxu_la`` engine); CUDA
+  ``csrc/panel_update.cu`` ``gf2_update_scan``: one launch whose cluster 0 is
+  the cluster scan (``csrc/scan_cluster.cuh``) and whose other clusters run
+  the table kernel's body (``csrc/update_table.cuh``); past the largest
+  cluster's rows ``gf2_update_scan_block`` (:func:`update_scan_block`: one
+  scanning block, mask-and-XOR tiles); plain twin :func:`update_scan_plain`.
 
 * :func:`update_pallas` — the full-width update of the ``pallas`` engine
   (``_panel_update_kernel`` via ``panel_update``); CUDA
@@ -94,7 +98,7 @@ STRIP_WORDS = 4  # words of one table entry: a strip of the table kernel
 
 def live_strips(wp: int, word_lo: int, const_word: bool) -> list[tuple[int, int]]:
     """The strips (first word, words) the table kernel's grid covers for the
-    rule ``(word_lo, const_word)``, as ``csrc/update_table.cu`` enumerates
+    rule ``(word_lo, const_word)``, as ``csrc/update_table.cuh`` enumerates
     them: word 0 alone when ``const_word`` is set and ``word_lo > 0``, then
     ``STRIP_WORDS`` words at a time from ``word_lo`` on, the last strip cut at
     ``wp``.  Words in no strip are neither read nor written."""
@@ -211,9 +215,8 @@ def update_rank_k(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
                   word_lo: int = 0, const_word: bool = False):
     """``a ^= S·PF`` in place on the words ``[word_lo, wp)`` (and word 0 when
     ``const_word``) through the mask-and-XOR kernel, K steps per word: the
-    updates' earlier kernel, which the pivot-row rebuild's product still
-    runs.  Kept callable on an update's arguments so that it can be timed
-    beside the table kernel; nothing in the solver calls it."""
+    updates' earlier kernel.  Kept callable on an update's arguments so that
+    it can be timed beside the table kernel; nothing in the solver calls it."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     if not 0 <= word_lo <= wp:
         raise ValueError(f"word_lo={word_lo} outside the {wp}-word rows")
@@ -257,19 +260,20 @@ def update_scan_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     return a, prow, cT, used_o
 
 
-def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
-                bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
-                w0: int | None = None):
-    """The rank-K update of panel t (trailing from word ``w0``, or full when
-    ``w0`` is None) in place, and in the same launch the 1-pivot scan
-    (``phase1.scan``) of ``bTn`` (kw, rows), the next panel's slice already
-    carrying this update, at word ``w0n``.  Returns (a, prow (K,), cT
-    (kw, rows), used' (1, rows)), the reference's order."""
+def update_scan_rule(wp: int, w0: int | None) -> tuple[int, bool]:
+    """(word_lo, const_word) of the fused kernel's update part: the trailing
+    update's rule for a panel at word ``w0``, the full update's when ``w0`` is
+    None.  Its blocks cover :func:`live_strips` of that rule."""
+    lo = 0 if w0 is None else _trailing_range(wp, w0)
+    return lo, lo > 0
+
+
+def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int, cols: int,
+                        w0: int | None, nblocks: int | None):
+    """Launch a fused update + scan kernel: the cluster kernel with its scan
+    on ``nblocks`` blocks, or (``nblocks`` None) the one-block kernel, which
+    takes a working copy of the slice in global memory."""
     rows, wp, kw = _check_shapes(a, sel, pf)
-    if w0 is not None:
-        _trailing_range(wp, w0)
-    if not _cuda.on_cuda(a):
-        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
     dev = a.device
     for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
                            ("pf", pf, (32 * kw, wp)), ("bTn", bTn, (kw, rows)),
@@ -277,19 +281,77 @@ def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
         _cuda.require(t, name, shape, dev)
     if kw > 8:
         raise ValueError(f"K={32 * kw} above the kernel's 256")
+    word_lo, const_word = update_scan_rule(wp, w0)
     prow = torch.empty((32 * kw,), dtype=torch.int32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bTn)
-    work = torch.empty_like(bTn)
-    rc = _cuda.lib().gf2_update_scan(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw,
-        -1 if w0 is None else int(w0), bTn.data_ptr(), used.data_ptr(),
-        prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(), work.data_ptr(),
-        int(w0n), int(cols), _cuda.stream_of(a),
+    if nblocks is None:
+        work = torch.empty_like(bTn)
+        tail = (work.data_ptr(), int(w0n), int(cols))
+    else:
+        tail = (int(w0n), int(cols), int(nblocks))
+    rc = getattr(_cuda.lib(), fn_name)(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, word_lo, int(const_word),
+        bTn.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        *tail, _cuda.stream_of(a),
     )
-    _cuda.check(rc, "fused update + scan kernel")
-    _cuda.LAUNCHES["update_scan"] += 1
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += 1
     return a, prow, cT, used_o
+
+
+def update_scan_block(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                      bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                      w0: int | None = None):
+    """The fused update + scan with its scan by ONE block and the state in
+    global memory, its update by mask-and-XOR tiles: the kernel for slices
+    taller than the largest cluster holds (``phase1.scan_route``); arguments
+    and outputs as :func:`update_scan`."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    update_scan_rule(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
+    return _launch_update_scan("gf2_update_scan_block", "update_scan_block", a, sel, pf, bTn,
+                               used, w0n, cols, w0, None)
+
+
+def update_scan_cluster(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                        bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                        w0: int | None, nblocks: int):
+    """The fused update + scan with its scan on a cluster of ``nblocks``
+    blocks whatever the route would pick (:func:`update_scan` asks the route);
+    raises when the slice does not fit the cluster or the card cannot place
+    it.  Outputs as :func:`update_scan`."""
+    _, wp, _ = _check_shapes(a, sel, pf)
+    update_scan_rule(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
+    return _launch_update_scan("gf2_update_scan", "update_scan", a, sel, pf, bTn, used, w0n,
+                               cols, w0, nblocks)
+
+
+def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                w0: int | None = None):
+    """The rank-K update of panel t (trailing from word ``w0``, or full when
+    ``w0`` is None) in place, and in the same launch the 1-pivot scan
+    (``phase1.scan``) of ``bTn`` (kw, rows), the next panel's slice already
+    carrying this update, at word ``w0n``.  Returns (a, prow (K,), cT
+    (kw, rows), used' (1, rows)), the reference's order.  On the card ONE
+    launch of thread-block clusters: cluster 0 runs the cluster scan, the
+    others the table update on the SMs beside it; past the largest cluster's
+    rows :func:`update_scan_block` (``phase1.scan_route``, decided from the
+    shape alone)."""
+    from .phase1 import scan_route  # here: phase1 imports this module
+
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    update_scan_rule(wp, w0)
+    if not _cuda.on_cuda(a):
+        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
+    route = scan_route(rows, kw)
+    if route.kernel == "scan_block":
+        return update_scan_block(a, sel, pf, bTn, used, w0n, cols, w0)
+    return update_scan_cluster(a, sel, pf, bTn, used, w0n, cols, w0, route.nblocks)
 
 
 # -- the update engines pallas, mxu2, mxu4 ------------------------------------------

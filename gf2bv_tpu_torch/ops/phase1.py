@@ -9,7 +9,7 @@ step structure:
 
   - ``""``: one pivot per step (``_make_scan_kernel``); CUDA
     ``csrc/scan.cu`` ``gf2_scan``, a thread-block cluster with the state in
-    shared memory, or, for more rows than the largest cluster holds,
+    shared memory (body in ``csrc/scan_cluster.cuh``), or, for more rows than the largest cluster holds,
     ``gf2_scan_block`` (:func:`scan_block`: one block, state in global
     memory); :func:`scan_route` picks between them from the shape alone;
     twin of both :func:`scan_plain`;
@@ -134,7 +134,8 @@ def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
 
 
 # The route of the 1-pivot scan: a pure function of (rows, kw), taken before
-# the launch and never after a failure.  The constants mirror csrc/scan.cu.
+# the launch and never after a failure.  The constants mirror
+# csrc/scan_cluster.cuh.
 SCAN_THREADS = 512  # threads per block of the cluster scan
 SCAN_MAX_SLOTS = 8  # rows a thread can own
 SCAN_SMEM_MAX = 232448  # bytes of shared memory a block may use (227 KB)
@@ -182,6 +183,50 @@ def scan_route(rows: int, kw: int) -> ScanRoute:
         if scan_fits(rpb, kw) and (rpb <= SCAN_BLOCK_ROWS or nb == SCAN_CLUSTER_SIZES[-1]):
             return ScanRoute("scan", nb, rpb, scan_smem_bytes(rpb, kw))
     return ScanRoute("scan_block", 1, rows, 0)
+
+
+# Clusters of each size that an H100 (132 SMs) runs at once, one block an SM
+# (``cudaOccupancyMaxActiveClusters``: a cluster of 16 needs 16 free SMs in
+# one GPC): measured at the flagship slice for 16 and 8 blocks and at 5000 rows
+# for 4; 2 and 1 by the same 120 blocks (slices small enough for two blocks an
+# SM run more: 66 of 2 blocks at 5000 rows).
+SCAN_RESIDENT_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 60, 1: 120}
+
+
+def scan_batched_route(batch: int, rows: int, kw: int) -> ScanRoute:
+    """Which kernel scans a batch of (kw, rows) slices, and on how many
+    blocks per system: one cluster per system in one launch.  It starts from
+    the single scan's cluster (:func:`scan_route`) and halves it while the
+    batch has more systems than the card runs clusters of that size at once
+    (``SCAN_RESIDENT_CLUSTERS``) and the smaller cluster still holds a slice:
+    measured at the flagship slice, one wave of 8-block clusters (0.30 ms a
+    panel) beats two waves of 16-block ones (0.48), and two of 8 (0.59) three
+    of 16 (0.71).  Past the largest cluster's rows the one-block kernel per
+    system (``scan_batched_block``)."""
+    if batch < 1:
+        raise ValueError(f"no scan kernel for a batch of {batch}")
+    route = scan_route(rows, kw)
+    if route.kernel == "scan_block":
+        return ScanRoute("scan_batched_block", 1, rows, 0)
+    nb = route.nblocks
+    while (nb > 1 and batch > SCAN_RESIDENT_CLUSTERS[nb]
+           and scan_fits(-(-rows // (nb // 2)), kw)):
+        nb //= 2
+    rpb = -(-rows // nb)
+    return ScanRoute("scan_batched", nb, rpb, scan_smem_bytes(rpb, kw))
+
+
+def scan_occupancy(rows: int, kw: int, nblocks: int) -> int:
+    """How many clusters of ``nblocks`` blocks, each holding a (kw, rows)
+    slice, the current CUDA device runs at once
+    (``cudaOccupancyMaxActiveClusters``); raises when the slice does not fit
+    such a cluster or the card cannot place one."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    rc = _cuda.lib().gf2_scan_occupancy(rows, kw, int(nblocks), ctypes.addressof(out))
+    _cuda.check(rc, "scan occupancy query")
+    return out.value
 
 
 def scan_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):

@@ -222,6 +222,7 @@ def test_wrapper_counts_launches(dev):
         "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
         "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
         "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
+        "scan_batched_block": 0, "update_scan_block": 0,
     }
 
 
@@ -445,6 +446,160 @@ def test_update_scan_kernel(dev, rows, wp, K):
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (w0, w0n)
     torch.cuda.synchronize()
+
+
+# -- the kernels that carry the cluster scan inside another launch ---------------------
+
+CLUSTER_ROWS = [300, 768, 2560, 20011, 20224, 40192]
+VERY_TALL_ROWS = 67328  # past the largest cluster at K = 256
+
+
+def _panels(kw, wp):
+    """(w0, cols) of the first, a middle and the last panel of wp-word rows;
+    the last one crosses cols."""
+    return [(0, 32 * wp - 40), ((wp // 2) // kw * kw, 32 * wp - 40), (wp - kw, 32 * wp - 40)]
+
+
+@pytest.mark.parametrize("kw", [2, 4, 8])
+@pytest.mark.parametrize("rows", CLUSTER_ROWS)
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
+def test_scan_batched_cluster_kernel(dev, B, rows, kw):
+    """One cluster per system against the twin and against the kept one-block
+    kernel: systems with different used rows, the last one with every row used
+    (no pivot at all), at the first, a middle and the last panel; each launch
+    is counted under its own kernel's name."""
+    K = 32 * kw
+    rng = np.random.default_rng(B + rows + kw)
+    bT = _rand(rng, (B, kw, rows), dev)
+    fracs = np.linspace(0.0, 0.6, B)[:, None]
+    used_h = (rng.random((B, rows)) < fracs).astype(np.uint32)
+    used_h[B - 1] = 1
+    used = u32_to_torch(used_h, dev)
+    route = phase1.scan_batched_route(B, rows, kw)
+    assert route.kernel == "scan_batched"
+    for w0, cols in _panels(kw, 640):
+        _cuda.reset_launches()
+        got = gauss_batched.scan_batched(bT, used, w0, K, cols)
+        block = gauss_batched.scan_batched_block(bT, used, w0, K, cols)
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+            "scan_batched": 1, "scan_batched_block": 1}
+        want = gauss_batched.scan_batched_plain(bT, used, w0, K, cols)
+        torch.cuda.synchronize()
+        for g, b, w in zip(got, block, want):
+            assert torch.equal(g, w), (w0, cols)
+            assert torch.equal(b, w), (w0, cols)
+        assert int((got[0][B - 1] >= 0).sum()) == 0
+        if B > 1:
+            assert int((got[0][0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B,rows,K", [(3, 4000, 256), (5, 20224, 64), (16, 20224, 256)])
+def test_scan_batched_on_every_cluster_size(dev, B, rows, K, nblocks):
+    """Any cluster size that holds a slice gives the twin's outputs, in as many
+    waves as the card needs; one that cannot hold it raises instead of running
+    something else."""
+    rng = np.random.default_rng(B + rows + nblocks)
+    bT = _rand(rng, (B, K // 32, rows), dev)
+    used = u32_to_torch((rng.random((B, rows)) < 0.25).astype(np.uint32), dev)
+    if phase1.scan_fits(-(-rows // nblocks), K // 32):
+        got = gauss_batched.scan_batched_cluster(bT, used, 8, K, 10**6, nblocks)
+        want = gauss_batched.scan_batched_plain(bT, used, 8, K, 10**6)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert phase1.scan_occupancy(rows, K // 32, nblocks) >= 1
+    else:
+        with pytest.raises(RuntimeError, match="scan_batched kernel"):
+            gauss_batched.scan_batched_cluster(bT, used, 8, K, 10**6, nblocks)
+        with pytest.raises(RuntimeError, match="occupancy"):
+            phase1.scan_occupancy(rows, K // 32, nblocks)
+
+
+@pytest.mark.parametrize("kw", [2, 4, 8])
+@pytest.mark.parametrize("rows", CLUSTER_ROWS)
+def test_update_scan_cluster_kernel(dev, rows, kw):
+    """The cluster scan beside the table updates against the twin and against
+    the kept one-block kernel: full and trailing at the first, a middle and
+    the last panel, the next panel's scan inside the matrix, at its last panel
+    and past cols (the look-ahead's clamped slice: no valid column)."""
+    K, wp = 32 * kw, 640 if kw == 8 else 384
+    rng = np.random.default_rng(rows + kw + 9)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, kw), dev)
+    pf = _rand(rng, (K, wp), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    cols = 32 * wp - 40
+    assert phase1.scan_route(rows, kw).kernel == "scan"
+    for w0 in [None] + [w for w, _ in _panels(kw, wp)]:
+        for w0n in (kw, wp - kw, wp):
+            bTn = _rand(rng, (kw, rows), dev)
+            _cuda.reset_launches()
+            got = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            block = panel_update.update_scan_block(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                "update_scan": 1, "update_scan_block": 1}
+            want = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            torch.cuda.synchronize()
+            for g, b, w in zip(got, block, want):
+                assert torch.equal(g, w), (w0, w0n)
+                assert torch.equal(b, w), (w0, w0n)
+            if w0n == wp:
+                assert int((got[1] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+def test_update_scan_on_every_cluster_size(dev, nblocks):
+    """The scan cluster's size is the launch's cluster size: every size that
+    holds the slice gives the twin's outputs, an unaligned width included; one
+    that cannot hold it raises."""
+    rows, K, wp = 6000, 256, 202
+    rng = np.random.default_rng(nblocks)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    bTn = _rand(rng, (K // 32, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    args = (sel, pf, bTn, used, 8, 10**6)
+    if phase1.scan_fits(-(-rows // nblocks), K // 32):
+        for w0 in (None, 150):
+            got = panel_update.update_scan_cluster(a.clone(), *args, w0, nblocks)
+            want = panel_update.update_scan_plain(a.clone(), *args, w0)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), w0
+    else:
+        with pytest.raises(RuntimeError, match="update_scan kernel"):
+            panel_update.update_scan_cluster(a.clone(), *args, None, nblocks)
+
+
+def test_very_tall_slices_take_the_one_block_kernels(dev):
+    """Past the largest cluster's rows the batched scan and the fused update +
+    scan run their one-block kernels, by the route and not after a failure."""
+    rows, K, kw, wp = VERY_TALL_ROWS, 256, 8, 128
+    assert phase1.scan_route(rows, kw).kernel == "scan_block"
+    assert phase1.scan_batched_route(2, rows, kw).kernel == "scan_batched_block"
+    rng = np.random.default_rng(67)
+    bT = _rand(rng, (2, kw, rows), dev)
+    used = u32_to_torch((rng.random((2, rows)) < 0.25).astype(np.uint32), dev)
+    _cuda.reset_launches()
+    got = gauss_batched.scan_batched(bT, used, 8, K, 10**6)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_batched_block": 1}
+    for g, w in zip(got, gauss_batched.scan_batched_plain(bT, used, 8, K, 10**6)):
+        assert torch.equal(g, w)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, kw), dev)
+    pf = _rand(rng, (K, wp), dev)
+    _cuda.reset_launches()
+    got = panel_update.update_scan(a.clone(), sel, pf, bT[0], used[:1], 16, 10**6, 8)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_scan_block": 1}
+    want = panel_update.update_scan_plain(a.clone(), sel, pf, bT[0], used[:1], 16, 10**6, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(RuntimeError, match="scan_batched kernel"):
+        gauss_batched.scan_batched_cluster(bT, used, 8, K, 10**6, 16)
+    with pytest.raises(RuntimeError, match="update_scan kernel"):
+        panel_update.update_scan_cluster(a, sel, pf, bT[0], used[:1], 16, 10**6, 8, 16)
 
 
 ENGINES = [

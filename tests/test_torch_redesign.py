@@ -99,14 +99,14 @@ def _constant(source: str, name: str) -> int:
 
 
 def test_route_constants_mirror_the_cuda_source():
-    assert phase1.SCAN_THREADS == _constant("scan.cu", "kClusterThreads")
-    assert phase1.SCAN_MAX_SLOTS == _constant("scan.cu", "kMaxSlots")
-    assert phase1.SCAN_CLUSTER_SIZES[-1] == _constant("scan.cu", "kMaxCluster")
-    assert phase1.SCAN_SMEM_MAX == _constant("scan.cu", "kMaxBlockSmem")
-    slot_quads = _constant("scan.cu", "kSlotQuads")
+    assert phase1.SCAN_THREADS == _constant("scan_cluster.cuh", "kClusterThreads")
+    assert phase1.SCAN_MAX_SLOTS == _constant("scan_cluster.cuh", "kMaxSlots")
+    assert phase1.SCAN_CLUSTER_SIZES[-1] == _constant("scan_cluster.cuh", "kMaxCluster")
+    assert phase1.SCAN_SMEM_MAX == _constant("scan_cluster.cuh", "kMaxBlockSmem")
+    slot_quads = _constant("scan_cluster.cuh", "kSlotQuads")
     header = 16 * (2 * phase1.SCAN_CLUSTER_SIZES[-1] * slot_quads + 2 * 32 // 4 + 1)
     assert phase1.scan_smem_bytes(0, 8) == header
-    assert panel_update.STRIP_WORDS == _constant("update_table.cu", "kStrip")
+    assert panel_update.STRIP_WORDS == _constant("update_table.cuh", "kStrip")
 
 
 def test_new_entry_points_are_declared():
