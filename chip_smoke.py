@@ -6,14 +6,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each kernel (the ports of the fifteen TPU kernels, and the three
-   one-block kernels kept beside the cluster scan, the batched scan and the
-   fused update + scan) against its plain PyTorch twin on the
+3. Holds each kernel (the ports of the fifteen TPU kernels, and the four
+   one-block kernels kept beside the cluster scan, the batched scan, the
+   fused update + scan and the fused phase 1) against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
    (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
-   rebuild (4 systems), two-pivot scan, min-key scan, fused phase 1, fused
+   rebuild (4 systems), two-pivot scan, min-key scan (a cluster kernel,
+   against both twins, beside the one-block kernel it replaced, which no
+   solve runs, and the 1-pivot scan), fused phase 1 (one cluster launch,
+   beside the one-block kernel, the split engine and the scan alone), fused
    update + scan (full and trailing; beside the one-block kernel, the scan
    and the update apart, and its update part alone); also the batched scan's
    time per step for 1, 4, 8 and 16 systems on each cluster size that holds a
@@ -77,8 +80,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the 1-pivot scan: the min-key packing takes fewer than 2^15 rows) and
    pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
    rows: more than the largest cluster holds), under the default engine,
-   which must run the one-block scan 79 times, and under mxu_la, which must
-   run the one-block fused update + scan 79 times.
+   which must run the one-block scan 79 times, under mxu_la, which must
+   run the one-block fused update + scan 79 times, and under phase 1
+   pallas, which must run the one-block fused phase 1 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -172,6 +176,8 @@ KERNELS = {
                     "gf2bv_tpu/ops/pallas_phase1.py:439"),
     "phase1_fused": ("phase1_fused", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
                      "gf2bv_tpu/ops/pallas_phase1.py:39"),
+    "phase1_fused_block": ("phase1_fused_block", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
+                           "gf2bv_tpu/ops/pallas_phase1.py:39"),
     "update_scan": ("update_scan", "gf2bv_tpu_torch/csrc/panel_update.cu",
                     "gf2bv_tpu/ops/pallas_update.py:514"),
     "update_scan_block": ("update_scan_block", "gf2bv_tpu_torch/csrc/panel_update.cu",
@@ -464,23 +470,51 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
 
 def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     """The scan variants, the fused phase 1 and the fused update + scan at
-    panel 20 of the flagship system, against their twins."""
+    panel 20 of the flagship system, against their twins; the min-key scan and
+    the fused phase 1 (cluster kernels) timed from a CUDA graph's replay
+    beside their kept one-block kernels, the 1-pivot scan and the split
+    engine."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import panel_update, phase1
 
     res = {}
     scan_ms = {"scan": None}
-    for key, kern, twin in (("scan2", phase1.scan2, phase1.scan2_plain),
-                            ("scan_minkey", phase1.scan_minkey, phase1.scan_minkey_plain)):
-        out_k = kern(bT, used, w0, K, COLS)
-        out_p = twin(bT, used, w0, K, COLS)
-        same_as_scan = phase1.scan_plain(bT, used, w0, K, COLS)
-        require_equal(f"{key} against the 1-pivot twin", zip(out_k, same_as_scan))
-        res[key] = (require_equal(key, zip(out_k, out_p)),
-                    cuda_ms(lambda: kern(bT, used, w0, K, COLS), 5),
-                    cuda_ms(lambda: twin(bT, used, w0, K, COLS), 2))
-        note_bound(key, nbytes(bT, used, *out_k))
-        scan_ms[key] = res[key][1]
+    out_k = phase1.scan2(bT, used, w0, K, COLS)
+    require_equal("scan2 against the 1-pivot twin",
+                  zip(out_k, phase1.scan_plain(bT, used, w0, K, COLS)))
+    res["scan2"] = (require_equal("scan2", zip(out_k, phase1.scan2_plain(bT, used, w0, K, COLS))),
+                    cuda_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 5),
+                    cuda_ms(lambda: phase1.scan2_plain(bT, used, w0, K, COLS), 2))
+    note_bound("scan2", nbytes(bT, used, *out_k))
+    scan_ms["scan2"] = res["scan2"][1]
+
+    # the min-key scan: the cluster kernel (its route) against both twins, the
+    # kept one-block kernel too; all three scans timed from a CUDA graph's replay
+    kw = K // 32
+    route = phase1.scan_minkey_route(ROWS, kw)
+    out_k = phase1.scan_minkey(bT, used, w0, K, COLS)
+    out_p = phase1.scan_minkey_plain(bT, used, w0, K, COLS)
+    require_equal("scan_minkey against the 1-pivot twin",
+                  zip(out_k, phase1.scan_plain(bT, used, w0, K, COLS)))
+    require_equal("scan_minkey against its cluster twin", zip(out_k, (
+        x.to(dev) for x in phase1.scan_minkey_cluster_plain(
+            bT.cpu(), used.cpu(), w0, K, COLS, route.nblocks))))
+    minkey_plain_ms = cuda_ms(lambda: phase1.scan_minkey_plain(bT, used, w0, K, COLS), 2)
+    res["scan_minkey"] = (require_equal("scan_minkey", zip(out_k, out_p)),
+                          graph_ms(lambda: phase1.scan_minkey(bT, used, w0, K, COLS), 32),
+                          minkey_plain_ms)
+    note_bound("scan_minkey", nbytes(bT, used, *out_k))
+    require_equal("scan_minkey_block",
+                  zip(phase1.scan_minkey_block(bT, used, w0, K, COLS), out_p))
+    scan_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 32)
+    minkey_block = graph_ms(lambda: phase1.scan_minkey_block(bT, used, w0, K, COLS), 8)
+    minkey_again = graph_ms(lambda: phase1.scan_minkey(bT, used, w0, K, COLS), 32)
+    print(f"scan_minkey at panel 20, replayed from a CUDA graph: cluster kernel on "
+          f"{route.nblocks} blocks {res['scan_minkey'][1]:.4f} ms (again {minkey_again:.4f}; "
+          f"{1000 * res['scan_minkey'][1] / K:.3f} us a step), the one-block kernel it replaces "
+          f"(scan_minkey_block, on no solve's path) {minkey_block:.4f} ms, the 1-pivot cluster "
+          f"scan {scan_g:.4f} ms ({card})")
+    scan_ms["scan_minkey"] = res["scan_minkey"][1]
     scan_ms["scan"] = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
     # pallas_sub's scan: the first SUBSET_ROWS unused rows
     free = torch.nonzero(used[0] == 0)[: phase1.SUBSET_ROWS, 0]
@@ -492,26 +526,42 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
         print(f"{key} at panel 20: {ms:.4f} ms per panel, {1000 * ms / K:.3f} us per "
               f"column step ({card})")
 
+    # the fused phase 1: the cluster kernel (its route) and the kept one-block
+    # kernel against the twin and the split engine, all timed from a CUDA
+    # graph's replay
+    froute = phase1.phase1_fused_route(ROWS, kw)
     out_k = phase1.phase1_panel(a, bT, used, w0, K, COLS)
     out_p = phase1.phase1_panel_plain(a, bT, used, w0, K, COLS)
+    out_b = phase1.phase1_panel_block(a, bT, used, w0, K, COLS)
     # the slice, the K pivot rows of a, and pf, prow, used out
-    note_bound("phase1_fused", nbytes(bT, used, *out_k) + 4 * K * WP)
+    for name in ("phase1_fused", "phase1_fused_block"):
+        note_bound(name, nbytes(bT, used, *out_k) + 4 * K * WP)
     require_equal("phase1_fused against the split engine",
                   zip(out_k, phase1.phase1_panel_split(a, bT, used, w0, K, COLS)))
-    split_ms = cuda_ms(lambda: phase1.phase1_panel_split(a, bT, used, w0, K, COLS), 5)
+    fused_plain_ms = cuda_ms(lambda: phase1.phase1_panel_plain(a, bT, used, w0, K, COLS), 2)
     res["phase1_fused"] = (require_equal("phase1_fused", zip(out_k, out_p)),
-                           cuda_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 5),
-                           cuda_ms(lambda: phase1.phase1_panel_plain(a, bT, used, w0, K, COLS), 2))
-    print(f"phase1 at panel 20: fused kernel {res['phase1_fused'][1]:.4f} ms, split engine "
-          f"(scan + gathers + reconstruct) {split_ms:.4f} ms ({card})")
+                           graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 32),
+                           fused_plain_ms)
+    res["phase1_fused_block"] = (
+        require_equal("phase1_fused_block", zip(out_b, out_p)),
+        graph_ms(lambda: phase1.phase1_panel_block(a, bT, used, w0, K, COLS), 4),
+        fused_plain_ms)
+    split_ms = graph_ms(lambda: phase1.phase1_panel_split(a, bT, used, w0, K, COLS), 32)
+    fused_again = graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 32)
+    nocol = graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, 0), 32)
+    print(f"phase1 at panel 20, replayed from a CUDA graph: fused cluster kernel on "
+          f"{froute.nblocks} blocks ({froute.smem_bytes} B shared memory a block) "
+          f"{res['phase1_fused'][1]:.4f} ms (again {fused_again:.4f}), the one-block kernel "
+          f"(phase1_fused_block) {res['phase1_fused_block'][1]:.4f} ms, split engine (scan + "
+          f"gathers + reconstruct) {split_ms:.4f} ms, the 1-pivot scan alone {scan_g:.4f} ms; "
+          f"the fused kernel with no valid column (slice loads, solve and product with no "
+          f"pivot) {nocol:.4f} ms ({card})")
 
     # the next panel's slice after this panel's update, as the look-ahead loop has it;
     # the fused kernel (cluster scan beside table updates) and the kept one-block
     # kernel against the twin, both timed in the same run from a CUDA graph's replay
-    kw = K // 32
     errs, errs_b, ms_k, ms_b, ms_p = [], [], [], [], []
     scratch = a.clone()
-    scan_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 16)
     for w0t in (None, w0):
         nxt = panel_update.update_full_plain(a.clone(), sel, pf) if w0t is None else \
             panel_update.update_trailing_plain(a.clone(), sel, pf, w0t)
@@ -1275,6 +1325,17 @@ def check_engines(dev, card: str) -> dict:
     launches["update_scan_block"] = counts["update_scan_block"]
     print(f"very tall system, pallas_scan+mxu_la: state recovered; launches {counts}; "
           f"solve_mt19937 {cold:.4f} s ({card})")
+    with engines_env("pallas", "mxu"):
+        _cuda.reset_launches()
+        got, cold = timed(
+            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+        counts = check_launches("very tall system, phase 1 pallas", {
+            "phase1_fused_block": 79, "update_full": 16, "update_seg": 63})
+    if got != vstate:
+        raise AssertionError("very tall system, phase 1 pallas: state not recovered")
+    launches["phase1_fused_block"] = counts["phase1_fused_block"]
+    print(f"very tall system, pallas+mxu: state recovered; launches {counts}; "
+          f"solve_mt19937 {cold:.4f} s ({card})")
     return launches
 
 
@@ -1456,8 +1517,8 @@ def main() -> int:
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan_minkey", "phase1_fused", "update_scan", "scan_block",
-                "update_scan_block"):
+    for key in ("scan2", "scan_minkey", "phase1_fused", "phase1_fused_block", "update_scan",
+                "scan_block", "update_scan_block"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

@@ -14,6 +14,17 @@ __device__ __forceinline__ uint4 xor4(uint4 x, uint4 y) {
   return make_uint4(x.x ^ y.x, x.y ^ y.y, x.z ^ y.z, x.w ^ y.w);
 }
 
+// A quad from lane src of the warp.
+__device__ __forceinline__ uint4 shfl4(const uint4 r, int src) {
+  return make_uint4(__shfl_sync(0xffffffffu, r.x, src), __shfl_sync(0xffffffffu, r.y, src),
+                    __shfl_sync(0xffffffffu, r.z, src), __shfl_sync(0xffffffffu, r.w, src));
+}
+
+// Word c (0..3) of a quad.
+__device__ __forceinline__ uint32_t word_of(const uint4 r, int c) {
+  return c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
+}
+
 // The SMs of the current device, asked once (the port drives one device per
 // process).
 inline cudaError_t sm_count(int* nsm) {

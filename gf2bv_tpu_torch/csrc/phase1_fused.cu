@@ -12,27 +12,49 @@
 // pf[jj] = a[piv] ^ XOR{pf[t] : t < jj, bit t of C[piv]}; after the K steps a
 // triangular back pass turns the forward rows into the panel's RREF rows.
 //
-// What bounds it on the H100, and the design: pf is K x wp words (655 KB at
-// the flagship shape), more than the 227 KB of shared memory a block can use,
-// and a full-width rebuild per step would stream about K^2/4 earlier rows
-// (42 MB per panel) through one SM from L2.  Both passes are GF(2) row
-// operations, and every decision in them reads only the rows' pivot-column
-// slice (kw words), so each panel row is carried in shared memory as
-// [T | slice]: T (K bits) the combination of pivot rows a[prow[t]] it is made
-// of, slice its words w0 .. w0+kw-1.  Per pivot step, after the scan's
-// election, the block rebuilds row jj from the earlier rows selected by
-// C[piv] (each thread owns one earlier row and four of the 2*kw words; four
-// warp XOR-reductions and one barrier combine them), the slice part starting
-// from the pivot's own row a[piv].  The back pass runs on the same rows
-// (thread k owns row k, the reference's triangular window kept).  Finally
-// the block forms pf = T . a[prow] at full width, reading each pivot row from
-// a once per 32-word tile.  The scan itself is kernel 1's
-// (scan_system.cuh): one block of 1024 threads, its state in L2.  The whole
-// panel stays on one SM, so this engine is expected to be slower than the
-// split engine (scan + gather + reconstruct on many SMs); it is the
-// reference's engine, ported for measurement.
+// What bounds it on the H100: the scan's chain of K dependent steps (0.85 us a
+// step on 20224 rows in the cluster scan; the bytes, 1.5 MB of slice and 0.66
+// MB of pivot rows, take under a microsecond).  The per-step rebuild is the
+// TPU's way to avoid a second pass over the pivot rows; the RREF is unique, so
+// nothing needs it here.  gf2_phase1_fused is ONE launch of one thread-block
+// cluster (nb blocks of 512 threads, nb the 1-pivot scan's route for (rows,
+// kw)) in four stages:
+//   1. the cluster scan (scan_cluster_body in scan_cluster.cuh), its state
+//      in shared memory, writing prow, used' and the coefficients cT to
+//      global memory;
+//   2. the body's closing cluster barrier, whose arrive releases and whose
+//      wait acquires at cluster scope, makes every block's prow and cT
+//      visible to every block (with nb = 1, a __syncthreads);
+//   3. every block solves T (pf = T . a[prow]) by itself with the rebuild's
+//      blocked coefficient solve (coeff_blocked_body in reconstruct_coeff.cuh)
+//      on its first four warps, reading the pivot rows' slice words from a
+//      and their coefficients from cT through prow, into its own shared
+//      memory: the same 0.026 ms in every block, and no exchange;
+//   4. block r forms the strips r, r + nb, ... of pf's 4-word strips with the
+//      table body of update_table.cuh, reading the pivot rows of each strip
+//      from a through prow (no gather).
+// The block's shared memory is the larger of the scan's and the scan header
+// plus T and the larger of the solve's words and the tables; the product
+// stages start after the scan's header, so nothing the exchange used is
+// written again.  The coefficient solve is compiled for K = 256 and takes
+// every kw (the groups past kw hold no pivot and are skipped), so the kernel
+// has the scan's ten instantiations and no more.
+//
+// gf2_phase1_fused_block is the earlier design under its own name, for rows
+// past what the largest cluster holds: ONE block of 1024 threads, the scan
+// with its state in L2 (scan_system.cuh), each panel row carried in shared
+// memory as [T | slice] (T: the combination of pivot rows a[prow[t]] it is
+// made of; slice: its words w0 .. w0+kw-1), rebuilt per pivot step from the
+// earlier rows selected by C[piv] (each thread owns one earlier row and four
+// of the 2*kw words; four warp XOR-reductions and one barrier combine them),
+// the back pass on the same rows (thread k owns row k), then pf = T . a[prow]
+// at full width on the same SM, each pivot row read from a once per 32-word
+// tile.
 
+#include "reconstruct_coeff.cuh"
+#include "scan_cluster.cuh"
 #include "scan_system.cuh"
+#include "update_table.cuh"
 
 namespace {
 
@@ -43,10 +65,10 @@ constexpr int kMaxK = 32 * kMaxKw;
 constexpr int kTsStride = 2 * kMaxKw + 1;  // one [T | slice] row, padded against bank conflicts
 
 __global__ void __launch_bounds__(kScanThreads)
-phase1_fused_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ bT_in,
-                    const int32_t* __restrict__ used_in, int32_t* __restrict__ prow,
-                    int32_t* used, uint32_t* cT, uint32_t* bT, uint32_t* __restrict__ pf,
-                    int rows, int wp, int kw, int w0, int cols) {
+phase1_fused_block_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ bT_in,
+                          const int32_t* __restrict__ used_in, int32_t* __restrict__ prow,
+                          int32_t* used, uint32_t* cT, uint32_t* bT, uint32_t* __restrict__ pf,
+                          int rows, int wp, int kw, int w0, int cols) {
   __shared__ uint32_t ts[kMaxK * kTsStride];  // the panel rows as [T | slice]
   __shared__ uint32_t part[kScanThreads / 32][4];
   __shared__ int prow_s[kMaxK];
@@ -141,14 +163,123 @@ phase1_fused_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
   }
 }
 
+// -- the cluster kernel ------------------------------------------------------
+
+static_assert(gf2::kClusterThreads == gf2::kTabThreads, "one block size for the scan and tables");
+
+// The coefficient solve runs compiled for K = 256 whatever kw is.
+constexpr int kFusedSolveKw = 8;
+constexpr int kFusedSolveSmemWords = 2816;  // the solve's shared memory at K = 256, words
+static_assert(kFusedSolveSmemWords == gf2::blocked_smem_words(kFusedSolveKw),
+              "the solve's shared memory");
+
+// Bytes of the product stages after the scan's header: T (32 kw rows of kw
+// words, a whole number of quads), then the solve's words or the tables.
+size_t fused_product_bytes(int kw) {
+  const size_t solve = sizeof(uint32_t) * kFusedSolveSmemWords;
+  const size_t tables = gf2::table_smem_bytes(kw);
+  return sizeof(uint32_t) * 32 * kw * kw + (solve > tables ? solve : tables);
+}
+
+// The grid is ONE cluster of nb = gridDim.x blocks (plain when nb == 1);
+// block b has rank b.  nstrips: pf's 4-word strips; aligned: a, pf and wp
+// allow 16-byte accesses.
+template <bool kCluster, int kSlots>
+__global__ void __launch_bounds__(gf2::kClusterThreads, 1)
+phase1_fused_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ bT_in,
+                    const int32_t* __restrict__ used_in, int32_t* prow, int32_t* used_out,
+                    uint32_t* cT, uint32_t* __restrict__ pf, int rows, int wp, int kw, int w0,
+                    int cols, int rpb, int rpb_pad, int nstrips, int aligned) {
+  extern __shared__ uint4 smem4[];
+  const int nb = (int)gridDim.x, rank = (int)blockIdx.x;
+  // 1-2. the scan; with nb > 1 its closing cluster barrier publishes prow and cT
+  gf2::scan_cluster_body<kCluster, kSlots>(bT_in, used_in, prow, used_out, cT, rows, kw, w0,
+                                           cols, rpb, rpb_pad, smem4, rank, nb);
+  if (!kCluster) __syncthreads();
+
+  // 3. T of the panel into this block's shared memory, after the scan's header
+  uint32_t* tbits = reinterpret_cast<uint32_t*>(smem4 + gf2::kScanHeaderQuads);  // [32 kw][kw]
+  uint4* work = smem4 + gf2::kScanHeaderQuads + 8 * kw * kw;  // the solve's words, then tables
+  if (threadIdx.x < 32 * gf2::blocked_quads(kFusedSolveKw)) {
+    const gf2::CoeffIndexed src = {a, cT, prow, rows, wp, w0, kw};
+    gf2::coeff_blocked_body<kFusedSolveKw>(src, tbits, kw, reinterpret_cast<uint32_t*>(work));
+  }
+  __syncthreads();
+
+  // 4. this block's strips of pf = T . a[prow]: the K rows are one chunk
+  const int K = 32 * kw;
+  for (int strip = rank; strip < nstrips; strip += nb)
+    gf2::table_update_body<0, true, true>(pf, tbits, a, K, wp, kw, 0, 0, K, aligned, kw == 8,
+                                          strip, 0, work, prow);
+}
+
+struct FusedCall {
+  const uint32_t* a;
+  const uint32_t* bT_in;
+  const int32_t* used_in;
+  int32_t* prow;
+  int32_t* used_out;
+  uint32_t* cT;
+  uint32_t* pf;
+  int rows, wp, kw, w0, cols, nblocks;
+  cudaStream_t stream;
+};
+
+template <bool kCluster, int kSlots>
+cudaError_t launch_fused(const FusedCall& c, const gf2::ScanGeometry& g) {
+  static gf2::ClusterLaunchState state;
+  auto kernel = phase1_fused_kernel<kCluster, kSlots>;
+  const size_t product = sizeof(uint4) * gf2::kScanHeaderQuads + fused_product_bytes(c.kw);
+  const size_t smem = g.smem > product ? g.smem : product;
+  cudaError_t rc = gf2::prepare_cluster_launch(kernel, &state, c.nblocks, smem, c.stream);
+  if (rc != cudaSuccess) return rc;
+  const int nstrips = (c.wp + gf2::kStrip - 1) / gf2::kStrip;
+  const int aligned = c.wp % 4 == 0 && reinterpret_cast<uintptr_t>(c.a) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(c.pf) % 16 == 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  gf2::cluster_config(&cfg, &attr, c.nblocks, c.nblocks, smem, c.stream);
+  rc = cudaLaunchKernelEx(&cfg, kernel, c.a, c.bT_in, c.used_in, c.prow, c.used_out, c.cT, c.pf,
+                          c.rows, c.wp, c.kw, c.w0, c.cols, g.rpb, g.rpb_pad, nstrips, aligned);
+  return rc != cudaSuccess ? rc : cudaGetLastError();
+}
+
 }  // namespace
 
+// The fused phase 1 on a cluster of nblocks blocks (1, 2, 4, 8 or 16; the
+// wrapper's route).  cT (kw, rows) receives the scan's coefficients.  Returns
+// an error, and launches nothing, when the slice does not fit the cluster or
+// the card cannot place it.
 extern "C" int gf2_phase1_fused(const uint32_t* a, const uint32_t* bT_in,
                                 const int32_t* used_in, int32_t* prow, int32_t* used_out,
-                                uint32_t* cT, uint32_t* bT_work, uint32_t* pf, int rows,
-                                int wp, int kw, int w0, int cols, cudaStream_t stream) {
+                                uint32_t* cT, uint32_t* pf, int rows, int wp, int kw, int w0,
+                                int cols, int nblocks, cudaStream_t stream) {
+  gf2::ScanGeometry g;
+  if (w0 < 0 || w0 + kw > wp || !gf2::scan_geometry(rows, kw, nblocks, &g))
+    return (int)cudaErrorInvalidValue;
+  const FusedCall c = {a, bT_in, used_in, prow, used_out, cT, pf, rows, wp, kw, w0, cols,
+                       nblocks, stream};
+#define GF2_FUSED_SLOTS(n)                                            \
+  if (g.slots <= n)                                                   \
+    return (int)(nblocks == 1 ? launch_fused<false, n>(c, g) : launch_fused<true, n>(c, g));
+  GF2_FUSED_SLOTS(1)
+  GF2_FUSED_SLOTS(2)
+  GF2_FUSED_SLOTS(3)
+  GF2_FUSED_SLOTS(5)
+  GF2_FUSED_SLOTS(gf2::kMaxSlots)
+#undef GF2_FUSED_SLOTS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The earlier design: one block, the scan's state in global memory (bT_work
+// (kw, rows) its working copy of the slice).
+extern "C" int gf2_phase1_fused_block(const uint32_t* a, const uint32_t* bT_in,
+                                      const int32_t* used_in, int32_t* prow,
+                                      int32_t* used_out, uint32_t* cT, uint32_t* bT_work,
+                                      uint32_t* pf, int rows, int wp, int kw, int w0, int cols,
+                                      cudaStream_t stream) {
   if (kw < 1 || kw > kMaxKw || w0 < 0 || w0 + kw > wp) return (int)cudaErrorInvalidValue;
-  phase1_fused_kernel<<<1, kScanThreads, 0, stream>>>(a, bT_in, used_in, prow, used_out, cT,
-                                                      bT_work, pf, rows, wp, kw, w0, cols);
+  phase1_fused_block_kernel<<<1, kScanThreads, 0, stream>>>(
+      a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols);
   return (int)cudaGetLastError();
 }

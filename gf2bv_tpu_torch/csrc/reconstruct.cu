@@ -23,7 +23,9 @@
 //      update_table.cu), parallel over all words: on these 256 rows it takes
 //      a sixth of the time of the mask-and-XOR tiles that ran it before.
 //
-// The coefficient solve is a blocked triangular solve (coeff_blocked_kernel).
+// The coefficient solve is a blocked triangular solve (coeff_blocked_body in
+// reconstruct_coeff.cuh, launched here as coeff_blocked_kernel; the fused
+// phase 1 of phase1_fused.cu runs the same body inside its own launch).
 // The forward decisions depend only on coeff, which is fixed, and the back
 // decisions only on the slice, so a dependent step needs no block barrier: it
 // is one warp-wide broadcast.
@@ -67,7 +69,7 @@
 // (gridDim.x = B); launch 2 is ONE batched product over all B
 // (gridDim.z = B), so the two launches per panel do not grow with B.
 
-#include "gf2_common.cuh"
+#include "reconstruct_coeff.cuh"
 
 namespace {
 
@@ -120,34 +122,12 @@ __global__ void coeff_steps_kernel(const uint32_t* __restrict__ arows,
   for (int g = 0; g < kw; ++g) tbits[(size_t)k * kw + g] = row[k * rw + g];
 }
 
-// r ^= v where bit `bit` of `takes` is set: branch-free
-__device__ __forceinline__ void xor4_if(uint4& r, const uint4 v, uint32_t takes, int bit) {
-  const uint32_t m = (uint32_t)((int32_t)(takes << (31 - bit)) >> 31);
-  r.x ^= v.x & m;
-  r.y ^= v.y & m;
-  r.z ^= v.z & m;
-  r.w ^= v.w & m;
-}
+using gf2::blocked_quads;
+using gf2::blocked_smem_words;
 
-__device__ __forceinline__ uint4 shfl4(const uint4 r, int src) {
-  return make_uint4(__shfl_sync(0xffffffffu, r.x, src), __shfl_sync(0xffffffffu, r.y, src),
-                    __shfl_sync(0xffffffffu, r.z, src), __shfl_sync(0xffffffffu, r.w, src));
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4 r, int c) {
-  return c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
-}
-
-constexpr int blocked_quads(int kw) { return (2 * kw + 3) / 4; }
-
-// Shared memory of coeff_blocked_kernel, in 32-bit words: cf[K][kw + 1], the
-// coefficients padded against bank conflicts, and dpub[2][K], a row's decision
-// word published before each back group (two buffers in turn).
-constexpr int blocked_smem_words(int kw) { return 32 * kw * (kw + 1) + 2 * 32 * kw; }
-
-// Block of 32 * nq threads: warp q = threadIdx.x / 32 holds quad q of every
-// row, lane l the rows 32 g + l.  Nothing but the four base pointers depends
-// on blockIdx.
+// One block per system: block b takes system b, its four base pointers offset
+// once; the body (reconstruct_coeff.cuh) runs on all 32 * blocked_quads(KW)
+// threads.
 template <int KW>
 __global__ void __launch_bounds__(32 * blocked_quads(KW))
 coeff_blocked_kernel(const uint32_t* __restrict__ arows, const uint32_t* __restrict__ coeff,
@@ -155,83 +135,10 @@ coeff_blocked_kernel(const uint32_t* __restrict__ arows, const uint32_t* __restr
                      int w0) {
   extern __shared__ uint32_t smem[];
   constexpr int K = 32 * KW;
-  uint32_t* cf = smem;                 // [K][KW + 1]
-  uint32_t* dpub = cf + K * (KW + 1);  // [2][K]
-  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  arows += (size_t)blockIdx.x * K * wp;
-  coeff += (size_t)blockIdx.x * K * KW;
-  prow += (size_t)blockIdx.x * K;
-  tbits += (size_t)blockIdx.x * K * KW;
-
-  // row k = [T = e_k (KW words) | slice (KW words) | zero padding]; r[g] is
-  // this warp's quad of row 32 g + lane, has[g] the pivots of group g
-  uint4 r[KW];
-  uint32_t has[KW];
-#pragma unroll
-  for (int g = 0; g < KW; ++g) {
-    const int k = 32 * g + lane;
-    uint32_t w[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = 4 * q + c;
-      w[c] = i < KW ? (i == g ? 1u << lane : 0u)
-                    : (i < 2 * KW ? arows[(size_t)k * wp + w0 + (i - KW)] : 0u);
-    }
-    r[g] = make_uint4(w[0], w[1], w[2], w[3]);
-    has[g] = __ballot_sync(0xffffffffu, prow[k] >= 0);
-  }
-  for (int i = threadIdx.x; i < K * KW; i += blockDim.x)
-    cf[(i / KW) * (KW + 1) + i % KW] = coeff[i];
-  __syncthreads();
-
-#pragma unroll
-  for (int g = 0; g < KW; ++g) {  // forward: row 32 g + t is final at step t
-    // the steps each of this thread's rows takes: pivots of group g whose
-    // coefficient bit is set, for the group's own row only those before it
-    uint32_t takes[KW];
-#pragma unroll
-    for (int h = g; h < KW; ++h) takes[h] = cf[(32 * h + lane) * (KW + 1) + g] & has[g];
-    takes[g] &= (1u << lane) - 1u;
-#pragma unroll 4
-    for (int t = 0; t < 32; ++t) {
-      const uint4 rt = shfl4(r[g], t);
-#pragma unroll
-      for (int h = g; h < KW; ++h) xor4_if(r[h], rt, takes[h], t);
-    }
-    if (!((has[g] >> lane) & 1u)) r[g] = make_uint4(0u, 0u, 0u, 0u);
-  }
-
-#pragma unroll
-  for (int g = KW - 1; g >= 0; --g) {  // back: row 32 g + j is used as it is at step j
-    // d[h]: word g of the slice of row 32 h + lane, from the warp that holds it
-    uint32_t* pub = dpub + (g & 1) * K;
-    if (q == (KW + g) / 4) {
-#pragma unroll
-      for (int h = 0; h <= g; ++h) pub[32 * h + lane] = word_of(r[h], (KW + g) & 3);
-    }
-    __syncthreads();
-    uint32_t d[KW];
-#pragma unroll
-    for (int h = 0; h <= g; ++h) d[h] = pub[32 * h + lane];
-    const uint32_t others = has[g] & ~(1u << lane);  // steps j != lane that have a pivot
-#pragma unroll 4
-    for (int j = 31; j >= 0; --j) {
-      const uint4 rj = shfl4(r[g], j);
-      const uint32_t dj = __shfl_sync(0xffffffffu, d[g], j);
-#pragma unroll
-      for (int h = 0; h <= g; ++h) {
-        const uint32_t takes = d[h] & (h == g ? others : has[g]);
-        xor4_if(r[h], rj, takes, j);
-        d[h] ^= dj & (uint32_t)((int32_t)(takes << (31 - j)) >> 31);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < KW; ++g)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (4 * q + c < KW) tbits[(size_t)(32 * g + lane) * KW + 4 * q + c] = word_of(r[g], c);
+  const gf2::CoeffGathered<KW> src = {arows + (size_t)blockIdx.x * K * wp,
+                                      coeff + (size_t)blockIdx.x * K * KW,
+                                      prow + (size_t)blockIdx.x * K, wp, w0};
+  gf2::coeff_blocked_body<KW>(src, tbits + (size_t)blockIdx.x * K * KW, KW, smem);
 }
 
 template <int KW>

@@ -50,7 +50,14 @@
 // its words.  The pivot row's words then come out of the reduction instead of
 // a dependent load after it.  The no-candidate sentinel rows << 16 needs
 // rows < 2^15; the wrapper sends taller systems to gf2_scan, as the
-// reference's _call_scan_kernel does.
+// reference's _call_scan_kernel does.  Since the min-key scan became a
+// cluster kernel it is the kernel of gf2_scan with the min-key election
+// (scan_cluster_body's kMinKey): a block's lowest candidate, as its 16 keys,
+// is the block's slot of the exchange, and the least keys over the slots
+// elect the pivot and carry its words in every block.  Every slice it takes (rows < 2^15)
+// fits a cluster.  gf2_scan_minkey_block is the earlier one-block kernel with
+// its state in global memory: on no solve's path, kept so that both can be
+// timed on the same inputs.
 
 #include "scan_cluster.cuh"
 #include "scan_system.cuh"
@@ -72,8 +79,8 @@ scan_block_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
 
 // The cluster scan over `batch` systems: the grid is batch clusters of nb
 // blocks (plain blocks when nb == 1), and cluster blockIdx.x / nb scans system
-// blockIdx.x / nb.
-template <bool kCluster, int kSlots>
+// blockIdx.x / nb.  kMinKey: the min-key election.
+template <bool kCluster, int kSlots, bool kMinKey>
 __global__ void __launch_bounds__(gf2::kClusterThreads, 1)
 scan_cluster_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
                     int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
@@ -82,7 +89,7 @@ scan_cluster_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restric
   extern __shared__ uint4 smem4[];
   const int b = blockIdx.x / nb;
   const size_t slice = (size_t)kw * rows;  // words of one system's bT / cT
-  gf2::scan_cluster_body<kCluster, kSlots>(
+  gf2::scan_cluster_body<kCluster, kSlots, kMinKey>(
       bT_in + b * slice, used_in + (size_t)b * rows, prow + b * 32 * kw,
       used_out + (size_t)b * rows, cT + b * slice, rows, kw, w0, cols, rpb, rpb_pad, smem4,
       (int)blockIdx.x - b * nb, nb);
@@ -254,8 +261,8 @@ scan_minkey_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict
 namespace {
 
 // One call of the cluster scan: `batch` systems on clusters of nblocks blocks
-// each.  max_clusters set: launch nothing, only report how many such clusters
-// the card holds at once.
+// each, by the 1-pivot or the min-key election.  max_clusters set: launch
+// nothing, only report how many such clusters the card holds at once.
 struct ScanCall {
   const uint32_t* bT_in;
   const int32_t* used_in;
@@ -265,12 +272,13 @@ struct ScanCall {
   int batch, rows, kw, w0, cols, nblocks;
   cudaStream_t stream;
   int* max_clusters;
+  bool minkey;
 };
 
-template <bool kCluster, int kSlots>
+template <bool kCluster, int kSlots, bool kMinKey>
 cudaError_t launch_scan_cluster(const ScanCall& c, const gf2::ScanGeometry& g) {
   static gf2::ClusterLaunchState state;
-  auto kernel = scan_cluster_kernel<kCluster, kSlots>;
+  auto kernel = scan_cluster_kernel<kCluster, kSlots, kMinKey>;
   cudaError_t rc = gf2::prepare_cluster_launch(kernel, &state, c.nblocks, g.smem, c.stream);
   if (rc != cudaSuccess) return rc;
   if (c.max_clusters) {
@@ -287,14 +295,16 @@ cudaError_t launch_scan_cluster(const ScanCall& c, const gf2::ScanGeometry& g) {
 
 // Returns an error, and launches nothing, when the state does not fit the
 // blocks or the card cannot place such a cluster.
-cudaError_t scan_clusters(const ScanCall& c) {
+template <bool kMinKey>
+cudaError_t scan_clusters_by(const ScanCall& c) {
   gf2::ScanGeometry g;
-  if (c.batch < 1 || !gf2::scan_geometry(c.rows, c.kw, c.nblocks, &g))
+  if (c.batch < 1 ||
+      !gf2::scan_geometry(c.rows, c.kw, c.nblocks, &g, gf2::scan_header_quads<kMinKey>()))
     return cudaErrorInvalidValue;
-#define GF2_SCAN_SLOTS(n)                                             \
-  if (g.slots <= n)                                                   \
-    return c.nblocks == 1 ? launch_scan_cluster<false, n>(c, g)       \
-                          : launch_scan_cluster<true, n>(c, g);
+#define GF2_SCAN_SLOTS(n)                                                \
+  if (g.slots <= n)                                                      \
+    return c.nblocks == 1 ? launch_scan_cluster<false, n, kMinKey>(c, g) \
+                          : launch_scan_cluster<true, n, kMinKey>(c, g);
   GF2_SCAN_SLOTS(1)
   GF2_SCAN_SLOTS(2)
   GF2_SCAN_SLOTS(3)
@@ -304,6 +314,10 @@ cudaError_t scan_clusters(const ScanCall& c) {
   return cudaErrorInvalidValue;
 }
 
+cudaError_t scan_clusters(const ScanCall& c) {
+  return c.minkey ? scan_clusters_by<true>(c) : scan_clusters_by<false>(c);
+}
+
 }  // namespace
 
 // The cluster scan on nblocks blocks (1, 2, 4, 8 or 16; the wrapper's route).
@@ -311,7 +325,7 @@ extern "C" int gf2_scan(const uint32_t* bT_in, const int32_t* used_in, int32_t* 
                         int32_t* used_out, uint32_t* cT, int rows, int kw, int w0, int cols,
                         int nblocks, cudaStream_t stream) {
   return (int)scan_clusters({bT_in, used_in, prow, used_out, cT, 1, rows, kw, w0, cols,
-                             nblocks, stream, nullptr});
+                             nblocks, stream, nullptr, false});
 }
 
 // The one-block scan with its state in global memory; bT_work (kw, rows) is
@@ -331,7 +345,7 @@ extern "C" int gf2_scan_batched(const uint32_t* bT_in, const int32_t* used_in,
                                 int rows, int kw, int w0, int cols, int nblocks,
                                 cudaStream_t stream) {
   return (int)scan_clusters({bT_in, used_in, prow, used_out, cT, batch, rows, kw, w0, cols,
-                             nblocks, stream, nullptr});
+                             nblocks, stream, nullptr, false});
 }
 
 // The batched scan by one block per system with the state in global memory;
@@ -351,7 +365,7 @@ extern "C" int gf2_scan_batched_block(const uint32_t* bT_in, const int32_t* used
 // block, blocks per SM x SMs), written to *out.
 extern "C" int gf2_scan_occupancy(int rows, int kw, int nblocks, int* out) {
   return (int)scan_clusters({nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, kw, 0, 0,
-                             nblocks, nullptr, out});
+                             nblocks, nullptr, out, false});
 }
 
 extern "C" int gf2_scan2(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
@@ -363,9 +377,22 @@ extern "C" int gf2_scan2(const uint32_t* bT_in, const int32_t* used_in, int32_t*
   return (int)cudaGetLastError();
 }
 
+// The min-key scan on a cluster of nblocks blocks (1, 2, 4, 8 or 16; the
+// wrapper's route); rows < 2^15.
 extern "C" int gf2_scan_minkey(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
-                               int32_t* used_out, uint32_t* cT, uint32_t* bT_work, int rows,
-                               int kw, int w0, int cols, cudaStream_t stream) {
+                               int32_t* used_out, uint32_t* cT, int rows, int kw, int w0,
+                               int cols, int nblocks, cudaStream_t stream) {
+  if (rows >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  return (int)scan_clusters({bT_in, used_in, prow, used_out, cT, 1, rows, kw, w0, cols,
+                             nblocks, stream, nullptr, true});
+}
+
+// The min-key scan by one block with its state in global memory; bT_work
+// (kw, rows) is its working copy of the slice.
+extern "C" int gf2_scan_minkey_block(const uint32_t* bT_in, const int32_t* used_in,
+                                     int32_t* prow, int32_t* used_out, uint32_t* cT,
+                                     uint32_t* bT_work, int rows, int kw, int w0, int cols,
+                                     cudaStream_t stream) {
   if (kw < 1 || kw > kMaxKw || rows >= (1 << 15)) return (int)cudaErrorInvalidValue;
   scan_minkey_kernel<<<1, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT,
                                                      bT_work, rows, kw, w0, cols);

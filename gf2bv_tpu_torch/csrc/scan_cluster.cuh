@@ -43,6 +43,9 @@
 // every thread reads the pivot's words straight from the block's shared
 // memory and a step has one __syncthreads.
 //
+// A template flag swaps steps 1-2 for the min-key scan's election (below,
+// at scan_cluster_body).
+//
 // The body takes the block's rank and the cluster's size as arguments: the
 // caller's grid may hold many clusters (one per system of a batch) or other
 // work beside the one scan cluster.  Its two cluster barriers (before the
@@ -59,12 +62,23 @@ constexpr int kClusterThreads = 512;  // threads per block: up to 128 registers 
 constexpr int kMaxSlots = 8;          // rows a thread can own (kernels for 1, 2, 3, 5, 8)
 constexpr int kMaxCluster = 16;       // blocks per cluster (above 8: non-portable size)
 constexpr int kSlotQuads = 3;         // one slot: words 0-3, words 4-7, (row, -, -, -)
+constexpr int kMinKeySlotQuads = 4;   // a min-key slot: the block's 16 key minima
 // Shared memory of a scanning block, in 16-byte quads: the exchange slots
 // [2][kMaxCluster][kSlotQuads], the warp minima [2][32] ints, the two
 // mbarriers of the exchange (one quad), then the state [halves][rpb_pad]
 // (half h of a row: its slice words 4h .. 4h+3).
 constexpr int kScanHeaderQuads = 2 * kMaxCluster * kSlotQuads + 2 * 32 / 4 + 1;
+// The min-key election's header: slots [2][kMaxCluster][kMinKeySlotQuads],
+// the warps' records [2][16 warps][4 quads] (words 0-3, words 4-7, row), the
+// mbarriers.
+constexpr int kMinKeyHeaderQuads =
+    2 * kMaxCluster * kMinKeySlotQuads + 2 * (kClusterThreads / 32) * 16 / 4 + 1;
 constexpr size_t kMaxBlockSmem = 232448;  // 227 KB
+
+template <bool kMinKey>
+__host__ __device__ constexpr int scan_header_quads() {
+  return kMinKey ? kMinKeyHeaderQuads : kScanHeaderQuads;
+}
 
 // The exchange's primitives (PTX: mbarrier, mapa, st.async).  Addresses are
 // 32-bit shared-memory addresses; a remote one is the same offset mapped into
@@ -114,24 +128,62 @@ __device__ __forceinline__ void store_async16(uint32_t dst, uint4 v, uint32_t ba
       : "memory");
 }
 
+// The min-key fold of n rows of 16 keys (four quads at src + 4 l; a row is a
+// candidate's keys, or the sentinel throughout): the least key of every half
+// lies on the row with the least key of half 2 sw (the lowest candidate row,
+// which every live half's key starts with), so lane l < n reads that one key
+// of row l, one reduction elects the row, and every lane reads its 16 keys
+// into out (four broadcast loads).  Returns the least key of half 2 sw.
+__device__ __forceinline__ int min_keys(const uint4* src, int n, int sw, int none, int lane,
+                                        uint4 (&out)[4]) {
+  const int kp = lane < n ? reinterpret_cast<const int*>(src)[16 * lane + 2 * sw] : none;
+  const int m = __reduce_min_sync(0xffffffffu, kp);
+  const int wl = __ffs(__ballot_sync(0xffffffffu, kp == m)) - 1;  // lane 0 when m == none
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = src[4 * wl + j];
+  return m;
+}
+
 // The scan of one system by the calling cluster.  kCluster: the block is one
 // of nb > 1 blocks of a cluster and `rank` its rank there; else nb == 1 and
 // rank == 0 (no exchange, no cluster barrier).  kSlots: rows a thread owns at
 // most (its loops over them are unrolled, so a thread pays for kSlots rows
 // whatever it has).  rpb: rows per block, at most kSlots * kClusterThreads;
 // rpb_pad: rpb rounded up to a multiple of 32.  smem4: the block's
-// kScanHeaderQuads + halves * rpb_pad quads of shared memory.  Every thread of
-// every block of the cluster must call it.
-template <bool kCluster, int kSlots>
+// scan_header_quads<kMinKey>() + halves * rpb_pad quads of shared memory.
+// Every thread of every block of the cluster must call it.
+//
+// kMinKey: the election is the min-key scan's (pallas_phase1.py:
+// _make_scan_kernel_minkey; rows < 2^15): a candidate row is known by its
+// keys, global row << 16 | 16-bit half for every live half of the slice, and
+// the least key of each half lands on the lowest candidate row and carries its
+// words.  All 16 least keys of a set of rows lie on one row, so no level needs
+// 16 reductions: a warp elects its lowest candidate with one reduction and
+// that lane stores its row and words as the warp's record; one
+// __syncthreads; the block's lowest candidate is one reduction over the 16
+// records, its words read from the winning record.  With nb = 1 that is the
+// pivot.  With nb > 1 warp 0 turns it into the block's 16 keys (the sentinel
+// rows << 16 for a dead half or no candidate), which are the block's slot of
+// the exchange (steps 2-3 above, four quads), and every warp folds the nb
+// slots (min_keys): one reduction on the key of half 2 sw elects the slot,
+// whose 16 keys give the pivot row and its words.  Measured on the H100 at
+// 20224 rows, random slices: the TPU kernel's form, 16 independent reductions
+// at each level, 2.13 us a step (2.83 with each reduction behind a branch);
+// one reduction a level carrying all 16 keys, 1.75-1.91; keys formed once a
+// block (this form), 1.56; the 1-pivot election 0.92.
+template <bool kCluster, int kSlots, bool kMinKey = false>
 __device__ __forceinline__ void
 scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
                   int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
                   uint32_t* __restrict__ cT, int rows, int kw, int w0, int cols, int rpb,
                   int rpb_pad, uint4* smem4, int rank, int nb) {
-  uint4* slots = smem4;                                        // [2][kMaxCluster][kSlotQuads]
-  int* warp_min = reinterpret_cast<int*>(smem4 + 2 * kMaxCluster * kSlotQuads);  // [2][32]
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem4 + kScanHeaderQuads - 1);  // [2]
-  uint4* bT_s = smem4 + kScanHeaderQuads;                      // [halves][rpb_pad]
+  constexpr int slot_quads = kMinKey ? kMinKeySlotQuads : kSlotQuads;
+  constexpr int header = scan_header_quads<kMinKey>();
+  uint4* slots = smem4;                                        // [2][kMaxCluster][slot_quads]
+  // [2][32] warp minima; min-key: [2][16 warps] records of four quads
+  int* warp_min = reinterpret_cast<int*>(smem4 + 2 * kMaxCluster * slot_quads);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem4 + header - 1);  // [2]
+  uint4* bT_s = smem4 + header;                                // [halves][rpb_pad]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int nthreads = kClusterThreads, nwarps = kClusterThreads / 32;
   const unsigned full = 0xffffffffu;
@@ -206,48 +258,123 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
 #pragma unroll
       for (int i = 0; i < kSlots; ++i)
         if (upper && ((cm >> i) & 1u)) u[i] = bT_s[rpb_pad + i * nthreads + tid];
-      mine = __reduce_min_sync(full, mine);
-      if (lane == 0) warp_min[p * 32 + warp] = mine;
-      __syncthreads();
-      int bmin = lane < nwarps ? warp_min[p * 32 + lane] : rows;
-      bmin = __reduce_min_sync(full, bmin);  // every warp reduces for itself
-
       uint4 bp0 = make_uint4(0u, 0u, 0u, 0u), bp1 = bp0;  // the pivot row's halves
-      if (!kCluster) {
-        piv = bmin;
-        if (piv < rows) {
-          bp0 = bT_s[piv - row0];
-          if (halves == 2) bp1 = bT_s[rpb_pad + piv - row0];
+      if constexpr (kMinKey) {
+        const int none = rows << 16;  // above every key: rows < 2^15
+        // this thread's lowest candidate (mine) and its words from sw on
+        uint4 c0 = bp0, c1 = bp0;  // its half hs and, when upper, half 1
+#pragma unroll
+        for (int i = kSlots - 1; i >= 0; --i) {
+          if ((cm >> i) & 1u) {
+            c0 = v[i];
+            if (upper) c1 = u[i];
+          }
+        }
+        // the warp's lowest candidate: its row, and its words from half hs on
+        // (half 0 is dead when hs == 1), stored by that lane as the warp's record
+        const int wmin = __reduce_min_sync(full, mine);
+        const int wl = __ffs(__ballot_sync(full, mine == wmin)) - 1;  // lane 0 when none
+        uint4* wr = reinterpret_cast<uint4*>(warp_min) + (p * nwarps + warp) * 4;
+        if (lane == wl) {
+          wr[0] = hs ? bp0 : c0;
+          wr[1] = hs ? c0 : c1;
+          wr[2] = make_uint4((uint32_t)mine, 0u, 0u, 0u);
+        }
+        __syncthreads();
+        // the block's lowest candidate: one reduction over the warps' rows, then
+        // the winning record's words by broadcast loads
+        const uint4* recs = reinterpret_cast<const uint4*>(warp_min) + p * nwarps * 4;
+        if (!kCluster) {
+          const int r = lane < nwarps ? (int)recs[4 * lane + 2].x : rows;
+          piv = __reduce_min_sync(full, r);
+          const int wb = __ffs(__ballot_sync(full, r == piv)) - 1;
+          bp0 = recs[4 * wb];
+          bp1 = recs[4 * wb + 1];
+        } else {
+          const uint32_t bar = smem_addr(&mbar[p]);
+          if (tid == 0) mbar_arrive_expect(bar, (uint32_t)(nb * slot_quads * sizeof(uint4)));
+          if (warp == 0) {
+            const int r = lane < nwarps ? (int)recs[4 * lane + 2].x : rows;
+            const int brow = __reduce_min_sync(full, r);
+            const int wb = __ffs(__ballot_sync(full, r == brow)) - 1;
+            const uint4 h0 = recs[4 * wb], h1 = recs[4 * wb + 1];
+            // the block's slot: the 16 keys of its lowest candidate, row << 16 |
+            // 16-bit half, the sentinel for a dead half or no candidate
+            int key[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const uint32_t w = word_of(i < 8 ? h0 : h1, (i >> 1) & 3);
+              const bool keyed = brow < rows && i >= 2 * sw && i < 2 * kw;
+              key[i] = keyed ? (brow << 16) | (int)((i & 1) ? w >> 16 : w & 0xFFFFu) : none;
+            }
+            if (lane < nb) {
+              const uint32_t dst = remote_addr(
+                  smem_addr(slots + (p * kMaxCluster + rank) * slot_quads), lane);
+              const uint32_t rbar = remote_addr(bar, lane);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                store_async16(dst + 16 * j, make_uint4(key[4 * j], key[4 * j + 1],
+                                                       key[4 * j + 2], key[4 * j + 3]), rbar);
+            }
+          }
+          mbar_wait(bar, (wait_parity >> p) & 1u);
+          wait_parity ^= 1u << p;
+          // the least key of each half over the cluster; piv is rows when no
+          // block has a candidate
+          uint4 km[4];
+          piv = min_keys(slots + p * kMaxCluster * slot_quads, nb, sw, none, lane, km) >> 16;
+          uint32_t bw[8];
+#pragma unroll
+          for (int g = 0; g < 8; ++g)
+            bw[g] = (g >= sw && g < kw) ? (word_of(km[g >> 1], (2 * g + 1) & 3) << 16) |
+                                              (word_of(km[g >> 1], (2 * g) & 3) & 0xFFFFu)
+                                        : 0u;
+          bp0 = make_uint4(bw[0], bw[1], bw[2], bw[3]);
+          bp1 = make_uint4(bw[4], bw[5], bw[6], bw[7]);
         }
       } else {
-        // this block expects a slot of kSlotQuads quads from every block
-        const uint32_t bar = smem_addr(&mbar[p]);
-        if (tid == 0) mbar_arrive_expect(bar, (uint32_t)(nb * kSlotQuads * sizeof(uint4)));
-        if (warp == 0) {
-          uint4 w0q = bp0, w1q = bp0;
-          if (bmin < rows) {
-            w0q = bT_s[bmin - row0];
-            if (halves == 2) w1q = bT_s[rpb_pad + bmin - row0];
+        mine = __reduce_min_sync(full, mine);
+        if (lane == 0) warp_min[p * 32 + warp] = mine;
+        __syncthreads();
+        int bmin = lane < nwarps ? warp_min[p * 32 + lane] : rows;
+        bmin = __reduce_min_sync(full, bmin);  // every warp reduces for itself
+
+        if (!kCluster) {
+          piv = bmin;
+          if (piv < rows) {
+            bp0 = bT_s[piv - row0];
+            if (halves == 2) bp1 = bT_s[rpb_pad + piv - row0];
           }
-          if (lane < nb) {
-            const uint32_t dst = remote_addr(
-                smem_addr(slots + (p * kMaxCluster + rank) * kSlotQuads), lane);
-            const uint32_t rbar = remote_addr(bar, lane);
-            store_async16(dst, w0q, rbar);
-            store_async16(dst + 16, w1q, rbar);
-            store_async16(dst + 32, make_uint4((uint32_t)bmin, 0u, 0u, 0u), rbar);
+        } else {
+          // this block expects a slot of kSlotQuads quads from every block
+          const uint32_t bar = smem_addr(&mbar[p]);
+          if (tid == 0) mbar_arrive_expect(bar, (uint32_t)(nb * kSlotQuads * sizeof(uint4)));
+          if (warp == 0) {
+            uint4 w0q = bp0, w1q = bp0;
+            if (bmin < rows) {
+              w0q = bT_s[bmin - row0];
+              if (halves == 2) w1q = bT_s[rpb_pad + bmin - row0];
+            }
+            if (lane < nb) {
+              const uint32_t dst = remote_addr(
+                  smem_addr(slots + (p * kMaxCluster + rank) * kSlotQuads), lane);
+              const uint32_t rbar = remote_addr(bar, lane);
+              store_async16(dst, w0q, rbar);
+              store_async16(dst + 16, w1q, rbar);
+              store_async16(dst + 32, make_uint4((uint32_t)bmin, 0u, 0u, 0u), rbar);
+            }
           }
-        }
-        mbar_wait(bar, (wait_parity >> p) & 1u);
-        wait_parity ^= 1u << p;
-        const uint4* sl = slots + p * kMaxCluster * kSlotQuads;
-        const int r = lane < nb ? (int)sl[lane * kSlotQuads + 2].x : rows;
-        const unsigned has = __ballot_sync(full, r < rows);
-        if (has) {  // the ranges ascend with the rank: the first block with a candidate
-          const int wb = __ffs(has) - 1;
-          piv = __shfl_sync(full, r, wb);
-          bp0 = sl[wb * kSlotQuads];
-          bp1 = sl[wb * kSlotQuads + 1];
+          mbar_wait(bar, (wait_parity >> p) & 1u);
+          wait_parity ^= 1u << p;
+          const uint4* sl = slots + p * kMaxCluster * kSlotQuads;
+          const int r = lane < nb ? (int)sl[lane * kSlotQuads + 2].x : rows;
+          const unsigned has = __ballot_sync(full, r < rows);
+          if (has) {  // the ranges ascend with the rank: the first block with a candidate
+            const int wb = __ffs(has) - 1;
+            piv = __shfl_sync(full, r, wb);
+            bp0 = sl[wb * kSlotQuads];
+            bp1 = sl[wb * kSlotQuads + 1];
+          }
         }
       }
       p ^= 1;
@@ -287,7 +414,11 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
     const int loc = i * nthreads + tid;
     if (loc < nloc) used_out[row0 + loc] = (int32_t)(((live >> i) & 1u) ^ 1u);
   }
-  // no block exits while another may still write into its shared memory
+  // no block exits while another may still write into its shared memory.  The
+  // barrier's arrive has release and its wait acquire semantics at cluster
+  // scope (the PTX defaults of barrier.cluster), so after it every block of
+  // the cluster sees every block's prow, cT and used' in global memory: the
+  // fused phase 1 (phase1_fused.cu) reads them there with no barrier of its own
   if (kCluster) cooperative_groups::this_cluster().sync();
 }
 
@@ -303,13 +434,15 @@ struct ScanGeometry {
 
 // False when no cluster of nblocks blocks holds the slice (shared memory,
 // kMaxSlots rows a thread) or the arguments are none a kernel takes.
-inline bool scan_geometry(int rows, int kw, int nblocks, ScanGeometry* g) {
+// header_quads: scan_header_quads<kMinKey>() of the body's election.
+inline bool scan_geometry(int rows, int kw, int nblocks, ScanGeometry* g,
+                          int header_quads = kScanHeaderQuads) {
   if (kw < 1 || kw > 8 || rows < 1 || nblocks < 1 || nblocks > kMaxCluster ||
       (nblocks & (nblocks - 1)))
     return false;
   g->rpb = (rows + nblocks - 1) / nblocks;
   g->rpb_pad = (g->rpb + 31) & ~31;
-  g->smem = sizeof(uint4) * (kScanHeaderQuads + (size_t)((kw + 3) / 4) * g->rpb_pad);
+  g->smem = sizeof(uint4) * (header_quads + (size_t)((kw + 3) / 4) * g->rpb_pad);
   g->slots = (g->rpb + kClusterThreads - 1) / kClusterThreads;
   return g->smem <= kMaxBlockSmem && g->slots <= kMaxSlots;
 }

@@ -3,7 +3,8 @@
 // a[i] ^= XOR{pf[t] : bit t of sel[i]}, and the host-side arithmetic that cuts
 // an update into such shares.  update_table.cu launches it as a kernel of its
 // own (the panel updates and the rebuilds' product); panel_update.cu runs it
-// in the update clusters of the fused update + scan.  The design and what
+// in the update clusters of the fused update + scan, phase1_fused.cu as the
+// product pf = T . a[prow] of the fused phase 1.  The design and what
 // bounds it are described in update_table.cu.
 #pragma once
 
@@ -64,13 +65,15 @@ inline size_t table_smem_bytes(int kw) {
 // Strip 0 is word 0 alone when const_word is set; the others are 4 words from
 // word_lo on (the last may be cut by wp).  aligned: a and pf rows and word_lo
 // allow 16-byte accesses; sel_vec: kw == 8 and sel rows are 16-byte aligned.
-// kProduct: a is written, never read (out = S . PF).
-template <int kProbe, bool kProduct>
+// kProduct: a is written, never read (out = S . PF).  kRowIndex: row t of PF
+// is row pf_rows[t] of the matrix pf, zero where pf_rows[t] < 0 (the fused
+// phase 1 reads its pivot rows in place; sel may then lie in shared memory).
+template <int kProbe, bool kProduct, bool kRowIndex = false>
 __device__ __forceinline__ void
 table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
                   const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
                   int const_word, int chunk_rows, int aligned, int sel_vec, int strip,
-                  int chunk, uint4* smem4) {
+                  int chunk, uint4* smem4, const int32_t* pf_rows = nullptr) {
   const int ngroups = 4 * kw;            // groups of 8 selector bits
   uint4* tab = smem4;                    // [ngroups][256]
   uint4* pf_s = smem4 + ngroups * 256;   // [32 * kw]: pf's rows on this strip
@@ -81,8 +84,14 @@ table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
   const bool vec = aligned && n == kStrip;
 
   if (!(kProbe & kProbeNoBuild)) {
-    for (int t = tid; t < 32 * kw; t += kTabThreads)
-      pf_s[t] = load4(pf + (size_t)t * wp + w, n, vec);
+    for (int t = tid; t < 32 * kw; t += kTabThreads) {
+      if (kRowIndex) {
+        const int pr = pf_rows[t];
+        pf_s[t] = pr >= 0 ? load4(pf + (size_t)pr * wp + w, n, vec) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        pf_s[t] = load4(pf + (size_t)t * wp + w, n, vec);
+      }
+    }
     __syncthreads();
     // 16 threads a table: thread lo starts from the combination of the group's
     // rows 0-3 that the bits of lo select and doubles it over rows 4-7 in

@@ -43,6 +43,7 @@ LAUNCHES = {
     "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
     "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
     "scan_batched_block": 0, "update_scan_block": 0,
+    "scan_minkey_block": 0, "phase1_fused_block": 0,
 }
 
 _P = ctypes.c_void_p
@@ -74,9 +75,13 @@ _SIGNATURES = {
     "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
     "gf2_scan2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gf2_scan_minkey": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_scan_minkey_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
+    "gf2_scan_minkey": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (a, bT_in, used_in, prow, used_out, cT, pf, rows, wp, kw, w0, cols, nblocks, stream)
+    "gf2_phase1_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols, stream)
-    "gf2_phase1_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gf2_phase1_fused_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT,
     #  w0n, cols, nblocks, stream)
     "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -17,9 +17,12 @@ step structure:
     CUDA ``gf2_scan2``, twin :func:`scan2_plain`;
   - ``"m"``: election and extraction through packed min-keys
     (``_make_scan_kernel_minkey``), :func:`scan_minkey`; CUDA
-    ``gf2_scan_minkey``, twin :func:`scan_minkey_plain`.  Systems of
-    ``MINKEY_MAX_ROWS`` rows or more take variant ``""``, as in the
-    reference.
+    ``gf2_scan_minkey``, the cluster scan with the min-key election
+    (:func:`scan_minkey_route`), twin :func:`scan_minkey_plain`, and
+    :func:`scan_minkey_cluster_plain` in the cluster kernel's order;
+    ``gf2_scan_minkey_block`` (:func:`scan_minkey_block`) is the earlier
+    one-block kernel, on no solve's path.  Systems of ``MINKEY_MAX_ROWS`` rows
+    or more take variant ``""``, as in the reference.
 
 * :func:`reconstruct` — full-width pivot-row rebuild + triangular back pass
   (``_make_reconstruct_kernel`` via ``phase1_reconstruct``); CUDA source
@@ -31,8 +34,13 @@ step structure:
   :func:`reconstruct_coeff_steps` launch the new and the earlier
   coefficient solve alone.
 * :func:`phase1_panel` — the fused phase 1 (``_make_kernel``, the
-  ``pallas`` engine): scan, per-pivot rebuild and back pass in one kernel;
-  CUDA source ``csrc/phase1_fused.cu``, plain twin :func:`phase1_panel_plain`.
+  ``pallas`` engine): scan, rebuild and back pass in one launch; CUDA source
+  ``csrc/phase1_fused.cu``: ``gf2_phase1_fused``, one thread-block cluster
+  (the cluster scan, then in every block the blocked coefficient solve and
+  its share of the product ``pf = T.a[prow]``), or past the largest
+  cluster's rows ``gf2_phase1_fused_block`` (:func:`phase1_panel_block`: one
+  block, the scan's state in global memory); :func:`phase1_fused_route`
+  picks between them; plain twin :func:`phase1_panel_plain`.
 
 :func:`phase1_panel_split` (scan, gather, rebuild) and
 :func:`phase1_scan_subset` (the scan of the ``pallas_sub`` engine) are the
@@ -110,8 +118,8 @@ def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
                  w0: int, K: int, cols: int, nblocks: int | None = None):
     """Launch one of the single-system scan kernels.  The one-block kernels
     (``nblocks`` None) share a C signature and take a working copy of the
-    slice in global memory; the cluster scan takes its block count instead
-    and keeps the slice in shared memory."""
+    slice in global memory; the cluster scans (1-pivot and min-key) take
+    their block count instead and keep the slice in shared memory."""
     kw, rows = bT.shape
     dev = bT.device
     _cuda.require(bT, "bT", (kw, rows), dev)
@@ -142,6 +150,8 @@ SCAN_SMEM_MAX = 232448  # bytes of shared memory a block may use (227 KB)
 SCAN_CLUSTER_SIZES = (1, 2, 4, 8, 16)
 SCAN_BLOCK_ROWS = 3 * SCAN_THREADS  # rows per block the route aims at: three a thread
 _SCAN_HEADER_BYTES = 16 * (2 * 16 * 3) + 4 * (2 * 32) + 16  # slots, warp minima, mbarriers
+# the min-key election's header: slots of 4 quads, a record of 4 quads a warp
+_MINKEY_HEADER_BYTES = 16 * (2 * 16 * 4) + 4 * (2 * (SCAN_THREADS // 32) * 16) + 16
 
 
 class ScanRoute(NamedTuple):
@@ -151,16 +161,18 @@ class ScanRoute(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block; 0 for scan_block
 
 
-def scan_smem_bytes(rows_per_block: int, kw: int) -> int:
-    """Shared memory of one block of the cluster scan: the header, then the
-    slice words of each row in 16-byte halves of four, rows padded to 32."""
-    return _SCAN_HEADER_BYTES + 16 * (-(-kw // 4)) * (-(-rows_per_block // 32) * 32)
+def scan_smem_bytes(rows_per_block: int, kw: int, minkey: bool = False) -> int:
+    """Shared memory of one block of the cluster scan: the header (the
+    min-key election's with ``minkey``), then the slice words of each row in
+    16-byte halves of four, rows padded to 32."""
+    header = _MINKEY_HEADER_BYTES if minkey else _SCAN_HEADER_BYTES
+    return header + 16 * (-(-kw // 4)) * (-(-rows_per_block // 32) * 32)
 
 
-def scan_fits(rows_per_block: int, kw: int) -> bool:
+def scan_fits(rows_per_block: int, kw: int, minkey: bool = False) -> bool:
     """Whether one block of the cluster scan can own that many rows."""
     return (rows_per_block <= SCAN_MAX_SLOTS * SCAN_THREADS
-            and scan_smem_bytes(rows_per_block, kw) <= SCAN_SMEM_MAX)
+            and scan_smem_bytes(rows_per_block, kw, minkey) <= SCAN_SMEM_MAX)
 
 
 def scan_max_rows(kw: int) -> int:
@@ -345,14 +357,18 @@ def scan2(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
 # -- kernel 7: min-key election + extraction ----------------------------------------
 
 
+def _check_minkey_rows(rows: int) -> None:
+    if rows >= MINKEY_MAX_ROWS:
+        raise ValueError(f"the min-key scan takes fewer than {MINKEY_MAX_ROWS} rows, got {rows}")
+
+
 def scan_minkey_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """Plain twin of :func:`scan_minkey`, step for step: per live slice word
     a lo and a hi key ``row << 16 | 16-bit half`` on every candidate row (the
     sentinel ``rows << 16`` elsewhere); the minima elect the lowest
     candidate, and their low halves are its words."""
     kw, rows = bT.shape
-    if rows >= MINKEY_MAX_ROWS:
-        raise ValueError(f"the min-key scan takes fewer than {MINKEY_MAX_ROWS} rows, got {rows}")
+    _check_minkey_rows(rows)
     dev = bT.device
     b = bT.clone()
     u = used[0].clone()
@@ -380,19 +396,95 @@ def scan_minkey_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, col
     return prow, u[None, :], c
 
 
+def scan_minkey_cluster_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int,
+                              cols: int, nblocks: int):
+    """:func:`scan_minkey_plain` in the order of the cluster kernel on
+    ``nblocks`` blocks: at each step every block takes the least key of each
+    live half over its own contiguous rows (``ceil(rows / nblocks)`` a
+    block), and the least over the ``nblocks`` slots elects the pivot and
+    carries its words.  Same arguments and outputs, bit for bit."""
+    kw, rows = bT.shape
+    _check_minkey_rows(rows)
+    if nblocks not in SCAN_CLUSTER_SIZES:
+        raise ValueError(f"no cluster of {nblocks} blocks")
+    dev = bT.device
+    rpb = -(-rows // nblocks)
+    pad = nblocks * rpb - rows
+    b = bT.clone()
+    u = used[0].clone()
+    c = torch.zeros_like(bT)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)
+    none = rows << 16
+    for jj in range(K):
+        if not 1 <= 32 * w0 + jj <= cols:
+            continue
+        sw, sh = jj >> 5, jj & 31
+        cand = (((b[sw] >> sh) & 1) == 1) & (u == 0)
+        live = b[sw:]
+        keys = torch.stack([(lane << 16) | (live & 0xFFFF), (lane << 16) | srl(live, 16)], 1)
+        keys = torch.where(cand, keys, none)  # (kw - sw, 2, rows)
+        keys = torch.nn.functional.pad(keys, (0, pad), value=none)
+        slots = keys.reshape(kw - sw, 2, nblocks, rpb).amin(dim=3)  # each block's minima
+        lo, hi = slots.amin(dim=2).unbind(1)  # the least over the slots
+        piv = lo[0] >> 16
+        has = piv < rows
+        prow[jj] = torch.where(has, piv, -1)
+        bpiv = ((hi & 0xFFFF) << 16) | (lo & 0xFFFF)
+        elim = cand & (lane != piv)
+        b[sw:] ^= torch.where(elim[None, :], bpiv[:, None], 0)
+        c[sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
+        u = torch.where((lane == piv) & has, 1, u).to(I32)
+    return prow, u[None, :], c
+
+
+def scan_minkey_route(rows: int, kw: int) -> ScanRoute:
+    """The cluster on which the min-key scan runs a (kw, rows) slice: the
+    1-pivot scan's cluster size (:func:`scan_route`), with the min-key
+    election's larger header.  Every slice it takes (fewer than
+    ``MINKEY_MAX_ROWS`` rows) fits a cluster."""
+    _check_minkey_rows(rows)
+    route = scan_route(rows, kw)
+    rpb = route.rows_per_block
+    return ScanRoute("scan_minkey", route.nblocks, rpb, scan_smem_bytes(rpb, kw, minkey=True))
+
+
+def scan_minkey_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                        nblocks: int):
+    """The min-key scan on a cluster of ``nblocks`` blocks whatever
+    :func:`scan_minkey_route` would pick; raises when the state does not fit
+    the blocks or the card cannot place the cluster.  Outputs as
+    :func:`scan`."""
+    _check_k(bT, K)
+    _check_minkey_rows(bT.shape[1])
+    if not _cuda.on_cuda(bT):
+        return scan_minkey_cluster_plain(bT, used, w0, K, cols, nblocks)
+    return _launch_scan("gf2_scan_minkey", "scan_minkey", bT, used, w0, K, cols, nblocks)
+
+
+def scan_minkey_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The min-key scan by one block with its state in global memory, the
+    kernel before the cluster one: on no solve's path, kept so that both can
+    be timed on the same inputs.  Outputs as :func:`scan`."""
+    _check_k(bT, K)
+    _check_minkey_rows(bT.shape[1])
+    if not _cuda.on_cuda(bT):
+        return scan_minkey_plain(bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan_minkey_block", "scan_minkey_block", bT, used, w0, K, cols)
+
+
 def scan_minkey(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The scan with election and pivot-word extraction in one reduction
     round; outputs as :func:`scan`.  Needs fewer than ``MINKEY_MAX_ROWS``
     rows (:func:`scan` with ``variant="m"`` routes taller systems to the
-    1-pivot scan)."""
+    1-pivot scan).  On the card a cluster kernel
+    (:func:`scan_minkey_route`)."""
     _check_k(bT, K)
-    if bT.shape[1] >= MINKEY_MAX_ROWS:
-        raise ValueError(
-            f"the min-key scan takes fewer than {MINKEY_MAX_ROWS} rows, got {bT.shape[1]}"
-        )
+    _check_minkey_rows(bT.shape[1])
     if not _cuda.on_cuda(bT):
         return scan_minkey_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan_minkey", "scan_minkey", bT, used, w0, K, cols)
+    route = scan_minkey_route(bT.shape[1], bT.shape[0])
+    return scan_minkey_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
 # -- kernel 2: pivot-row rebuild + back pass -------------------------------------
@@ -651,21 +743,41 @@ def phase1_panel_plain(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     return pf, prow, u[None, :]
 
 
-def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
-                 w0: int, K: int, cols: int):
-    """Phase 1 of one panel in one kernel: the scan of :func:`scan`, the
-    rebuild of each forward pivot row from the matrix and the earlier ones,
-    and the triangular back pass of :func:`reconstruct`.  a (rows, wp) is the
-    matrix at the panel's start, bT (kw, rows) its panel slice transposed,
-    used (1, rows).  Returns (pf (K, wp), prow (K,), used' (1, rows)), the
-    contract of :func:`phase1_panel_split`."""
+# The fused kernel's shared memory past the scan's header (mirrors
+# csrc/phase1_fused.cu): T (32 kw rows of kw words), then the larger of the
+# coefficient solve's words (compiled for K = 256) and the tables of the
+# product (csrc/update_table.cuh: 4 kw x 256 entries of 16 bytes, and the
+# strip's 32 kw rows).
+FUSED_SOLVE_SMEM_WORDS = 2816
+
+
+def phase1_fused_smem_bytes(rows_per_block: int, kw: int) -> int:
+    """Shared memory of one block of the fused cluster kernel: the larger of
+    the scan's and the scan's header plus the product stages."""
+    tables = 16 * (4 * kw * 256 + 32 * kw)
+    product = 4 * 32 * kw * kw + max(4 * FUSED_SOLVE_SMEM_WORDS, tables)
+    return max(scan_smem_bytes(rows_per_block, kw), _SCAN_HEADER_BYTES + product)
+
+
+def phase1_fused_route(rows: int, kw: int) -> ScanRoute:
+    """Which kernel runs the fused phase 1 of a (rows, wp) matrix with a
+    (kw, rows) slice: the cluster kernel on the 1-pivot scan's cluster
+    (:func:`scan_route`), or past the largest cluster's rows the one-block
+    kernel (``phase1_fused_block``).  A pure function of the shape."""
+    route = scan_route(rows, kw)
+    if route.kernel == "scan_block":
+        return ScanRoute("phase1_fused_block", 1, rows, 0)
+    rpb = route.rows_per_block
+    return ScanRoute("phase1_fused", route.nblocks, rpb, phase1_fused_smem_bytes(rpb, kw))
+
+
+def _launch_phase1(fn_name: str, key: str, a: torch.Tensor, bT: torch.Tensor,
+                   used: torch.Tensor, w0: int, K: int, cols: int, nblocks: int | None):
+    """Launch a fused phase-1 kernel: the cluster kernel on ``nblocks``
+    blocks, or (``nblocks`` None) the one-block kernel, which takes a working
+    copy of the slice in global memory."""
     rows, wp = a.shape
     kw = K // 32
-    _check_k(bT, K)
-    if not 0 <= w0 <= wp - kw:
-        raise ValueError(f"w0={w0} outside the {wp}-word rows")
-    if not _cuda.on_cuda(a):
-        return phase1_panel_plain(a, bT, used, w0, K, cols)
     dev = a.device
     _cuda.require(a, "a", (rows, wp), dev)
     _cuda.require(bT, "bT", (kw, rows), dev)
@@ -673,16 +785,71 @@ def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     prow = torch.empty((K,), dtype=I32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bT)
-    work = torch.empty_like(bT)
     pf = torch.empty((K, wp), dtype=I32, device=dev)
-    rc = _cuda.lib().gf2_phase1_fused(
+    if nblocks is None:
+        work = torch.empty_like(bT)
+        mid, tail = (cT.data_ptr(), work.data_ptr()), ()
+    else:
+        mid, tail = (cT.data_ptr(),), (int(nblocks),)
+    rc = getattr(_cuda.lib(), fn_name)(
         a.data_ptr(), bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
-        cT.data_ptr(), work.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0), int(cols),
-        _cuda.stream_of(a),
+        *mid, pf.data_ptr(), rows, wp, kw, int(w0), int(cols), *tail, _cuda.stream_of(a),
     )
-    _cuda.check(rc, "fused phase-1 kernel")
-    _cuda.LAUNCHES["phase1_fused"] += 1
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += 1
     return pf, prow, used_o
+
+
+def _check_panel(a: torch.Tensor, bT: torch.Tensor, w0: int, K: int) -> None:
+    _check_k(bT, K)
+    if not 0 <= w0 <= a.shape[1] - K // 32:
+        raise ValueError(f"w0={w0} outside the {a.shape[1]}-word rows")
+
+
+def phase1_panel_block(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                       w0: int, K: int, cols: int):
+    """The fused phase 1 by ONE block, the scan's state in global memory and
+    each panel row rebuilt per pivot step: the kernel for matrices taller
+    than the largest cluster holds (:func:`phase1_fused_route`); arguments and
+    outputs as :func:`phase1_panel`."""
+    _check_panel(a, bT, w0, K)
+    if not _cuda.on_cuda(a):
+        return phase1_panel_plain(a, bT, used, w0, K, cols)
+    return _launch_phase1("gf2_phase1_fused_block", "phase1_fused_block", a, bT, used, w0, K,
+                          cols, None)
+
+
+def phase1_panel_cluster(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                         w0: int, K: int, cols: int, nblocks: int):
+    """The fused phase 1 on a cluster of ``nblocks`` blocks whatever
+    :func:`phase1_fused_route` would pick; raises when the slice does not fit
+    the blocks or the card cannot place the cluster.  Outputs as
+    :func:`phase1_panel`."""
+    _check_panel(a, bT, w0, K)
+    if not _cuda.on_cuda(a):
+        return phase1_panel_plain(a, bT, used, w0, K, cols)
+    return _launch_phase1("gf2_phase1_fused", "phase1_fused", a, bT, used, w0, K, cols,
+                          nblocks)
+
+
+def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                 w0: int, K: int, cols: int):
+    """Phase 1 of one panel in one launch: the scan of :func:`scan`, the
+    rebuild of the forward pivot rows from the matrix, and the triangular
+    back pass of :func:`reconstruct`.  a (rows, wp) is the matrix at the
+    panel's start, bT (kw, rows) its panel slice transposed, used (1, rows).
+    Returns (pf (K, wp), prow (K,), used' (1, rows)), the contract of
+    :func:`phase1_panel_split`.  On the card one thread-block cluster (the
+    cluster scan, then in every block the coefficient solve and its strips of
+    ``pf = T.a[prow]``), or past the largest cluster's rows
+    :func:`phase1_panel_block` (:func:`phase1_fused_route`)."""
+    _check_panel(a, bT, w0, K)
+    if not _cuda.on_cuda(a):
+        return phase1_panel_plain(a, bT, used, w0, K, cols)
+    route = phase1_fused_route(a.shape[0], K // 32)
+    if route.kernel == "phase1_fused_block":
+        return phase1_panel_block(a, bT, used, w0, K, cols)
+    return phase1_panel_cluster(a, bT, used, w0, K, cols, route.nblocks)
 
 
 # -- the split phase 1 (pallas_phase1.phase1_panel_split) ------------------------

@@ -223,6 +223,7 @@ def test_wrapper_counts_launches(dev):
         "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
         "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
         "scan_batched_block": 0, "update_scan_block": 0,
+        "scan_minkey_block": 0, "phase1_fused_block": 0,
     }
 
 
@@ -600,6 +601,126 @@ def test_very_tall_slices_take_the_one_block_kernels(dev):
         gauss_batched.scan_batched_cluster(bT, used, 8, K, 10**6, 16)
     with pytest.raises(RuntimeError, match="update_scan kernel"):
         panel_update.update_scan_cluster(a, sel, pf, bT[0], used[:1], 16, 10**6, 8, 16)
+
+
+# -- the min-key scan and the fused phase 1 as cluster kernels -------------------------
+
+MINKEY_ROWS = [300, 768, 2560, 20011, 20224, 32767]
+
+
+def _panels_cases(kw, wp):
+    """(w0, cols) of the first, a middle and the last panel, and a panel with
+    no valid column (cols = 0)."""
+    return _panels(kw, wp) + [(kw, 0)]
+
+
+@pytest.mark.parametrize("kw", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", MINKEY_ROWS)
+def test_scan_minkey_cluster_kernel(dev, rows, kw):
+    """The min-key cluster kernel against both twins, the 1-pivot twin and
+    the kept one-block kernel, at the first, a middle and the last panel, a
+    panel with no valid column, and a system with every row used (no pivot);
+    each launch counted under its own kernel's name."""
+    K = 32 * kw
+    rng = np.random.default_rng(rows + kw + 17)
+    bT = _rand(rng, (kw, rows), dev)
+    route = phase1.scan_minkey_route(rows, kw)
+    assert route.nblocks == phase1.scan_route(rows, kw).nblocks
+    for frac in (0.3, 1.0):
+        used = u32_to_torch((rng.random((1, rows)) < frac).astype(np.uint32), dev)
+        for w0, cols in _panels_cases(kw, 640):
+            _cuda.reset_launches()
+            got = phase1.scan(bT, used, w0, K, cols, "m")
+            block = phase1.scan_minkey_block(bT, used, w0, K, cols)
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                "scan_minkey": 1, "scan_minkey_block": 1}
+            want = phase1.scan_minkey_plain(bT, used, w0, K, cols)
+            torch.cuda.synchronize()
+            for g, b, w, p in zip(got, block, want, phase1.scan_plain(bT, used, w0, K, cols)):
+                assert torch.equal(g, w), (frac, w0, cols)
+                assert torch.equal(b, w), (frac, w0, cols)
+                assert torch.equal(g, p), (frac, w0, cols)
+            if frac == 1.0 or cols == 0:
+                assert int((got[0] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rows,K", [(4000, 256), (20224, 64), (32767, 256), (700, 96)])
+def test_scan_minkey_on_every_cluster_size(dev, rows, K, nblocks):
+    """Any cluster size that holds the state gives the twin's outputs, and
+    the cluster twin's order on those blocks; one that cannot hold it
+    raises instead of running something else."""
+    rng = np.random.default_rng(rows + nblocks + 3)
+    kw = K // 32
+    bT = _rand(rng, (kw, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
+    want = phase1.scan_minkey_plain(bT, used, 8, K, 10**6)
+    if phase1.scan_fits(-(-rows // nblocks), kw, minkey=True):
+        got = phase1.scan_minkey_cluster(bT, used, 8, K, 10**6, nblocks)
+        torch.cuda.synchronize()
+        for g, w, c in zip(got, want, phase1.scan_minkey_cluster_plain(
+                bT.cpu(), used.cpu(), 8, K, 10**6, nblocks)):
+            assert torch.equal(g, w)
+            assert torch.equal(g.cpu(), c)
+    else:
+        with pytest.raises(RuntimeError, match="scan_minkey kernel"):
+            phase1.scan_minkey_cluster(bT, used, 8, K, 10**6, nblocks)
+
+
+FUSED_ROWS = [20224, 40192, VERY_TALL_ROWS]
+
+
+@pytest.mark.parametrize("kw", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", FUSED_ROWS)
+def test_phase1_fused_cluster_kernel(dev, rows, kw):
+    """The fused phase 1 by its route (the cluster kernel, the one-block
+    kernel past the largest cluster) against its twin and the split engine:
+    the first, a middle and the last panel, a panel with no valid column, and
+    a system with every row used (no pivot)."""
+    K, wp = 32 * kw, 640 if kw == 8 else 384
+    rng = np.random.default_rng(rows + kw + 23)
+    a = _rand(rng, (rows, wp), dev)
+    route = phase1.phase1_fused_route(rows, kw)
+    assert route.kernel == ("phase1_fused_block" if rows == VERY_TALL_ROWS else "phase1_fused")
+    for frac in (0.3, 1.0):
+        used = u32_to_torch((rng.random((1, rows)) < frac).astype(np.uint32), dev)
+        for w0, cols in _panels_cases(kw, wp):
+            bT = a[:, w0 : w0 + kw].T.contiguous()
+            _cuda.reset_launches()
+            got = phase1.phase1_panel(a, bT, used, w0, K, cols)
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {route.kernel: 1}
+            want = phase1.phase1_panel_plain(a, bT, used, w0, K, cols)
+            torch.cuda.synchronize()
+            for g, w, sp in zip(got, want, phase1.phase1_panel_split(a, bT, used, w0, K, cols)):
+                assert torch.equal(g, w), (frac, w0, cols)
+                assert torch.equal(g, sp), (frac, w0, cols)
+            if frac == 1.0 or cols == 0:
+                assert int((got[1] >= 0).sum()) == 0 and int(got[0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rows,wp,K", [(6000, 202, 256), (3000, 640, 256), (20224, 96, 64)])
+def test_phase1_fused_on_every_cluster_size(dev, rows, wp, K, nblocks):
+    """Every cluster size that holds the slice gives the twin's outputs, an
+    unaligned width (scalar accesses in the product) included, and the
+    one-block kernel the same; one that cannot hold it raises."""
+    rng = np.random.default_rng(rows + wp + nblocks)
+    kw = K // 32
+    a = _rand(rng, (rows, wp), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    w0, cols = 2 * kw, 32 * wp - 7
+    bT = a[:, w0 : w0 + kw].T.contiguous()
+    want = phase1.phase1_panel_plain(a, bT, used, w0, K, cols)
+    for g, w in zip(phase1.phase1_panel_block(a, bT, used, w0, K, cols), want):
+        assert torch.equal(g, w)
+    if phase1.scan_fits(-(-rows // nblocks), kw):
+        got = phase1.phase1_panel_cluster(a, bT, used, w0, K, cols, nblocks)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        with pytest.raises(RuntimeError, match="phase1_fused kernel"):
+            phase1.phase1_panel_cluster(a, bT, used, w0, K, cols, nblocks)
 
 
 ENGINES = [
