@@ -6,15 +6,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each kernel (the ports of the fifteen TPU kernels, and the four
+3. Holds each kernel (the ports of the fifteen TPU kernels, and the five
    one-block kernels kept beside the cluster scan, the batched scan, the
-   fused update + scan and the fused phase 1) against its plain PyTorch twin on the
+   fused update + scan, the fused phase 1 and the two-pivot scan) against its
+   plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
    (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
-   rebuild (4 systems), two-pivot scan, min-key scan (a cluster kernel,
-   against both twins, beside the one-block kernel it replaced, which no
+   rebuild (4 systems), two-pivot scan (a cluster kernel, against both
+   twins and its cluster twin, beside the one-block kernel it replaced and
+   the 1-pivot scan, in microseconds per pair step), min-key scan (a cluster
+   kernel, against both twins, beside the one-block kernel it replaced, which no
    solve runs, and the 1-pivot scan), fused phase 1 (one cluster launch,
    beside the one-block kernel, the split engine and the scan alone), fused
    update + scan (full and trailing; beside the one-block kernel, the scan
@@ -24,10 +27,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    runs at once, and each scan's time per step.  The update
    engines' kernels (the table kernel of engine pallas, the tensor-core
    kernels of mxu2 and mxu4) run at panel 20 of the 768-word multi-RHS
-   matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words; the
+   matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words, the
+   three again from a CUDA graph's replay with the mxu2 kernel's time with
+   each of three costs taken out in turn; the
    launch probe on (256, 128) words.  Beside each time stands the kernel's
-   bound: its bytes (inputs read once, outputs written once) over 3.35 TB/s,
-   or its operations over the int8 tensor-core peak.
+   bound: its bytes (inputs read once, outputs written once) over 3.35 TB/s
+   (the data sheet names no one-bit tensor-core rate, so the product of the
+   mxu updates is printed against the int8 peak as a reading only).
    The redesigned kernels are held to more (check_redesign): the rebuild's
    blocked coefficient solve against the step-by-step kernel it replaced and
    against the plain twin at K = 64, 128 and 256, at the first, a middle and
@@ -81,8 +87,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
    rows: more than the largest cluster holds), under the default engine,
    which must run the one-block scan 79 times, under mxu_la, which must
-   run the one-block fused update + scan 79 times, and under phase 1
-   pallas, which must run the one-block fused phase 1 79 times.
+   run the one-block fused update + scan 79 times, under phase 1
+   pallas, which must run the one-block fused phase 1 79 times, and under
+   pallas_scan2, which must run the one-block two-pivot scan 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -171,7 +178,9 @@ KERNELS = {
                            "gf2bv_tpu/ops/gauss_batched.py:53"),
     "reconstruct_batched": ("reconstruct_batched", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                             "gf2bv_tpu/ops/gauss_batched.py:107"),
-    "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
+    "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan2.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
+    "scan2_block": ("scan2_block", "gf2bv_tpu_torch/csrc/scan2.cu",
+                    "gf2bv_tpu/ops/pallas_phase1.py:353"),
     "scan_minkey": ("scan_minkey", "gf2bv_tpu_torch/csrc/scan.cu",
                     "gf2bv_tpu/ops/pallas_phase1.py:439"),
     "phase1_fused": ("phase1_fused", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
@@ -191,7 +200,7 @@ KERNELS = {
     "launch_probe": ("launch_probe", "gf2bv_tpu_torch/csrc/launch_probe.cu",
                      "scripts/bench_launch_floor.py:55"),
 }
-# name -> (bound_ms, "bytes" or "operations"), filled beside each comparison
+# name -> (bound_ms, "bytes", cases), filled beside each comparison
 BOUNDS: dict = {}
 LIBRARY_MS: dict = {}  # name -> ms of the one PyTorch call computing the same function
 
@@ -200,21 +209,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def note_bound(name: str, moved_bytes: float, mma_ops: float = 0.0) -> None:
+def note_bound(name: str, moved_bytes: float) -> None:
     """The least time the card could take: the bytes the function must move
-    (inputs read once, outputs written once) over the memory rate, or, for a
-    kernel that issues tensor-core ``mma`` instructions, its product's
-    operations over the int8 tensor-core peak, whichever is larger.  The
-    kernels on the CUDA cores (mask-and-XOR, tables, scans, rebuilds) have no
-    arithmetic peak in the card's data sheet to name: bytes bound them.
+    (inputs read once, outputs written once) over the memory rate.  No kernel
+    here has an arithmetic peak in the card's data sheet to name: the scans,
+    rebuilds and tables run on the CUDA cores, and the mxu updates' one-bit
+    tensor-core products have no published rate (the int8 peak is no bound:
+    the mxu2 kernel runs its product faster than that peak would allow).
     Several cases of one kernel average."""
-    by_bytes, by_ops = moved_bytes / HBM_BYTES_PER_MS, mma_ops / INT8_OPS_PER_MS
-    ms, by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    ms = moved_bytes / HBM_BYTES_PER_MS
     if name in BOUNDS:
-        n, (old, old_by) = BOUNDS[name][2], BOUNDS[name][:2]
-        BOUNDS[name] = ((old * n + ms) / (n + 1), by if ms > old else old_by, n + 1)
+        n, old = BOUNDS[name][2], BOUNDS[name][0]
+        BOUNDS[name] = ((old * n + ms) / (n + 1), "bytes", n + 1)
     else:
-        BOUNDS[name] = (ms, by, 1)
+        BOUNDS[name] = (ms, "bytes", 1)
 
 
 def update_bytes(rows: int, kw: int, live_words: int) -> int:
@@ -225,8 +233,8 @@ def update_bytes(rows: int, kw: int, live_words: int) -> int:
 
 def product_ops(rows: int, kw: int, live_words: int) -> float:
     """The same update priced as a product on bit planes: 2 * rows * K * 32 *
-    live_words operations.  It bounds the kernels that run it on the tensor
-    cores; for the others it is printed as a reading beside the byte bound."""
+    live_words operations, printed against the int8 tensor-core peak as a
+    reading beside the byte bound."""
     return 2.0 * rows * 32 * kw * 32 * live_words
 
 
@@ -479,18 +487,38 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
 
     res = {}
     scan_ms = {"scan": None}
+    kw = K // 32
+    # the two-pivot scan: the cluster kernel (its route) against both twins and
+    # its cluster twin, the kept one-block kernel too; both timed from a CUDA
+    # graph's replay beside the 1-pivot cluster scan on the same inputs
+    route2 = phase1.scan2_route(ROWS, kw)
     out_k = phase1.scan2(bT, used, w0, K, COLS)
+    out_p = phase1.scan2_plain(bT, used, w0, K, COLS)
     require_equal("scan2 against the 1-pivot twin",
                   zip(out_k, phase1.scan_plain(bT, used, w0, K, COLS)))
-    res["scan2"] = (require_equal("scan2", zip(out_k, phase1.scan2_plain(bT, used, w0, K, COLS))),
-                    cuda_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 5),
-                    cuda_ms(lambda: phase1.scan2_plain(bT, used, w0, K, COLS), 2))
-    note_bound("scan2", nbytes(bT, used, *out_k))
+    require_equal("scan2 against its cluster twin", zip(out_k, (
+        x.to(dev) for x in phase1.scan2_cluster_plain(
+            bT.cpu(), used.cpu(), w0, K, COLS, route2.nblocks))))
+    scan2_plain_ms = cuda_ms(lambda: phase1.scan2_plain(bT, used, w0, K, COLS), 2)
+    res["scan2"] = (require_equal("scan2", zip(out_k, out_p)),
+                    graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 32), scan2_plain_ms)
+    res["scan2_block"] = (
+        require_equal("scan2_block", zip(phase1.scan2_block(bT, used, w0, K, COLS), out_p)),
+        graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 8), scan2_plain_ms)
+    for name in ("scan2", "scan2_block"):
+        note_bound(name, nbytes(bT, used, *out_k))
+    scan2_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 32)
+    scan2_again = graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 32)
+    print(f"scan2 at panel 20, replayed from a CUDA graph: cluster kernel on {route2.nblocks} "
+          f"blocks {res['scan2'][1]:.4f} ms (again {scan2_again:.4f}; "
+          f"{2000 * res['scan2'][1] / K:.3f} us a pair step), the one-block kernel "
+          f"(scan2_block) {res['scan2_block'][1]:.4f} ms ({2000 * res['scan2_block'][1] / K:.3f} "
+          f"us a pair), the 1-pivot cluster scan {scan2_g:.4f} ms "
+          f"({2000 * scan2_g / K:.3f} us a pair of steps) ({card})")
     scan_ms["scan2"] = res["scan2"][1]
 
     # the min-key scan: the cluster kernel (its route) against both twins, the
     # kept one-block kernel too; all three scans timed from a CUDA graph's replay
-    kw = K // 32
     route = phase1.scan_minkey_route(ROWS, kw)
     out_k = phase1.scan_minkey(bT, used, w0, K, COLS)
     out_p = phase1.scan_minkey_plain(bT, used, w0, K, COLS)
@@ -628,9 +656,23 @@ def check_update_engine_kernels(dev, card: str, a, used, w0: int, sel640, pf640)
         err = require_equal(name, [(got, twin(a768.clone(), sel, pf)), (got, want)])
         res[name] = (err, cuda_ms(lambda: kern(scratch, sel, pf), 10),
                      cuda_ms(lambda: twin(scratch, sel, pf), 1))
-        # the table kernel issues no mma: bytes bound it; mxu2 and mxu4 run the product
-        note_bound(name, update_bytes(ROWS, kw, WP_MULTI),
-                   0.0 if name == "update_pallas" else product_ops(ROWS, kw, WP_MULTI))
+        # the card's data sheet names no one-bit tensor-core rate, and the mxu2
+        # kernel runs the product faster than the int8 peak would allow: bytes
+        # bound all three
+        note_bound(name, update_bytes(ROWS, kw, WP_MULTI))
+    # the three kernels on the same inputs replayed from a CUDA graph, and the
+    # mxu2 kernel with one cost taken out at a time
+    t = {name: graph_ms(lambda: kern(scratch, sel, pf), 32) for name, (kern, _) in cases.items()}
+    t["update_mxu2 again"] = graph_ms(lambda: panel_update.update_mxu2(scratch, sel, pf), 32)
+    for probe, what in panel_update.MXU2_PROBES.items():
+        if probe:
+            t[f"update_mxu2, {what}"] = graph_ms(
+                lambda: panel_update.update_mxu2_probe(scratch, sel, pf, probe), 32)
+    as_product = product_ops(ROWS, kw, WP_MULTI) / INT8_OPS_PER_MS
+    print(f"updates on {WP_MULTI} words replayed from a CUDA graph: "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f"; the product as int8 tensor-core operations at 1,979 TOP/s would take "
+          f"{as_product:.4f} ms (a reading: no one-bit rate is published) ({card})")
     scratch = a.clone()
     for name in ("update_mxu2", "update_mxu4"):
         kern, twin = cases[name]
@@ -1336,6 +1378,17 @@ def check_engines(dev, card: str) -> dict:
     launches["phase1_fused_block"] = counts["phase1_fused_block"]
     print(f"very tall system, pallas+mxu: state recovered; launches {counts}; "
           f"solve_mt19937 {cold:.4f} s ({card})")
+    with engines_env("pallas_scan2", "mxu"):
+        _cuda.reset_launches()
+        got, cold = timed(
+            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+        counts = check_launches("very tall system, pallas_scan2", {
+            "scan2_block": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+    if got != vstate:
+        raise AssertionError("very tall system, pallas_scan2: state not recovered")
+    launches["scan2_block"] = counts["scan2_block"]
+    print(f"very tall system, pallas_scan2+mxu: state recovered; launches {counts}; "
+          f"solve_mt19937 {cold:.4f} s ({card})")
     return launches
 
 
@@ -1517,8 +1570,8 @@ def main() -> int:
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan_minkey", "phase1_fused", "phase1_fused_block", "update_scan",
-                "scan_block", "update_scan_block"):
+    for key in ("scan2", "scan2_block", "scan_minkey", "phase1_fused", "phase1_fused_block",
+                "update_scan", "scan_block", "update_scan_block"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

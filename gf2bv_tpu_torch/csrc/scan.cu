@@ -33,14 +33,8 @@
 // one block of 1024 threads per system with the state in global memory, for
 // rows past the largest cluster.
 //
-// gf2_scan2 replaces pallas_phase1.py: _make_scan_kernel2 (variant "2"): two
-// pivots per sequential step.  The second column's candidates see the first
-// pivot's elimination virtually (one bit of the first pivot row), the second
-// pivot row is corrected by the first, and one sweep applies both
-// eliminations.  A pair of columns costs two elections but one sweep, where
-// the 1-pivot scan spends two of each.  The second pivot's row is never
-// rewritten in the working slice (it is used from this step on and never read
-// again), so the loads of its words race with no write.
+// The two-pivot scan (gf2_scan2, gf2_scan2_block) lives in scan2.cu, built by
+// an nvcc of its own beside this file.
 //
 // gf2_scan_minkey replaces pallas_phase1.py: _make_scan_kernel_minkey
 // (variant "m"): election and extraction in one reduction round.  Each thread
@@ -106,91 +100,6 @@ scan_batched_block_kernel(const uint32_t* __restrict__ bT_in,
   const size_t b = blockIdx.x;
   gf2::scan_system(bT_in + b * slice, used_in + b * rows, prow + b * 32 * kw,
                    used + b * rows, cT + b * slice, bT + b * slice, rows, kw, w0, cols);
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-scan2_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
-             int32_t* __restrict__ prow, int32_t* used, uint32_t* cT, uint32_t* bT,
-             int rows, int kw, int w0, int cols) {
-  __shared__ int warp_min[kScanThreads / 32];
-  __shared__ int piv_s;
-  const int tid = threadIdx.x;
-  gf2::scan_init(bT_in, used_in, used, cT, bT, rows, kw);
-
-  const int K = 32 * kw;
-  for (int jj0 = 0; jj0 < K; jj0 += 2) {
-    const long long g0 = 32LL * w0 + jj0;
-    const bool valid0 = g0 >= 1 && g0 <= cols;
-    const bool valid1 = g0 + 1 >= 1 && g0 + 1 <= cols;
-    const int sw = jj0 >> 5;
-    const int sh0 = jj0 & 31;  // even: both columns share the word sw
-    const uint32_t bit0 = 1u << sh0, bit1 = 2u << sh0;
-    const uint32_t* col = bT + (size_t)sw * rows;
-
-    // first column
-    int piv0 = rows;
-    if (valid0)  // block-uniform
-      piv0 = gf2::block_min(gf2::first_candidate(col, used, bit0, rows), rows, warp_min, &piv_s);
-    const bool has0 = piv0 < rows;
-    uint32_t bp0[kMaxKw];
-#pragma unroll
-    for (int g = 0; g < kMaxKw; ++g)
-      bp0[g] = (has0 && g >= sw && g < kw) ? bT[(size_t)g * rows + piv0] : 0u;
-    const bool p0b1 = has0 && (col[piv0] & bit1);  // pivot 0's bit in column 1
-
-    // second column, with pivot 0's elimination applied virtually
-    int piv1 = rows;
-    if (valid1) {  // block-uniform
-      int mine = rows;
-      for (int r = tid; r < rows; r += blockDim.x) {
-        if (used[r] || r == piv0) continue;
-        const uint32_t w = col[r];
-        const bool elim0 = valid0 && (w & bit0);  // r is a column-0 candidate, not its pivot
-        if (((w & bit1) != 0) != (elim0 && p0b1)) {
-          mine = r;
-          break;
-        }
-      }
-      piv1 = gf2::block_min(mine, rows, warp_min, &piv_s);
-    }
-    const bool has1 = piv1 < rows;
-    if (tid == 0) {
-      prow[jj0] = has0 ? piv0 : -1;
-      prow[jj0 + 1] = has1 ? piv1 : -1;
-    }
-    if (!has0 && !has1) continue;  // block-uniform
-
-    // pivot 1's row, corrected by pivot 0 where pivot 0 eliminates it
-    uint32_t bp1[kMaxKw];
-    const bool e0p1 = has1 && valid0 && (col[has1 ? piv1 : 0] & bit0);
-#pragma unroll
-    for (int g = 0; g < kMaxKw; ++g)
-      bp1[g] = (has1 && g >= sw && g < kw)
-                   ? bT[(size_t)g * rows + piv1] ^ (e0p1 ? bp0[g] : 0u)
-                   : 0u;
-
-    // one fused sweep: both eliminations, both coefficient bits
-    for (int r = tid; r < rows; r += blockDim.x) {
-      if (used[r] || r == piv0) {
-        if (r == piv0) used[r] = 1;
-        continue;
-      }
-      const uint32_t w = col[r];
-      const bool e0 = valid0 && (w & bit0);
-      if (r == piv1) {  // used from here on: only its coefficient bit matters
-        if (e0) cT[(size_t)sw * rows + r] ^= bit0;
-        used[r] = 1;
-        continue;
-      }
-      const bool e1 = valid1 && (((w & bit1) != 0) != (e0 && p0b1));
-      if (!e0 && !e1) continue;
-#pragma unroll
-      for (int g = 0; g < kMaxKw; ++g)
-        if (g >= sw && g < kw)
-          bT[(size_t)g * rows + r] ^= (e0 ? bp0[g] : 0u) ^ (e1 ? bp1[g] : 0u);
-      cT[(size_t)sw * rows + r] ^= (e0 ? bit0 : 0u) | (e1 ? bit1 : 0u);
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -366,15 +275,6 @@ extern "C" int gf2_scan_batched_block(const uint32_t* bT_in, const int32_t* used
 extern "C" int gf2_scan_occupancy(int rows, int kw, int nblocks, int* out) {
   return (int)scan_clusters({nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, kw, 0, 0,
                              nblocks, nullptr, out, false});
-}
-
-extern "C" int gf2_scan2(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
-                         int32_t* used_out, uint32_t* cT, uint32_t* bT_work, int rows,
-                         int kw, int w0, int cols, cudaStream_t stream) {
-  if (kw < 1 || kw > kMaxKw) return (int)cudaErrorInvalidValue;
-  scan2_kernel<<<1, kScanThreads, 0, stream>>>(bT_in, used_in, prow, used_out, cT, bT_work,
-                                               rows, kw, w0, cols);
-  return (int)cudaGetLastError();
 }
 
 // The min-key scan on a cluster of nblocks blocks (1, 2, 4, 8 or 16; the

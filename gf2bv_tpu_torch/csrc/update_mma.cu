@@ -3,9 +3,9 @@
 //
 // Replaces two TPU kernel families of gf2bv_tpu/ops/pallas_update.py:
 //   * _mxu2_kernel / _mxu2_kernel_trailing (panel_update_mxu2, the "mxu2"
-//     engine) -> mxu2_kernel: one product per tile, the 32 parity planes
-//     packed back into words with shifts and ORs in registers.  Trailing: a
-//     tile j >= 1 (tw = 128 words, or wp when 128 does not divide wp) with
+//     engine) -> mxu2_strip_kernel: one launch; the 32 parity planes packed
+//     back into words with shifts and ORs in registers.  Trailing: a tile
+//     j >= 1 (tw = 128 words, or wp when 128 does not divide wp) with
 //     (j+1)*tw <= w0 keeps its words; tile 0 always gets the whole update;
 //   * _mxu4_kernel / _mxu4_kernel_trailing (panel_update_mxu4, "mxu4") ->
 //     mxu4_kernel: the same product, and the repack ALSO as a matrix product,
@@ -24,61 +24,59 @@
 // K = 256 is exactly one instruction deep.  A's operand layout (row-major,
 // the 256 bits of a row contiguous) IS a packed selector row.  B wants, for
 // each output bit column (word w, bit p), its K bits contiguous: PF
-// transposed at bit level.  A small pre-kernel (bit_transpose_kernel: warp
-// ballots, one 32 x 32 bit block per warp) writes that once per update into
-// scratch, laid out so that a warp's B fragment loads hit 32 distinct banks.
-// The update kernel then stages the B strips of 8 word columns in shared
-// memory (8 KB) and each warp walks 16-row tiles: 4 mma per output word.
+// transposed at bit level (warp ballots, one 32 x 32 bit block per warp).
 //
-// Accumulator fragment: thread (g = lane >> 2, t = lane & 3) holds, per
-// n-tile j, the counts of bit columns 8j + 2t and 8j + 2t + 1 for rows g and
-// g + 8, so one output word is spread over the 4 threads of a quad.
-//   * mxu2: each thread shifts its parities into place, the quad ORs them
-//     together with two shuffles.
-//   * mxu4: the accumulator fragments of two n-tiles, parities packed as
-//     bytes, ARE an A fragment of m16n8k32 (bytes k = 4t .. 4t + 3 of rows g
-//     and g + 8), under the column order k = 16(j >> 1) + 4(c >> 1) +
-//     2(j & 1) + (c & 1) for bit p = 8j + c.  The weight matrix
-//     B[k][n] = 2^(p & 7) where n == p >> 3 is built in registers with that
-//     order, so no data moves between threads before the second product.
-//     Its result has byte n of the word in column n: threads t = 0 and 1 of
-//     the quad hold bytes 0, 1 and 2, 3; columns 4..7 are unused.
+// Fragments (PTX): thread (g = lane >> 2, t = lane & 3) holds A words t and
+// 4 + t of rows g and g + 8, B k-words t and 4 + t of column g, and the
+// counts of columns 2t and 2t + 1 for rows g and g + 8.
+//
+// mxu2 (mxu2_strip_kernel).  A block owns a strip of 32 words (one 128-byte
+// line of a row) and a range of 16-row tiles, a warp one tile at a time.
+//   * The bit columns are ordered so that a thread's counts make whole words:
+//     column n of n-tile J (0..15) of word group G stands for word 4G + n / 2,
+//     bit 2J + n % 2.  After the 16 products of a group, thread (g, t) holds
+//     every bit of word 4G + t of rows g and g + 8, assembled with shifts and
+//     ORs: no shuffle.
+//   * The words go to a staging tile in shared memory (rows padded to 36
+//     words: the stores hit 32 banks), then each lane reads 16 bytes of it and
+//     XORs them into a with 16-byte accesses, eight lanes a 128-byte row
+//     segment.  The tile of a is loaded before the products, so its latency
+//     hides under them.
+//   * Each block builds its strip's B in shared memory itself (warp k
+//     transposes k-word k of the 32 words), laid out so that one 16-byte load
+//     gives a thread the B fragments of two products and a warp's loads hit
+//     32 banks.  One launch, no scratch.
+//   gf2_update_mxu2_probe launches the same kernel with one cost taken out
+//   (the writes to a, the products, the B build), for timing.
+//
+// mxu4 (mxu4_kernel, the earlier design of both engines): a pre-kernel
+// (bit_transpose_kernel) writes PF transposed into scratch, the update
+// kernel stages the B strips of 8 word columns in shared memory (8 KB) and
+// each warp walks 16-row tiles: 4 mma per output word.  The accumulator
+// fragments of two n-tiles, parities packed as bytes, ARE an A fragment of
+// m16n8k32 (bytes k = 4t .. 4t + 3 of rows g and g + 8), under the column
+// order k = 16(j >> 1) + 4(c >> 1) + 2(j & 1) + (c & 1) for bit p = 8j + c.
+// The weight matrix B[k][n] = 2^(p & 7) where n == p >> 3 is built in
+// registers with that order, so no data moves between threads before the
+// second product.  Its result has byte n of the word in column n: threads
+// t = 0 and 1 of the quad hold bytes 0, 1 and 2, 3; columns 4..7 are unused.
 //
 // Bound on the H100: the product is 2 * rows * K * 32 * wp one-bit
-// operations.  The data sheet names no one-bit rate, so chip_smoke.py prices
-// them at the int8 tensor-core peak; at the flagship shapes that takes
-// longer than the traffic of a (read and written once), so operations give
-// the bound it prints.  On top of the product the kernel pays the repack's
-// integer instructions and the staging of the B strips.
+// operations, for which the data sheet names no rate; priced at the int8
+// tensor-core peak they would take 0.1286 ms on 20224 x 768 words, and the
+// mxu2 kernel takes less (0.110 ms), so that is no bound.  The bytes of a
+// (read and written once), sel and pf bound both kernels (0.0375 ms there).
+// mxu2 spends its time in about equal parts on the products, the traffic of
+// a and the B build (gf2_update_mxu2_probe takes each out: ~0.02 ms each).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gf2_common.cuh"
+
 namespace {
 
-constexpr int kMmaThreads = 256;                 // 8 warps
-constexpr int kMmaWarps = kMmaThreads / 32;
-constexpr int kMmaWords = 8;                     // word columns per block
-constexpr int kMmaIter = 4;                      // 16-row tiles per warp
-constexpr int kMmaRows = kMmaWarps * 16 * kMmaIter;  // 512 rows per block
-constexpr int kBtWords = 256;  // transposed words per word column: [2][32][4]
-
-// pfT[w][h][p][t] = bits j = 0..31: bit p of pf[32 * (4h + t) + j][w]; zero
-// where 4h + t >= kw.  One block per word column, one warp per k-word.
-__global__ void __launch_bounds__(kMmaThreads)
-bit_transpose_kernel(uint32_t* __restrict__ pfT, const uint32_t* __restrict__ pf,
-                     int wp, int kw) {
-  const int w = blockIdx.x;
-  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t word = q < kw ? pf[(size_t)(32 * q + lane) * wp + w] : 0u;
-  uint32_t mine = 0u;
-#pragma unroll
-  for (int p = 0; p < 32; ++p) {
-    const uint32_t bal = __ballot_sync(0xFFFFFFFFu, (word >> p) & 1u);
-    if (lane == p) mine = bal;
-  }
-  pfT[(size_t)w * kBtWords + (q >> 2) * 128 + lane * 4 + (q & 3)] = mine;
-}
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ void mma_b1_and_popc(int (&c)[4], const uint32_t (&a)[4],
                                                 uint32_t b0, uint32_t b1) {
@@ -100,13 +98,235 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
         "r"(0), "r"(0), "r"(0), "r"(0));
 }
 
+// The A fragment of the 16-row tile at rbase: selector words t and 4 + t of
+// rows g and g + 8, zero past the rows or the kw words.
+__device__ __forceinline__ void load_a_fragment(uint32_t (&af)[4], const uint32_t* sel,
+                                                int rbase, int rows, int kw, int g, int t) {
+  const int r_lo = rbase + g, r_hi = rbase + g + 8;
+  af[0] = (r_lo < rows && t < kw) ? sel[(size_t)r_lo * kw + t] : 0u;
+  af[1] = (r_hi < rows && t < kw) ? sel[(size_t)r_hi * kw + t] : 0u;
+  af[2] = (r_lo < rows && 4 + t < kw) ? sel[(size_t)r_lo * kw + 4 + t] : 0u;
+  af[3] = (r_hi < rows && 4 + t < kw) ? sel[(size_t)r_hi * kw + 4 + t] : 0u;
+}
+
+// -- mxu2: strips of whole row segments, one launch ------------------------------
+
+constexpr int kMx2Threads = 256;  // 8 warps: warp k transposes k-word k
+constexpr int kMx2Warps = kMx2Threads / 32;
+constexpr int kMx2Strip = 32;     // words of a block's strip: a 128-byte line of a row
+constexpr int kMx2BWords = 256;   // B words of one output word: 32 bit columns x 8 k-words
+constexpr int kMx2Stage = 36;     // words of a staged row: 32, padded for the stores' banks
+constexpr int kMx2BlocksPerSm = 2;
+constexpr size_t kMx2Smem =
+    sizeof(uint32_t) * (kMx2Strip * kMx2BWords + kMx2Warps * 16 * kMx2Stage);
+
+// Where B word (strip word w, bit column p = 2J + e, k-word k) lies: a thread's
+// two k-words of products J and J + 1 (J even) are one 16-byte quad, and the
+// quads of a warp's eight columns g (w = 4G + g / 2, e = g % 2) and four
+// threads t cover 32 banks.
+__device__ __forceinline__ int mx2_b_index(int w, int p, int k) {
+  const int J = p >> 1, e = p & 1;
+  return w * kMx2BWords + (J >> 1) * 32 + e * 16 + (k & 3) * 4 + (J & 1) * 2 + (k >> 2);
+}
+
+// 16 bytes of global memory in one access.
+__device__ __forceinline__ uint4 load16(const uint32_t* p) {
+  uint4 v;
+  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store16(uint32_t* p, uint4 v) {
+  asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Words p[0 .. n) (0 < n <= 4): one 16-byte access when quad (n == 4 and p
+// 16-byte aligned), else n 4-byte ones.
+__device__ __forceinline__ uint4 load_words(const uint32_t* p, int n, bool quad) {
+  if (quad) return load16(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) w[i] = p[i];
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_words(uint32_t* p, int n, bool quad, uint4 x) {
+  if (quad) {
+    store16(p, x);
+    return;
+  }
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) p[i] = w[i];
+}
+
+// a ^= S . PF on the words [0, head_words) and [word_lo, wp), a strip of 32
+// words a block along x, tiles_per_block 16-row tiles a block along y.  vec:
+// wp % 4 == 0 and a 16-byte aligned, so every whole quad of a row is one
+// 16-byte access (explicit v4 accesses: left to the compiler, the stores came
+// out as four 4-byte ones).  kProbe (timing only,
+// a is scratch): 1 no loads or stores of a, 2 no products (the B words stand
+// in for the counts), 4 no B build.
+template <int kProbe>
+__global__ void __launch_bounds__(kMx2Threads, kMx2BlocksPerSm)
+mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
+                  const uint32_t* __restrict__ pf, int rows, int wp, int kw, int head_words,
+                  int word_lo, int tiles_per_block, bool vec) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* bsm = reinterpret_cast<uint32_t*>(smem4);  // [kMx2Strip][kMx2BWords]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* stage = bsm + kMx2Strip * kMx2BWords + warp * 16 * kMx2Stage;  // this warp's [16][36]
+  const int nhead = (head_words + kMx2Strip - 1) / kMx2Strip;
+  const int bx = blockIdx.x;
+  const int s = bx < nhead ? kMx2Strip * bx : word_lo + kMx2Strip * (bx - nhead);
+  const int nw = min(kMx2Strip, (bx < nhead ? head_words : wp) - s);  // words of the strip
+
+  if (!(kProbe & 4)) {  // B of the strip: warp k transposes k-word k of its nw words
+    const int k = warp;
+    const uint32_t* src = pf + (size_t)(32 * k + lane) * wp + s;  // row 32k + lane of pf
+#pragma unroll 2
+    for (int w = 0; w < kMx2Strip; ++w) {
+      const uint32_t x = (k < kw && w < nw) ? src[w] : 0u;
+      uint32_t mine = 0u;  // lane p: bit j = bit p of pf[32k + j][s + w]
+#pragma unroll
+      for (int p = 0; p < 32; ++p) {
+        const uint32_t bal = __ballot_sync(kFull, (x >> p) & 1u);
+        if (lane == p) mine = bal;
+      }
+      bsm[mx2_b_index(w, lane, k)] = mine;
+    }
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int groups = (nw + 3) >> 2;
+  const int tiles = (rows + 15) >> 4;
+  const int tile_hi = min(tiles, ((int)blockIdx.y + 1) * tiles_per_block);
+  // this lane's share of a tile's write-out: rows 4i + lane / 8, its quad of
+  // words 4 (lane % 8) .. of the strip, nq of them in the strip (none for the
+  // lanes past a narrow strip's end: they load and store nothing)
+  const int cq = lane & 7;
+  const int left = nw - 4 * cq;
+  const int nq = left >= 4 ? 4 : left > 0 ? left : 0;
+  const bool quad = vec && left >= 4;
+  for (int tile = blockIdx.y * tiles_per_block + warp; tile < tile_hi; tile += kMx2Warps) {
+    const int rbase = tile * 16;
+    uint32_t af[4];
+    load_a_fragment(af, sel, rbase, rows, kw, g, t);
+    uint4 old[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rbase + 4 * i + (lane >> 3);
+      old[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (!(kProbe & 1) && r < rows && nq > 0)
+        old[i] = load_words(a + (size_t)r * wp + s + 4 * cq, nq, quad);
+    }
+    for (int G = 0; G < groups; ++G) {
+      const uint4* bq = reinterpret_cast<const uint4*>(
+          bsm + (4 * G + (g >> 1)) * kMx2BWords + (g & 1) * 16 + 4 * t);
+      uint32_t lo = 0u, hi = 0u;  // word 4G + t of rows g and g + 8
+#pragma unroll
+      for (int jp = 0; jp < 8; ++jp) {  // products J = 2 jp and 2 jp + 1: bits 4 jp .. 4 jp + 3
+        const uint4 b = bq[8 * jp];
+        int c0[4], c1[4];
+        if (kProbe & 2) {
+          c0[0] = c0[2] = (int)b.x;
+          c0[1] = c0[3] = (int)b.y;
+          c1[0] = c1[2] = (int)b.z;
+          c1[1] = c1[3] = (int)b.w;
+        } else {
+          mma_b1_and_popc(c0, af, b.x, b.y);
+          mma_b1_and_popc(c1, af, b.z, b.w);
+        }
+        lo |= (((uint32_t)c0[0] & 1u) | (((uint32_t)c0[1] & 1u) << 1) |
+               (((uint32_t)c1[0] & 1u) << 2) | (((uint32_t)c1[1] & 1u) << 3)) << (4 * jp);
+        hi |= (((uint32_t)c0[2] & 1u) | (((uint32_t)c0[3] & 1u) << 1) |
+               (((uint32_t)c1[2] & 1u) << 2) | (((uint32_t)c1[3] & 1u) << 3)) << (4 * jp);
+      }
+      stage[g * kMx2Stage + 4 * G + t] = lo;
+      stage[(g + 8) * kMx2Stage + 4 * G + t] = hi;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = 4 * i + (lane >> 3), r = rbase + rl;
+      if (r >= rows || nq == 0) continue;
+      const uint4 d = *reinterpret_cast<const uint4*>(stage + rl * kMx2Stage + 4 * cq);
+      if (kProbe & 1) {  // keep the products alive without touching a's tile
+        if ((d.x & d.y & d.z & d.w) == kFull) a[(size_t)r * wp + s] = d.x;
+      } else {
+        store_words(a + (size_t)r * wp + s + 4 * cq, nq, quad, gf2::xor4(old[i], d));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <int kProbe>
+cudaError_t launch_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows, int wp,
+                        int kw, int head_words, int word_lo, cudaStream_t stream) {
+  static bool attributes_set = false;
+  auto kernel = mxu2_strip_kernel<kProbe>;
+  if (!attributes_set) {
+    cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMx2Smem);
+    if (rc != cudaSuccess) return rc;
+    attributes_set = true;
+  }
+  int nsm = 0;
+  cudaError_t rc = gf2::sm_count(&nsm);
+  if (rc != cudaSuccess) return rc;
+  const int strips = (head_words + kMx2Strip - 1) / kMx2Strip +
+                     (wp - word_lo + kMx2Strip - 1) / kMx2Strip;
+  const int tiles = (rows + 15) / 16;
+  // row chunks: one wave of kMx2BlocksPerSm blocks an SM, a tile a warp at least
+  const int want = max(1, min((kMx2BlocksPerSm * nsm + strips - 1) / strips,
+                              (tiles + kMx2Warps - 1) / kMx2Warps));
+  const int per_block = (tiles + want - 1) / want;
+  const int chunks = (tiles + per_block - 1) / per_block;
+  const bool vec = wp % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  kernel<<<dim3(strips, chunks), kMx2Threads, kMx2Smem, stream>>>(
+      a, sel, pf, rows, wp, kw, head_words, word_lo, per_block, vec);
+  return cudaGetLastError();
+}
+
+// -- mxu4: the earlier design, bit transpose into scratch + 8-word strips ---------
+
+constexpr int kMmaThreads = 256;                 // 8 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMmaWords = 8;                     // word columns per block
+constexpr int kMmaIter = 4;                      // 16-row tiles per warp
+constexpr int kMmaRows = kMmaWarps * 16 * kMmaIter;  // 512 rows per block
+constexpr int kBtWords = 256;  // transposed words per word column: [2][32][4]
+
+// pfT[w][h][p][t] = bits j = 0..31: bit p of pf[32 * (4h + t) + j][w]; zero
+// where 4h + t >= kw.  One block per word column, one warp per k-word.
+__global__ void __launch_bounds__(kMmaThreads)
+bit_transpose_kernel(uint32_t* __restrict__ pfT, const uint32_t* __restrict__ pf,
+                     int wp, int kw) {
+  const int w = blockIdx.x;
+  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t word = q < kw ? pf[(size_t)(32 * q + lane) * wp + w] : 0u;
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const uint32_t bal = __ballot_sync(kFull, (word >> p) & 1u);
+    if (lane == p) mine = bal;
+  }
+  pfT[(size_t)w * kBtWords + (q >> 2) * 128 + lane * 4 + (q & 3)] = mine;
+}
+
 // The update of words [0, head_words) and [word_lo, wp) in strips of
-// kMmaWords; kRepack picks the mxu4 repack.
-template <bool kRepack>
-__device__ __forceinline__ void
-mma_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
-                const uint32_t* __restrict__ pfT, int rows, int wp, int kw,
-                int head_words, int word_lo) {
+// kMmaWords, repacked by the second product.
+__global__ void __launch_bounds__(kMmaThreads)
+mxu4_kernel(uint32_t* a, const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pfT,
+            int rows, int wp, int kw, int head_words, int word_lo) {
   __shared__ uint32_t bt[kMmaWords * kBtWords];
   const int nhead = (head_words + kMmaWords - 1) / kMmaWords;
   int wbeg, wend;
@@ -125,13 +345,11 @@ mma_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   uint32_t wb[2] = {0u, 0u};
-  if (kRepack) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (g == 2 * h + (i >> 1)) wb[h] |= (1u << (2 * t + (i & 1))) << (8 * i);
-  }
+    for (int i = 0; i < 4; ++i)
+      if (g == 2 * h + (i >> 1)) wb[h] |= (1u << (2 * t + (i & 1))) << (8 * i);
 
   const int row0 = blockIdx.y * kMmaRows;
   for (int it = 0; it < kMmaIter; ++it) {
@@ -139,10 +357,7 @@ mma_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
     if (rbase >= rows) break;
     const int r_lo = rbase + g, r_hi = rbase + g + 8;
     uint32_t af[4];
-    af[0] = (r_lo < rows && t < kw) ? sel[(size_t)r_lo * kw + t] : 0u;
-    af[1] = (r_hi < rows && t < kw) ? sel[(size_t)r_hi * kw + t] : 0u;
-    af[2] = (r_lo < rows && 4 + t < kw) ? sel[(size_t)r_lo * kw + 4 + t] : 0u;
-    af[3] = (r_hi < rows && 4 + t < kw) ? sel[(size_t)r_hi * kw + 4 + t] : 0u;
+    load_a_fragment(af, sel, rbase, rows, kw, g, t);
     for (int wc = 0; wc < nw; ++wc) {
       const uint32_t* b = bt + wc * kBtWords;
       int c[4][4];
@@ -150,29 +365,21 @@ mma_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
       for (int j = 0; j < 4; ++j)
         mma_b1_and_popc(c[j], af, b[(8 * j + g) * 4 + t], b[128 + (8 * j + g) * 4 + t]);
       uint32_t lo = 0u, hi = 0u;
-      if (kRepack) {
-        uint32_t ra[4];
-        ra[0] = (c[0][0] & 1) | ((c[0][1] & 1) << 8) | ((c[1][0] & 1) << 16) | ((c[1][1] & 1) << 24);
-        ra[1] = (c[0][2] & 1) | ((c[0][3] & 1) << 8) | ((c[1][2] & 1) << 16) | ((c[1][3] & 1) << 24);
-        ra[2] = (c[2][0] & 1) | ((c[2][1] & 1) << 8) | ((c[3][0] & 1) << 16) | ((c[3][1] & 1) << 24);
-        ra[3] = (c[2][2] & 1) | ((c[2][3] & 1) << 8) | ((c[3][2] & 1) << 16) | ((c[3][3] & 1) << 24);
-        int d[4];
-        mma_u8(d, ra, wb[0], wb[1]);
-        if (t < 2) {
-          lo = (((uint32_t)d[0] & 0xFFu) | (((uint32_t)d[1] & 0xFFu) << 8)) << (16 * t);
-          hi = (((uint32_t)d[2] & 0xFFu) | (((uint32_t)d[3] & 0xFFu) << 8)) << (16 * t);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo |= (((uint32_t)c[j][0] & 1u) | (((uint32_t)c[j][1] & 1u) << 1)) << (8 * j + 2 * t);
-          hi |= (((uint32_t)c[j][2] & 1u) | (((uint32_t)c[j][3] & 1u) << 1)) << (8 * j + 2 * t);
-        }
+      uint32_t ra[4];
+      ra[0] = (c[0][0] & 1) | ((c[0][1] & 1) << 8) | ((c[1][0] & 1) << 16) | ((c[1][1] & 1) << 24);
+      ra[1] = (c[0][2] & 1) | ((c[0][3] & 1) << 8) | ((c[1][2] & 1) << 16) | ((c[1][3] & 1) << 24);
+      ra[2] = (c[2][0] & 1) | ((c[2][1] & 1) << 8) | ((c[3][0] & 1) << 16) | ((c[3][1] & 1) << 24);
+      ra[3] = (c[2][2] & 1) | ((c[2][3] & 1) << 8) | ((c[3][2] & 1) << 16) | ((c[3][3] & 1) << 24);
+      int d[4];
+      mma_u8(d, ra, wb[0], wb[1]);
+      if (t < 2) {
+        lo = (((uint32_t)d[0] & 0xFFu) | (((uint32_t)d[1] & 0xFFu) << 8)) << (16 * t);
+        hi = (((uint32_t)d[2] & 0xFFu) | (((uint32_t)d[3] & 0xFFu) << 8)) << (16 * t);
       }
-      lo |= __shfl_xor_sync(0xFFFFFFFFu, lo, 1);
-      hi |= __shfl_xor_sync(0xFFFFFFFFu, hi, 1);
-      lo |= __shfl_xor_sync(0xFFFFFFFFu, lo, 2);
-      hi |= __shfl_xor_sync(0xFFFFFFFFu, hi, 2);
+      lo |= __shfl_xor_sync(kFull, lo, 1);
+      hi |= __shfl_xor_sync(kFull, hi, 1);
+      lo |= __shfl_xor_sync(kFull, lo, 2);
+      hi |= __shfl_xor_sync(kFull, hi, 2);
       if (t == (wc & 3)) {
         const int w = wbeg + wc;
         if (r_lo < rows) a[(size_t)r_lo * wp + w] ^= lo;
@@ -182,54 +389,47 @@ mma_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-mxu2_kernel(uint32_t* a, const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pfT,
-            int rows, int wp, int kw, int head_words, int word_lo) {
-  mma_update_body<false>(a, sel, pfT, rows, wp, kw, head_words, word_lo);
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-mxu4_kernel(uint32_t* a, const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pfT,
-            int rows, int wp, int kw, int head_words, int word_lo) {
-  mma_update_body<true>(a, sel, pfT, rows, wp, kw, head_words, word_lo);
-}
-
-template <typename Kernel>
-int launch_mma_update(Kernel kernel, uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                      uint32_t* pfT, int rows, int wp, int kw, int head_words, int word_lo,
-                      cudaStream_t stream) {
-  bit_transpose_kernel<<<wp, kMmaThreads, 0, stream>>>(pfT, pf, wp, kw);
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return (int)rc;
-  const int strips = (head_words + kMmaWords - 1) / kMmaWords +
-                     (wp - word_lo + kMmaWords - 1) / kMmaWords;
-  const dim3 grid(strips, (rows + kMmaRows - 1) / kMmaRows);
-  kernel<<<grid, kMmaThreads, 0, stream>>>(a, sel, pfT, rows, wp, kw, head_words, word_lo);
-  return (int)cudaGetLastError();
-}
-
 bool bad_shape(int rows, int wp, int kw, int w0) {
   return kw < 1 || kw > 8 || rows < 1 || wp < 1 || w0 >= wp;
 }
 
-}  // namespace
-
-// a ^= S . PF, engine "mxu2".  pfT: scratch of wp * 256 words.  w0 < 0: every
-// word; else tiles j >= 1 with (j+1)*tw <= w0 are kept, tile 0 never is.
-extern "C" int gf2_update_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                               uint32_t* pfT, int rows, int wp, int kw, int w0,
-                               cudaStream_t stream) {
-  if (bad_shape(rows, wp, kw, w0)) return (int)cudaErrorInvalidValue;
+// The mxu2 rule as (head_words, word_lo): tiles 1 .. dead-1 are kept.
+void mxu2_rule(int wp, int w0, int* head_words, int* word_lo) {
   const int tw = (wp % 128 == 0) ? 128 : wp;
-  const int dead = w0 < 0 ? 0 : w0 / tw;  // tiles 1 .. dead-1 are kept
-  const int head_words = dead >= 2 ? tw : 0;
-  const int word_lo = dead >= 2 ? dead * tw : 0;
-  return launch_mma_update(mxu2_kernel, a, sel, pf, pfT, rows, wp, kw, head_words, word_lo,
-                           stream);
+  const int dead = w0 < 0 ? 0 : w0 / tw;
+  *head_words = dead >= 2 ? tw : 0;
+  *word_lo = dead >= 2 ? dead * tw : 0;
 }
 
-// a ^= S . PF, engine "mxu4".  w0 < 0: every word; else, once tw <= w0, word
-// 0 and the tiles from w0's on.
+}  // namespace
+
+// a ^= S . PF, engine "mxu2", in one launch.  w0 < 0: every word; else tiles
+// j >= 1 with (j+1)*tw <= w0 are kept, tile 0 never is.
+extern "C" int gf2_update_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
+                               int wp, int kw, int w0, cudaStream_t stream) {
+  if (bad_shape(rows, wp, kw, w0)) return (int)cudaErrorInvalidValue;
+  int head_words, word_lo;
+  mxu2_rule(wp, w0, &head_words, &word_lo);
+  return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
+}
+
+// The full-width mxu2 update with one cost taken out, for timing (a is
+// scratch): probe 1 no loads or stores of a, 2 no products, 4 no B build;
+// 0 the kernel as it is.
+extern "C" int gf2_update_mxu2_probe(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
+                                     int rows, int wp, int kw, int probe, cudaStream_t stream) {
+  if (bad_shape(rows, wp, kw, -1)) return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case 0: return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, 0, 0, stream);
+    case 1: return (int)launch_mxu2<1>(a, sel, pf, rows, wp, kw, 0, 0, stream);
+    case 2: return (int)launch_mxu2<2>(a, sel, pf, rows, wp, kw, 0, 0, stream);
+    case 4: return (int)launch_mxu2<4>(a, sel, pf, rows, wp, kw, 0, 0, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// a ^= S . PF, engine "mxu4".  pfT: scratch of wp * 256 words.  w0 < 0: every
+// word; else, once tw <= w0, word 0 and the tiles from w0's on.
 extern "C" int gf2_update_mxu4(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
                                uint32_t* pfT, int rows, int wp, int kw, int w0,
                                cudaStream_t stream) {
@@ -238,6 +438,12 @@ extern "C" int gf2_update_mxu4(uint32_t* a, const uint32_t* sel, const uint32_t*
   const bool const_only = w0 >= 0 && tw <= w0;
   const int head_words = const_only ? 1 : 0;
   const int word_lo = const_only ? (w0 / tw) * tw : 0;
-  return launch_mma_update(mxu4_kernel, a, sel, pf, pfT, rows, wp, kw, head_words, word_lo,
-                           stream);
+  bit_transpose_kernel<<<wp, kMmaThreads, 0, stream>>>(pfT, pf, wp, kw);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  const int strips = (head_words + kMmaWords - 1) / kMmaWords +
+                     (wp - word_lo + kMmaWords - 1) / kMmaWords;
+  const dim3 grid(strips, (rows + kMmaRows - 1) / kMmaRows);
+  mxu4_kernel<<<grid, kMmaThreads, 0, stream>>>(a, sel, pfT, rows, wp, kw, head_words, word_lo);
+  return (int)cudaGetLastError();
 }

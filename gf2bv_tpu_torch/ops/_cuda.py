@@ -43,7 +43,8 @@ LAUNCHES = {
     "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
     "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
     "scan_batched_block": 0, "update_scan_block": 0,
-    "scan_minkey_block": 0, "phase1_fused_block": 0,
+    "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
+    "update_mxu2_probe": 0,
 }
 
 _P = ctypes.c_void_p
@@ -73,8 +74,10 @@ _SIGNATURES = {
     "gf2_scan_occupancy": [_I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)
     "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
+    "gf2_scan2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
-    "gf2_scan2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_scan2_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gf2_scan_minkey_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan_minkey": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -95,8 +98,11 @@ _SIGNATURES = {
     "gf2_update_rank_k": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, probe, stream)
     "gf2_update_table_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, w0 (-1: full), stream)
+    "gf2_update_mxu2": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, probe, stream)
+    "gf2_update_mxu2_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, pfT scratch (wp * 256 words), rows, wp, kw, w0 (-1: full), stream)
-    "gf2_update_mxu2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gf2_update_mxu4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (out, a, n words, stream)
     "gf2_launch_probe": [_P, _P, _I, _P],

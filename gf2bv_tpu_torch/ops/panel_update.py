@@ -33,8 +33,10 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
 * :func:`update_mxu2` / :func:`update_mxu4` — the update as a tensor-core
   product on bit planes (``_mxu2_kernel`` / ``_mxu4_kernel`` and their
   trailing forms via ``panel_update_mxu2`` / ``panel_update_mxu4``); CUDA
-  ``csrc/update_mma.cu`` (one-bit ``mma.sync``; ``mxu4`` repacks with a
-  second ``mma.sync``); plain twins :func:`update_mxu2_plain` /
+  ``csrc/update_mma.cu`` (one-bit ``mma.sync``; ``mxu2`` in one launch with
+  its words written back in 16-byte accesses, :func:`update_mxu2_probe`
+  timing it with one cost out; ``mxu4`` repacks with a second
+  ``mma.sync``); plain twins :func:`update_mxu2_plain` /
   :func:`update_mxu4_plain`, which follow the TPU bodies (unpack to 0/1,
   integer product, parity, repack).  Their trailing rules differ: ``mxu2``
   only skips tiles wholly left of ``w0`` and always updates tile 0 in full;
@@ -535,12 +537,16 @@ def update_mxu4_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     return a
 
 
-def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0):
+def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0, scratch: bool):
+    """Launch a tensor-core update; ``scratch``: the kernel takes pf
+    transposed at bit level in a scratch of wp x 256 words (mxu4's pre-kernel
+    writes it)."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     _require_update_args(a, sel, pf, rows, wp, kw)
-    pf_t = torch.empty((wp, 256), dtype=I32, device=a.device)  # pf transposed at bit level
+    pf_t = torch.empty((wp, 256), dtype=I32, device=a.device) if scratch else None
     rc = getattr(_cuda.lib(), fn_name)(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), pf_t.data_ptr(), rows, wp, kw,
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), *([pf_t.data_ptr()] if scratch else []),
+        rows, wp, kw,
         -1 if w0 is None else int(w0), _cuda.stream_of(a),
     )
     _cuda.check(rc, what)
@@ -554,13 +560,38 @@ def update_mxu2(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     place.  ``w0`` None: every word.  Else the trailing update for a panel
     starting at word ``w0``: with tiles of ``tw = 128`` words (``wp`` when 128
     does not divide it), a tile ``j >= 1`` with ``(j+1)*tw <= w0`` keeps its
-    words; tile 0 always gets the whole update."""
+    words; tile 0 always gets the whole update.  On the card one launch:
+    strips of 32 words whose products come out as whole words, written back
+    in 16-byte accesses (``csrc/update_mma.cu``)."""
     _, wp, _ = _check_shapes(a, sel, pf)
     _mxu_tiles(wp, w0)
     if not _cuda.on_cuda(a):
         return update_mxu2_plain(a, sel, pf, w0)
     return _launch_mma("gf2_update_mxu2", "update_mxu2", "mxu2 panel update kernel",
-                       a, sel, pf, w0)
+                       a, sel, pf, w0, scratch=False)
+
+
+MXU2_PROBES = {0: "the kernel as it is", 1: "no loads or stores of a", 2: "no products",
+               4: "no B build"}
+
+
+def update_mxu2_probe(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, probe: int):
+    """The full-width mxu2 kernel with one of its costs taken out
+    (``MXU2_PROBES``), for timing on the card only: with ``probe != 0`` the
+    words written to ``a`` are wrong by design, so ``a`` is scratch."""
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    if probe not in MXU2_PROBES:
+        raise ValueError(f"unknown probe {probe}; expected one of {sorted(MXU2_PROBES)}")
+    if a.device.type != "cuda":
+        raise ValueError("the mxu2 kernel's timing probe runs on a CUDA device only")
+    _require_update_args(a, sel, pf, rows, wp, kw)
+    rc = _cuda.lib().gf2_update_mxu2_probe(
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(probe),
+        _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "mxu2 kernel timing probe")
+    _cuda.LAUNCHES["update_mxu2_probe"] += 1
+    return a
 
 
 def update_mxu4(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
@@ -574,4 +605,4 @@ def update_mxu4(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     if not _cuda.on_cuda(a):
         return update_mxu4_plain(a, sel, pf, w0)
     return _launch_mma("gf2_update_mxu4", "update_mxu4", "mxu4 panel update kernel",
-                       a, sel, pf, w0)
+                       a, sel, pf, w0, scratch=True)

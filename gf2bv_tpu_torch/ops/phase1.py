@@ -14,7 +14,13 @@ step structure:
     memory); :func:`scan_route` picks between them from the shape alone;
     twin of both :func:`scan_plain`;
   - ``"2"``: two pivots per step (``_make_scan_kernel2``), :func:`scan2`;
-    CUDA ``gf2_scan2``, twin :func:`scan2_plain`;
+    CUDA ``csrc/scan2.cu`` ``gf2_scan2``, a thread-block cluster that elects
+    both pivots of a pair in one exchange (body in
+    ``csrc/scan2_cluster.cuh``), or past the largest cluster's rows
+    ``gf2_scan2_block`` (:func:`scan2_block`: one block, state in global
+    memory); :func:`scan2_route` picks between them; twin
+    :func:`scan2_plain`, and :func:`scan2_cluster_plain` in the cluster
+    kernel's order;
   - ``"m"``: election and extraction through packed min-keys
     (``_make_scan_kernel_minkey``), :func:`scan_minkey`; CUDA
     ``gf2_scan_minkey``, the cluster scan with the min-key election
@@ -152,6 +158,10 @@ SCAN_BLOCK_ROWS = 3 * SCAN_THREADS  # rows per block the route aims at: three a 
 _SCAN_HEADER_BYTES = 16 * (2 * 16 * 3) + 4 * (2 * 32) + 16  # slots, warp minima, mbarriers
 # the min-key election's header: slots of 4 quads, a record of 4 quads a warp
 _MINKEY_HEADER_BYTES = 16 * (2 * 16 * 4) + 4 * (2 * (SCAN_THREADS // 32) * 16) + 16
+# the two-pivot election's header (csrc/scan2_cluster.cuh): slots of 7 quads (the
+# words of m0, P0 and P1, then the three rows), a record of one quad a warp
+SCAN2_SLOT_QUADS = 7
+_SCAN2_HEADER_BYTES = 16 * (2 * 16 * SCAN2_SLOT_QUADS + 2 * (SCAN_THREADS // 32) + 1)
 
 
 class ScanRoute(NamedTuple):
@@ -161,18 +171,21 @@ class ScanRoute(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block; 0 for scan_block
 
 
-def scan_smem_bytes(rows_per_block: int, kw: int, minkey: bool = False) -> int:
+def scan_smem_bytes(rows_per_block: int, kw: int, minkey: bool = False,
+                    pairs: bool = False) -> int:
     """Shared memory of one block of the cluster scan: the header (the
-    min-key election's with ``minkey``), then the slice words of each row in
-    16-byte halves of four, rows padded to 32."""
-    header = _MINKEY_HEADER_BYTES if minkey else _SCAN_HEADER_BYTES
+    min-key election's with ``minkey``, the two-pivot election's with
+    ``pairs``), then the slice words of each row in 16-byte halves of four,
+    rows padded to 32."""
+    header = (_SCAN2_HEADER_BYTES if pairs else _MINKEY_HEADER_BYTES if minkey
+              else _SCAN_HEADER_BYTES)
     return header + 16 * (-(-kw // 4)) * (-(-rows_per_block // 32) * 32)
 
 
-def scan_fits(rows_per_block: int, kw: int, minkey: bool = False) -> bool:
+def scan_fits(rows_per_block: int, kw: int, minkey: bool = False, pairs: bool = False) -> bool:
     """Whether one block of the cluster scan can own that many rows."""
     return (rows_per_block <= SCAN_MAX_SLOTS * SCAN_THREADS
-            and scan_smem_bytes(rows_per_block, kw, minkey) <= SCAN_SMEM_MAX)
+            and scan_smem_bytes(rows_per_block, kw, minkey, pairs) <= SCAN_SMEM_MAX)
 
 
 def scan_max_rows(kw: int) -> int:
@@ -344,14 +357,119 @@ def scan2_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int
     return prow, u[None, :], c
 
 
-def scan2(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The scan with two pivots per sequential step; outputs as :func:`scan`."""
+def scan2_cluster_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                        nblocks: int):
+    """:func:`scan2_plain` in the order of the cluster kernel on ``nblocks``
+    blocks (``ceil(rows / nblocks)`` contiguous rows a block).  For each pair
+    every block elects, from the same state, m0 (its lowest column-0
+    candidate), P0 and P1: its lowest row of ``cand1_h = valid1 & free &
+    (bit1 ^ (cand0 & h))`` for h = 0 and 1.  That formula needs pivot 0 only
+    through its own bit jj0 + 1 (h), and excludes pivot 0 itself (h ^ h = 0),
+    so no block needs to know pivot 0 before it elects.  The fold over the
+    slots: pivot 0 is the first block's m0, h its bit jj0 + 1, pivot 1 the
+    first block's P_h.  Same arguments and outputs as :func:`scan2_plain`, bit
+    for bit."""
+    kw, rows = bT.shape
+    if nblocks not in SCAN_CLUSTER_SIZES:
+        raise ValueError(f"no cluster of {nblocks} blocks")
+    dev = bT.device
+    rpb = -(-rows // nblocks)
+    pad = nblocks * rpb - rows
+    b = bT.clone()
+    u = used[0].clone()
+    c = torch.zeros_like(bT)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    lane = torch.arange(rows, dtype=I32, device=dev)
+
+    def block_minima(cand):  # (nblocks,): each block's lowest row of cand, rows if none
+        rws = torch.nn.functional.pad(torch.where(cand, lane, rows), (0, pad), value=rows)
+        return rws.reshape(nblocks, rpb).amin(dim=1)
+
+    def first(slots):  # the first block's row: the ranges ascend with the block
+        return slots.amin()
+
+    for jj0 in range(0, K, 2):
+        sw, sh0 = jj0 >> 5, jj0 & 31
+        g0 = 32 * w0 + jj0
+        valid0, valid1 = 1 <= g0 <= cols, 1 <= g0 + 1 <= cols
+        cur = b[sw]
+        free = u == 0
+        cand0 = (((cur >> sh0) & 1) == 1) & free & valid0
+        bit1 = (((cur >> (sh0 + 1)) & 1) == 1) & free & valid1
+        # the slots: each block's m0, P0, P1
+        m0, p0, p1 = (block_minima(x) for x in (cand0, bit1, bit1 ^ (cand0 & valid1)))
+        piv0 = first(m0)
+        has0 = piv0 < rows
+        bp0 = b[sw:, torch.where(has0, piv0, 0).long()]
+        h = has0 & (((bp0[0] >> (sh0 + 1)) & 1) == 1)
+        piv1 = first(torch.where(h, p1, p0))
+        has1 = piv1 < rows
+        p1s = torch.where(has1, piv1, 0).long()
+        elim0 = cand0 & (lane != piv0)
+        cand1 = bit1 ^ (cand0 & h & valid1)
+        bp1 = b[sw:, p1s] ^ torch.where(elim0[p1s], bp0, 0)
+        elim1 = cand1 & (lane != piv1)
+        prow[jj0] = torch.where(has0, piv0, -1)
+        prow[jj0 + 1] = torch.where(has1, piv1, -1)
+        b[sw:] ^= (torch.where(elim0[None, :], bp0[:, None], 0)
+                   ^ torch.where(elim1[None, :], bp1[:, None], 0))
+        c[sw] ^= (torch.where(elim0, _bitval(sh0), 0)
+                  ^ torch.where(elim1, _bitval(sh0 + 1), 0)).to(I32)
+        u = torch.where(((lane == piv0) & has0) | ((lane == piv1) & has1), 1, u).to(I32)
+    return prow, u[None, :], c
+
+
+def scan2_route(rows: int, kw: int) -> ScanRoute:
+    """Which kernel runs the two-pivot scan of a (kw, rows) slice, and on how
+    many blocks: the 1-pivot scan's cluster size (:func:`scan_route`) with the
+    two-pivot election's header; past what its largest cluster holds, the
+    one-block kernel ``scan2_block``.  A pure function of the shape."""
+    route = scan_route(rows, kw)
+    rpb = route.rows_per_block
+    if route.kernel == "scan_block" or not scan_fits(rpb, kw, pairs=True):
+        return ScanRoute("scan2_block", 1, rows, 0)
+    return ScanRoute("scan2", route.nblocks, rpb, scan_smem_bytes(rpb, kw, pairs=True))
+
+
+def _check_k2(bT: torch.Tensor, K: int) -> None:
     _check_k(bT, K)
     if K % 2:
         raise ValueError(f"K={K} must be even")
+
+
+def scan2_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The two-pivot scan by one block with its state in global memory: the
+    kernel for slices taller than the largest cluster holds
+    (:func:`scan2_route`); outputs as :func:`scan`."""
+    _check_k2(bT, K)
     if not _cuda.on_cuda(bT):
         return scan2_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan2", "scan2", bT, used, w0, K, cols)
+    return _launch_scan("gf2_scan2_block", "scan2_block", bT, used, w0, K, cols)
+
+
+def scan2_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                  nblocks: int):
+    """The two-pivot scan on a cluster of ``nblocks`` blocks whatever
+    :func:`scan2_route` would pick (:func:`scan2` asks the route); raises when
+    the state does not fit the blocks or the card cannot place the cluster.
+    Outputs as :func:`scan`."""
+    _check_k2(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan2_cluster_plain(bT, used, w0, K, cols, nblocks)
+    return _launch_scan("gf2_scan2", "scan2", bT, used, w0, K, cols, nblocks)
+
+
+def scan2(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
+    """The scan with two pivots per sequential step; outputs as :func:`scan`.
+    On the card the cluster kernel or, past the largest cluster's rows,
+    :func:`scan2_block` (:func:`scan2_route`)."""
+    _check_k2(bT, K)
+    if not _cuda.on_cuda(bT):
+        return scan2_plain(bT, used, w0, K, cols)
+    route = scan2_route(bT.shape[1], bT.shape[0])
+    if route.kernel == "scan2_block":
+        return scan2_block(bT, used, w0, K, cols)
+    return scan2_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
 # -- kernel 7: min-key election + extraction ----------------------------------------

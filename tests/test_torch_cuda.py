@@ -223,7 +223,8 @@ def test_wrapper_counts_launches(dev):
         "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
         "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
         "scan_batched_block": 0, "update_scan_block": 0,
-        "scan_minkey_block": 0, "phase1_fused_block": 0,
+        "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
+        "update_mxu2_probe": 0,
     }
 
 
@@ -858,3 +859,147 @@ def test_multi_rhs_cuda_matches_cpu(dev):
                     assert g == w
                 else:
                     assert g.origin == w.origin and g.basis == w.basis
+
+
+# -- the two-pivot scan as a cluster kernel, the one-launch mxu2 update --------------------
+
+SCAN2_ROWS = [300, 768, 2560, 20011, 20224, 40192]
+
+
+def _sparse_election_slice(rng, case, dev):
+    """64 rows, K = 64, w0 = 1, four blocks of 16 rows: rows (bits of the first
+    pair) that make the election cases of tests/test_torch_scan2_mxu2.py."""
+    cases = [{35: 1, 3: 2, 50: 3}, {5: 3, 36: 1, 37: 3, 52: 2}, {20: 3, 40: 2, 41: 1},
+             {2: 3, 4: 3, 9: 1, 30: 2}]
+    bits = rng.random((2, 64, 32)) < 0.06
+    bT = (bits * (1 << np.arange(32, dtype=np.uint64))).sum(-1).astype(np.uint32)
+    bT[0] &= np.uint32(0xFFFFFFFC)
+    for r, b in cases[case].items():
+        bT[0, r] |= np.uint32(b)
+    return u32_to_torch(bT, dev)
+
+
+@pytest.mark.parametrize("kw", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", SCAN2_ROWS)
+def test_scan2_cluster_kernel(dev, rows, kw):
+    """The two-pivot cluster kernel by its route against the step twin and
+    the 1-pivot twin: the first, a middle and the last panel, a panel with no
+    valid column, and every row used (no pivot); one launch of scan2."""
+    K = 32 * kw
+    rng = np.random.default_rng(rows + kw + 29)
+    bT = _rand(rng, (kw, rows), dev)
+    route = phase1.scan2_route(rows, kw)
+    assert route.kernel == "scan2" and route.nblocks == phase1.scan_route(rows, kw).nblocks
+    for frac in (0.3, 1.0):
+        used = u32_to_torch((rng.random((1, rows)) < frac).astype(np.uint32), dev)
+        for w0, cols in _panels_cases(kw, 640) + [(0, 10**6), (2, 64 + 41)]:
+            _cuda.reset_launches()
+            got = phase1.scan(bT, used, w0, K, cols, "2")
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2": 1}
+            want = phase1.scan2_plain(bT, used, w0, K, cols)
+            torch.cuda.synchronize()
+            for g, w, p in zip(got, want, phase1.scan_plain(bT, used, w0, K, cols)):
+                assert torch.equal(g, w), (frac, w0, cols)
+                assert torch.equal(g, p), (frac, w0, cols)
+            if frac == 1.0 or cols == 0:
+                assert int((got[0] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rows,K,w0,cols", SCAN_SHAPES)
+def test_scan2_on_every_cluster_size(dev, rows, K, w0, cols, nblocks):
+    """Every cluster size that holds the slice gives the step twin's and the
+    1-pivot twin's outputs, and the cluster twin's order on those blocks; one
+    that cannot hold it raises instead of running something else."""
+    rng = np.random.default_rng(rows + nblocks + 41)
+    kw = K // 32
+    bT = _rand(rng, (kw, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.3).astype(np.uint32), dev)
+    want = phase1.scan2_plain(bT, used, w0, K, cols)
+    if phase1.scan_fits(-(-rows // nblocks), kw, pairs=True):
+        got = phase1.scan2_cluster(bT, used, w0, K, cols, nblocks)
+        torch.cuda.synchronize()
+        for g, w, p in zip(got, want, phase1.scan_plain(bT, used, w0, K, cols)):
+            assert torch.equal(g, w)
+            assert torch.equal(g, p)
+    else:
+        with pytest.raises(RuntimeError, match="scan2 kernel"):
+            phase1.scan2_cluster(bT, used, w0, K, cols, nblocks)
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", range(4))
+def test_scan2_election_cases_on_the_card(dev, case, nblocks):
+    """The hand-built sparse slices of the four election cases on every
+    cluster size against both twins."""
+    rng = np.random.default_rng(case + 50)
+    bT = _sparse_election_slice(rng, case, dev)
+    used = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    used[0, 60] = 1
+    want = phase1.scan2_plain(bT, used, 1, 64, 10**6)
+    got = phase1.scan2_cluster(bT, used, 1, 64, 10**6, nblocks)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, phase1.scan_plain(bT, used, 1, 64, 10**6)):
+        assert torch.equal(g, w)
+        assert torch.equal(g, p)
+
+
+def test_scan2_block_takes_the_very_tall_slice(dev):
+    """Past the largest cluster's rows the two-pivot scan runs its one-block
+    kernel, by the route and not after a failure."""
+    rows, K, kw = VERY_TALL_ROWS, 256, 8
+    assert phase1.scan2_route(rows, kw).kernel == "scan2_block"
+    rng = np.random.default_rng(71)
+    bT = _rand(rng, (kw, rows), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
+    _cuda.reset_launches()
+    got = phase1.scan(bT, used, 8, K, 10**6, "2")
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2_block": 1}
+    for g, w in zip(got, phase1.scan_plain(bT, used, 8, K, 10**6)):
+        assert torch.equal(g, w)
+    with pytest.raises(RuntimeError, match="scan2 kernel"):
+        phase1.scan2_cluster(bT, used, 8, K, 10**6, 16)
+
+
+@pytest.mark.parametrize("rows,wp,K", UPDATE_SHAPES + [
+    (20224, 638, 256), (20224, 8, 256), (20224, 4, 256), (4096, 40, 256), (77, 13, 32),
+    (1000, 389, 160)])
+def test_update_mxu2_kernel(dev, rows, wp, K):
+    """The one-launch mxu2 kernel on aligned widths, unaligned ones (scalar
+    accesses), the look-ahead engine's (rows, 8) slice and other strips
+    narrower than 32 words (lanes past the strip's end must touch nothing:
+    a first form wrote their quads into the next row), a ragged strip,
+    under every w0 of test_update_mma_kernels: the whole matrix against the
+    twin and one launch of update_mxu2, nothing else."""
+    rng = np.random.default_rng(rows + wp + 61)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    for w0 in [None] + sorted({0, 8, 127, 128, 160, 256, wp - 8} & set(range(wp))):
+        _cuda.reset_launches()
+        got = panel_update.update_mxu2(a.clone(), sel, pf, w0)
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_mxu2": 1}
+        want = panel_update.update_mxu2_plain(a.clone(), sel, pf, w0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w0
+    # an a that starts 4 bytes past a 16-byte boundary takes the scalar accesses
+    big = _rand(rng, (rows * wp + 1,), dev)
+    view = big[1:].view(rows, wp)
+    want = panel_update.update_mxu2_plain(view.clone(), sel, pf)
+    assert torch.equal(panel_update.update_mxu2(view, sel, pf), want)
+
+
+def test_update_mxu2_probe_kernel(dev):
+    """Probe 0 is the kernel as it is; the others run and are timing aids
+    whose output is wrong by design."""
+    rng = np.random.default_rng(37)
+    a = _rand(rng, (1024, 256), dev)
+    sel = _rand(rng, (1024, 8), dev)
+    pf = _rand(rng, (256, 256), dev)
+    want = panel_update.update_mxu2_plain(a.clone(), sel, pf)
+    _cuda.reset_launches()
+    assert torch.equal(panel_update.update_mxu2_probe(a.clone(), sel, pf, 0), want)
+    for probe in (1, 2, 4):
+        panel_update.update_mxu2_probe(a.clone(), sel, pf, probe)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_mxu2_probe": 4}

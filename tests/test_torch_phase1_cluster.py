@@ -148,9 +148,11 @@ def test_new_entry_points_are_declared_and_counted():
                     ("gf2_phase1_fused_block", "phase1_fused_block")):
         assert fn in _cuda._SIGNATURES and key in _cuda.LAUNCHES
     # the cluster kernels take a block count and no working copy of the slice
-    assert _cuda._SIGNATURES["gf2_scan_minkey"] == _cuda._SIGNATURES["gf2_scan"]
+    assert (_cuda._SIGNATURES["gf2_scan_minkey"] == _cuda._SIGNATURES["gf2_scan"]
+            == _cuda._SIGNATURES["gf2_scan2"])
     assert len(_cuda._SIGNATURES["gf2_phase1_fused"]) == 14
-    assert (_cuda._SIGNATURES["gf2_scan_minkey_block"] == _cuda._SIGNATURES["gf2_scan2"]
+    # the one-block kernels take a working copy of the slice
+    assert (_cuda._SIGNATURES["gf2_scan_minkey_block"] == _cuda._SIGNATURES["gf2_scan2_block"]
             == _cuda._SIGNATURES["gf2_scan_block"])
 
 
