@@ -6,10 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
-3. Holds each kernel (the ports of the fifteen TPU kernels, and the five
-   one-block kernels kept beside the cluster scan, the batched scan, the
-   fused update + scan, the fused phase 1 and the two-pivot scan) against its
-   plain PyTorch twin on the
+3. Holds each kernel (the ports of the fifteen TPU kernels, the chained scans
+   of slices taller than one cluster, and the five one-block kernels kept
+   beside the cluster scan, the batched scan, the fused update + scan, the
+   fused phase 1 and the two-pivot scan) against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
@@ -48,6 +48,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    words, on an unaligned width and on a (rows, 8) slice, each timed beside
    the mask-and-XOR kernel they replace; the table kernel's time with each
    of four costs taken out in turn.
+   The chained scans (check_chunked) at panel 20 of the very tall system
+   (67328 rows), one system and two, against their twins in the chain's order
+   and the step twins, timed from a CUDA graph's replay under both cuts of the
+   rows into chunks (equal chunks, the route's; the largest cluster filled
+   first) beside the one-block kernels they replaced.
    Then the launch floor: microseconds per launch over 256 chained launches
    of the probe (many blocks, 16-byte accesses), of torch.bitwise_xor and of
    the one-tile update.
@@ -71,7 +76,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    solve_mt19937_batch (both a loop of the single-system solver), each
    timed warm as recoveries per second; the batched solver's full RREF is
    the default engine's, system by system; two very tall systems through
-   solve_batched run the one-block batched scan 80 times.
+   solve_batched run the chained batched scan (80 panels x 2 chunks
+   launches, no one-block scan), timed cold and warm (best of 3) with the
+   device time of a profiled call.
 9. Engines: for each engine of the blocked solver other than the default
    (pallas_scan2, pallas_scanm, pallas, pallas_sub with mxu; mxu_la and
    mxu_noseg with pallas_scan), chosen through GF2BV_TPU_PHASE1/2,
@@ -86,8 +93,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the 1-pivot scan: the min-key packing takes fewer than 2^15 rows) and
    pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
    rows: more than the largest cluster holds), under the default engine,
-   which must run the one-block scan 79 times, under mxu_la, which must
-   run the one-block fused update + scan 79 times, under phase 1
+   which must run the chained scan (79 panels x 2 chunks launches, no
+   one-block scan; timed cold and warm, best of 3, with the device time of a
+   profiled call), under mxu_la, which must run the chained scan for its
+   first slice and the one-block fused update + scan 79 times, under phase 1
    pallas, which must run the one-block fused phase 1 79 times, and under
    pallas_scan2, which must run the one-block two-pivot scan 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
@@ -156,14 +165,14 @@ HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 INT8_OPS_PER_MS = 1.979e12  # 1,979 TOP/s, dense int8 tensor cores at 700 W
 TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 TALL_ROWS = 40192  # its padded rows
-VERY_TALL_SAMPLES = 2100  # past the largest cluster, so the one-block kernels
+VERY_TALL_SAMPLES = 2100  # past the largest cluster: the chained scan, the one-block kernels
 VERY_TALL_ROWS = 67328  # its padded rows
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
              "gf2bv_tpu/ops/pallas_phase1.py:233"),
-    "scan_block": ("scan_block", "gf2bv_tpu_torch/csrc/scan.cu",
-                   "gf2bv_tpu/ops/pallas_phase1.py:233"),
+    "scan_chunked": ("scan_chunked", "gf2bv_tpu_torch/csrc/scan_chunked.cu",
+                     "gf2bv_tpu/ops/pallas_phase1.py:233"),
     "reconstruct": ("reconstruct", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                     "gf2bv_tpu/ops/pallas_phase1.py:278"),
     "update_seg": ("update_seg", "gf2bv_tpu_torch/csrc/update_table.cu",
@@ -174,8 +183,8 @@ KERNELS = {
                         "gf2bv_tpu/ops/pallas_update.py:261"),
     "scan_batched": ("scan_batched", "gf2bv_tpu_torch/csrc/scan.cu",
                      "gf2bv_tpu/ops/gauss_batched.py:53"),
-    "scan_batched_block": ("scan_batched_block", "gf2bv_tpu_torch/csrc/scan.cu",
-                           "gf2bv_tpu/ops/gauss_batched.py:53"),
+    "scan_batched_chunked": ("scan_batched_chunked", "gf2bv_tpu_torch/csrc/scan_chunked.cu",
+                             "gf2bv_tpu/ops/gauss_batched.py:53"),
     "reconstruct_batched": ("reconstruct_batched", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                             "gf2bv_tpu/ops/gauss_batched.py:107"),
     "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan2.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
@@ -391,6 +400,7 @@ def check_kernels(dev, card: str) -> dict:
     res.update(check_engine_kernels(dev, card, a, bT, used, w0, sel, pf))
     res.update(check_update_engine_kernels(dev, card, a, used, w0, sel, pf))
     res.update(check_redesign(dev, card, a, bT, used, w0, sel, pf))
+    res.update(check_chunked(dev, card, w0))
     for name, (_, ms, plain_ms) in res.items():
         bound_ms, by, _ = BOUNDS[name]
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -473,6 +483,55 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
         cuda_ms(lambda: gauss_batched.reconstruct_batched(arows, coeff, prow, w0), 20),
         cuda_ms(lambda: gauss_batched.reconstruct_batched_plain(arows, coeff, prow, w0), 2),
     )
+    return res
+
+
+def check_chunked(dev, card: str, w0: int) -> dict:
+    """The chained scans at panel 20 of the very tall system, one system and
+    two, each system with a quarter of its rows used: held against their
+    twins in the chain's order and the step twins, timed from a CUDA graph's
+    replay under both cuts of the rows into chunks, beside the one-block
+    kernels they replaced."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import gauss_batched, phase1
+
+    kw = K // 32
+    mats = torch.stack([flagship_system(dev, mt_outputs(SEED + 20 + b, VERY_TALL_SAMPLES)[1],
+                                        VERY_TALL_ROWS) for b in range(2)])
+    bT2 = mats[:, :, w0 : w0 + kw].transpose(1, 2).contiguous()
+    del mats
+    gen = torch.Generator().manual_seed(SEED + 21)
+    used2 = (torch.rand((2, VERY_TALL_ROWS), generator=gen) < 0.25).to(torch.int32).to(dev)
+    bT, used = bT2[0].contiguous(), used2[:1].contiguous()
+    route = phase1.scan_route(VERY_TALL_ROWS, kw)
+    cuts = {"equal chunks (the route's)": route.chunk_rows,
+            "largest cluster first": phase1.scan_max_rows(kw, chained=True)}
+    res = {}
+    for name, x, u, scan, plain, step, block in (
+            ("scan_chunked", bT, used, phase1.scan_chunked, phase1.scan_chunked_plain,
+             phase1.scan_plain, phase1.scan_block),
+            ("scan_batched_chunked", bT2, used2, gauss_batched.scan_batched_chunked,
+             gauss_batched.scan_batched_chunked_plain, gauss_batched.scan_batched_plain,
+             gauss_batched.scan_batched_block)):
+        want = step(x, u, w0, K, COLS)
+        times = []
+        for cut, rows_c in cuts.items():
+            out = scan(x, u, w0, K, COLS, rows_c)
+            err = require_equal(f"{name}, {cut}", zip(out, plain(x, u, w0, K, COLS, rows_c)))
+            require_equal(f"{name}, {cut}, against the step twin", zip(out, want))
+            times.append(graph_ms(lambda: scan(x, u, w0, K, COLS, rows_c), 16))
+        if int((want[0] >= 0).sum()) == 0:
+            raise AssertionError(f"{name}: the very tall panel has no pivots")
+        note_bound(name, nbytes(x, u, *want))
+        block_ms = graph_ms(lambda: block(x, u, w0, K, COLS), 4)
+        res[name] = (err, times[0], cuda_ms(lambda: plain(x, u, w0, K, COLS, route.chunk_rows), 1))
+        print(f"{name} at the very tall panel 20 ({x.shape[0] if x.dim() == 3 else 1} x "
+              f"{VERY_TALL_ROWS} rows, graph replay): "
+              + "; ".join(f"{cut} {t:.4f} ms ({1000 * t / K:.3f} us a step)"
+                          for cut, t in zip(cuts, times))
+              + f"; the one-block kernel {block_ms:.4f} ms; twin {res[name][2]:.1f} ms; route "
+              f"{route.chunks} chunks of {route.chunk_rows} rows on {route.nblocks} blocks "
+              f"({card})")
     return res
 
 
@@ -1135,7 +1194,7 @@ def check_batches(dev, card: str, single_s: float) -> dict:
     from gf2bv_tpu_torch import LinearSystem
     from gf2bv_tpu_torch.crypto.mt import MT19937
     from gf2bv_tpu_torch.crypto.mt_torch import COLS, _state_words, solve_mt19937_batch
-    from gf2bv_tpu_torch.ops import _cuda, gauss_batched, gauss_blocked
+    from gf2bv_tpu_torch.ops import _cuda, gauss_batched, gauss_blocked, phase1
 
     pairs = [mt_outputs(SEED + 100 + b) for b in range(NB)]
     states = [s for s, _ in pairs]
@@ -1202,20 +1261,29 @@ def check_batches(dev, card: str, single_s: float) -> dict:
         print(f"{name}: B={NB} warm {t:.4f} s = {NB / t:.3f} recoveries/s ({card})")
 
     # two very tall systems (more rows than the largest cluster holds): the batch
-    # takes the kept one-block scan, one block a system
+    # takes the chained scan, a cluster a system in each of a panel's launches
     del mats
     vpairs = [mt_outputs(SEED + 200 + b, VERY_TALL_SAMPLES) for b in range(2)]
     vmats = torch.stack([flagship_system(dev, outs, VERY_TALL_ROWS) for _, outs in vpairs])
+    chunks = phase1.scan_batched_route(2, VERY_TALL_ROWS, K // 32).chunks
+
+    def tall_batch():
+        return [_state_words(o) for o in gauss_batched.solve_batched(vmats, COLS, 0, device=dev)]
+
     _cuda.reset_launches()
-    got, t = timed(lambda: gauss_batched.solve_batched(vmats, COLS, 0, device=dev))
+    got, t = timed(tall_batch)
     tall = check_launches("solve_batched mode 0, very tall", {
-        "scan_batched_block": 80, "reconstruct_batched": 80, "update_trailing": 160})
-    if [_state_words(o) for o in got] != [s for s, _ in vpairs]:
+        "scan_batched_chunked": 80 * chunks, "reconstruct_batched": 80,
+        "update_trailing": 160})
+    if got != [s for s, _ in vpairs]:
         raise AssertionError("solve_batched on the very tall systems did not recover the states")
+    warm = warm_best(tall_batch, got, "solve_batched, very tall")
     print(f"solve_batched mode 0 on 2 very tall systems ({VERY_TALL_ROWS} x {WP} words): "
-          f"states recovered; launches {tall}; {t:.4f} s ({card})")
+          f"states recovered; launches {tall}; cold {t:.4f} s, warm best of 3 {warm:.4f} s "
+          f"({card})")
+    profile_solve(tall_batch, card, "solve_batched mode 0, 2 very tall", warm)
     return {"scan_batched": mode1["scan_batched"],
-            "scan_batched_block": tall["scan_batched_block"],
+            "scan_batched_chunked": tall["scan_batched_chunked"],
             "reconstruct_batched": mode1["reconstruct_batched"],
             "update_trailing": mode0["update_trailing"]}
 
@@ -1291,7 +1359,7 @@ def check_engines(dev, card: str) -> dict:
     """Every other engine through solve_mt19937, with its launch counts, and
     its full RREF against the default engine's; the tall system."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS, solve_mt19937
-    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked
+    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked, phase1
 
     state, outs = mt_outputs(SEED)
     a = flagship_system(dev, outs)
@@ -1346,22 +1414,30 @@ def check_engines(dev, card: str) -> dict:
               f"recovered; launches {counts}, {gauss_blocked.SUBSET_FALLBACKS['panels']} "
               f"subset fallback passes; solve_mt19937 warm best of 3 {best:.4f} s ({card})")
     vstate, vouts = mt_outputs(SEED + 8, VERY_TALL_SAMPLES)
+    chunks = phase1.scan_route(VERY_TALL_ROWS, K // 32).chunks
+
+    def very_tall():
+        return solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev)
+
     _cuda.reset_launches()
-    got, cold = timed(lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+    got, cold = timed(very_tall)
     counts = check_launches("very tall system", {
-        "scan_block": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+        "scan_chunked": 79 * chunks, "reconstruct": 79, "update_full": 16, "update_seg": 63})
     if got != vstate:
         raise AssertionError("very tall system: state not recovered")
-    launches["scan_block"] = counts["scan_block"]
+    launches["scan_chunked"] = counts["scan_chunked"]
+    warm = warm_best(very_tall, vstate, "very tall system")
     print(f"very tall system ({VERY_TALL_SAMPLES} outputs, {VERY_TALL_ROWS} x {WP} words: more "
           f"rows than the largest cluster holds), default engine: state recovered; launches "
-          f"{counts}; solve_mt19937 {cold:.4f} s ({card})")
+          f"{counts}; solve_mt19937 cold {cold:.4f} s, warm best of 3 {warm:.4f} s ({card})")
+    profile_solve(very_tall, card, "very tall system, pallas_scan+mxu", warm)
     with engines_env("pallas_scan", "mxu_la"):
         _cuda.reset_launches()
         got, cold = timed(
             lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
         counts = check_launches("very tall system, mxu_la", {
-            "scan_block": 1, "reconstruct": 79, "update_scan_block": 79, "update_full": 79})
+            "scan_chunked": chunks, "reconstruct": 79, "update_scan_block": 79,
+            "update_full": 79})
     if got != vstate:
         raise AssertionError("very tall system, mxu_la: state not recovered")
     launches["update_scan_block"] = counts["update_scan_block"]
@@ -1571,7 +1647,7 @@ def main() -> int:
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
     for key in ("scan2", "scan2_block", "scan_minkey", "phase1_fused", "phase1_fused_block",
-                "update_scan", "scan_block", "update_scan_block"):
+                "update_scan", "scan_chunked", "update_scan_block"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

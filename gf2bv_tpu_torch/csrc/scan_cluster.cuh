@@ -46,6 +46,21 @@
 // A template flag swaps steps 1-2 for the min-key scan's election (below,
 // at scan_cluster_body).
 //
+// A second flag, kChain, makes the body one link of the chained scan
+// (scan_chunked.cu): the cluster scans one chunk of a slice too tall for any
+// cluster, its rows [base, base + rows) of a slice of ld rows, and applies
+// the pivots that the chunks before it elected.  Those come in a record of
+// the columns taken so far (struct ScanChain), loaded into shared memory at
+// the start: at a column the record marks as taken, each thread XORs the
+// pivot's words from the column's word up into its live candidates and sets
+// their coefficient bit, with no election, no exchange and no barrier (the
+// record is the same in every block, so the skip is cluster-uniform and the
+// slot parity and mbarrier phases advance only on exchange steps).  A pivot
+// the chunk elects at a column not taken is the global one: the writer
+// stores it in prow and, with its words as they stood at that step, in the
+// record.  The first chunk loads no record and writes prow and the record's
+// rows at every column.
+//
 // The body takes the block's rank and the cluster's size as arguments: the
 // caller's grid may hold many clusters (one per system of a batch) or other
 // work beside the one scan cluster.  Its two cluster barriers (before the
@@ -74,11 +89,27 @@ constexpr int kScanHeaderQuads = 2 * kMaxCluster * kSlotQuads + 2 * 32 / 4 + 1;
 constexpr int kMinKeyHeaderQuads =
     2 * kMaxCluster * kMinKeySlotQuads + 2 * (kClusterThreads / 32) * 16 / 4 + 1;
 constexpr size_t kMaxBlockSmem = 232448;  // 227 KB
+// The record of a chained scan in shared memory, after the election's header:
+// the pivots' slice words [K][2] quads, then their rows [K] ints, for K <= 256.
+constexpr int kMaxRecordCols = 256;
+constexpr int kRecordQuads = 2 * kMaxRecordCols + kMaxRecordCols / 4;
 
-template <bool kMinKey>
+template <bool kMinKey, bool kChain = false>
 __host__ __device__ constexpr int scan_header_quads() {
-  return kMinKey ? kMinKeyHeaderQuads : kScanHeaderQuads;
+  return (kMinKey ? kMinKeyHeaderQuads : kScanHeaderQuads) + (kChain ? kRecordQuads : 0);
 }
+
+// One link of the chained scan.  record: the system's record in global
+// memory, 9 K words: the pivots' slice words [K][2] quads (column jj's at
+// quads 2 jj, 2 jj + 1), then their global rows [K] (-1: not taken).  ld: the
+// rows of the whole slice (the stride of bT_in and cT); base: the chunk's
+// first row; first: the chunk is the first (it loads no record).
+struct ScanChain {
+  int32_t* record = nullptr;
+  int ld = 0;
+  int base = 0;
+  bool first = true;
+};
 
 // The exchange's primitives (PTX: mbarrier, mapa, st.async).  Addresses are
 // 32-bit shared-memory addresses; a remote one is the same offset mapped into
@@ -171,19 +202,26 @@ __device__ __forceinline__ int min_keys(const uint4* src, int n, int sw, int non
 // at each level, 2.13 us a step (2.83 with each reduction behind a branch);
 // one reduction a level carrying all 16 keys, 1.75-1.91; keys formed once a
 // block (this form), 1.56; the 1-pivot election 0.92.
-template <bool kCluster, int kSlots, bool kMinKey = false>
+//
+// kChain: one link of the chained scan (above); bT_in, used_in, used_out and
+// cT point at the chunk's first row, rows is the chunk's, chain.ld the
+// slice's, and smem4 holds scan_header_quads<false, true>() quads of header.
+template <bool kCluster, int kSlots, bool kMinKey = false, bool kChain = false>
 __device__ __forceinline__ void
 scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
                   int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
                   uint32_t* __restrict__ cT, int rows, int kw, int w0, int cols, int rpb,
-                  int rpb_pad, uint4* smem4, int rank, int nb) {
+                  int rpb_pad, uint4* smem4, int rank, int nb, ScanChain chain = {}) {
+  static_assert(!(kMinKey && kChain), "the chained scan elects by the 1-pivot rule");
   constexpr int slot_quads = kMinKey ? kMinKeySlotQuads : kSlotQuads;
   constexpr int header = scan_header_quads<kMinKey>();
   uint4* slots = smem4;                                        // [2][kMaxCluster][slot_quads]
   // [2][32] warp minima; min-key: [2][16 warps] records of four quads
   int* warp_min = reinterpret_cast<int*>(smem4 + 2 * kMaxCluster * slot_quads);
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem4 + header - 1);  // [2]
-  uint4* bT_s = smem4 + header;                                // [halves][rpb_pad]
+  uint4* rec_w = smem4 + header;                               // kChain: [K][2]
+  int* rec_row = reinterpret_cast<int*>(rec_w + 2 * kMaxRecordCols);  // kChain: [K]
+  uint4* bT_s = smem4 + scan_header_quads<kMinKey, kChain>();  // [halves][rpb_pad]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int nthreads = kClusterThreads, nwarps = kClusterThreads / 32;
   const unsigned full = 0xffffffffu;
@@ -191,6 +229,9 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
   const int row0 = rank * rpb;
   const int nloc = max(0, min(rpb, rows - row0));       // rows of this block
   const bool writer = rank == 0 && tid == 0;
+  const int ld = kChain ? chain.ld : rows;       // the stride of bT_in and cT
+  const int base = kChain ? chain.base : 0;      // global row of local row 0
+  const bool chained = kChain && !chain.first;   // earlier chunks took columns
 
   // Thread tid owns the rows row0 + i * nthreads + tid, i < kSlots.  Bit i of
   // live: that row exists and is unused; c[i]: its coefficient word for the
@@ -208,10 +249,17 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
         uint32_t w[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          w[q] = 4 * h + q < kw ? bT_in[(size_t)(4 * h + q) * rows + r] : 0u;
+          w[q] = 4 * h + q < kw ? bT_in[(size_t)(4 * h + q) * ld + r] : 0u;
         bT_s[h * rpb_pad + loc] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
+  }
+  const int K = 32 * kw;
+  if (chained) {  // the record of the earlier chunks; read-only from here on
+    const uint4* gw = reinterpret_cast<const uint4*>(chain.record);
+    for (int j = tid; j < 2 * K; j += nthreads) rec_w[j] = gw[j];
+    for (int j = tid; j < K; j += nthreads) rec_row[j] = chain.record[8 * K + j];
+    if (!kCluster) __syncthreads();  // a cluster's barrier below orders it
   }
   // no block writes into another's shared memory before that block runs and
   // has its mbarriers ready (one arrival each: the thread that arms it)
@@ -227,15 +275,64 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
 
   // the valid columns of the panel are the steps [jlo, jhi): arguments only
   const long long first = 1LL - 32LL * w0, last = (long long)cols - 32LL * w0;
-  const int K = 32 * kw;
   const int jlo = (int)max(0LL, min((long long)K, first));
   const int jhi = (int)max(0LL, min((long long)K, last + 1));
-  int p = 0;  // parity of the valid steps: which slots and warp minima are in use
+  int p = 0;  // parity of the exchange steps: which slots and warp minima are in use
   for (int jj = 0; jj < K; ++jj) {
     const int sw = jj >> 5, hs = sw >> 2, q = sw & 3;
     const uint32_t bit = 1u << (jj & 31);
     int piv = rows;
-    if (jj >= jlo && jj < jhi) {  // cluster-uniform
+    // a column an earlier chunk took: its pivot's words swept into this
+    // thread's candidates, nothing else (cluster-uniform: the record).  The
+    // run of taken columns from jj to the end of word sw is swept with the
+    // rows in registers (all of a thread's rows, or four at a time of eight):
+    // each row is read and written once a run instead of once a column.
+    const bool taken = chained && jj >= jlo && jj < jhi && rec_row[jj] >= 0;
+    if (taken) {
+      const int wend = min(jhi, (jj | 31) + 1);
+      int jend = jj + 1;
+      while (jend < wend && rec_row[jend] >= 0) ++jend;
+      const bool upper = hs == 0 && halves == 2;
+      constexpr int kGroup = kSlots % 4 ? kSlots : 4;  // divides kSlots
+#pragma unroll
+      for (int g0 = 0; g0 < kSlots; g0 += kGroup) {
+        uint4 v[kGroup], u[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const int loc = (g0 + i) * nthreads + tid;
+          v[i] = u[i] = make_uint4(0u, 0u, 0u, 0u);
+          if ((live >> (g0 + i)) & 1u) {
+            v[i] = bT_s[hs * rpb_pad + loc];
+            if (upper) u[i] = bT_s[rpb_pad + loc];
+          }
+        }
+        for (int j = jj; j < jend; ++j) {
+          const uint32_t bj = 1u << (j & 31);
+          const uint4 r1 = rec_w[2 * j + 1];
+          uint4 bph = hs ? r1 : rec_w[2 * j];
+          if (q > 0) bph.x = 0u;
+          if (q > 1) bph.y = 0u;
+          if (q > 2) bph.z = 0u;
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i) {
+            if (!((live >> (g0 + i)) & 1u) || !(word_of(v[i], q) & bj)) continue;
+            v[i] = xor4(v[i], bph);
+            if (upper) u[i] = xor4(u[i], r1);
+            c[g0 + i] ^= bj;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const int loc = (g0 + i) * nthreads + tid;
+          if ((live >> (g0 + i)) & 1u) {
+            bT_s[hs * rpb_pad + loc] = v[i];
+            if (upper) bT_s[rpb_pad + loc] = u[i];
+          }
+        }
+      }
+      jj = jend - 1;  // the step's tail below: the coefficients at the word's end
+    }
+    if (jj >= jlo && jj < jhi && !taken) {  // cluster-uniform
       // this thread's rows: the half that holds the column's word, and for
       // the candidates the half above it, all kept in registers for the sweep
       uint4 v[kSlots], u[kSlots];
@@ -378,6 +475,11 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
         }
       }
       p ^= 1;
+      if (kChain && writer && piv < rows) {  // the pivot's words as they stand now
+        uint4* gw = reinterpret_cast<uint4*>(chain.record);
+        gw[2 * jj] = bp0;
+        gw[2 * jj + 1] = bp1;
+      }
 
       if (piv < rows) {  // cluster-uniform: decided from the exchanged slots
         // only the words from sw on change: clear the pivot's words below it
@@ -399,12 +501,17 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
         }
       }
     }
-    if (writer) prow[jj] = piv < rows ? piv : -1;
+    // a later chunk writes only the columns it elects: the first wrote the rest
+    if (writer && (!chained || piv < rows)) {
+      const int g = piv < rows ? base + piv : -1;
+      prow[jj] = g;
+      if (kChain) chain.record[8 * K + jj] = g;
+    }
     if ((jj & 31) == 31) {  // word sw of the coefficients is final
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         const int loc = i * nthreads + tid;
-        if (loc < nloc) cT[(size_t)sw * rows + row0 + loc] = c[i];
+        if (loc < nloc) cT[(size_t)sw * ld + row0 + loc] = c[i];
         c[i] = 0u;
       }
     }

@@ -44,7 +44,7 @@ LAUNCHES = {
     "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
     "scan_batched_block": 0, "update_scan_block": 0,
     "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
-    "update_mxu2_probe": 0,
+    "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
 }
 
 _P = ctypes.c_void_p
@@ -70,6 +70,12 @@ _SIGNATURES = {
     "gf2_scan_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, batch, rows, kw, w0, cols, stream)
     "gf2_scan_batched_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, record, rows, kw, w0, cols, chunk_rows,
+    #  nblocks, nblocks_last, stream)
+    "gf2_scan_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, record, batch, rows, kw, w0, cols, chunk_rows,
+    #  nblocks, nblocks_last, stream)
+    "gf2_scan_batched_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (rows, kw, nblocks, out: resident clusters of that size)
     "gf2_scan_occupancy": [_I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)

@@ -6,8 +6,12 @@ Port of ``gf2bv_tpu/ops/gauss_batched.py``.  Per K-column panel:
   launch (``_make_scan_kernel_b`` via ``_scan_batched``); CUDA source
   ``csrc/scan.cu`` (``gf2_scan_batched``: one thread-block cluster per system
   with its state in shared memory, body in ``csrc/scan_cluster.cuh``; past the
-  largest cluster's rows ``gf2_scan_batched_block``, one block per system,
-  :func:`scan_batched_block`), plain twin :func:`scan_batched_plain`;
+  largest cluster's rows ``gf2_scan_batched_chunked``, the chained scan of
+  ``csrc/scan_chunked.cu`` with a cluster per system in each launch,
+  :func:`scan_batched_chunked`), plain twin :func:`scan_batched_plain`, and
+  :func:`scan_batched_chunked_plain` in the chain's order;
+  ``gf2_scan_batched_block`` (one block per system, :func:`scan_batched_block`)
+  is the earlier kernel for the tall slices, on no path of the default engine;
 * gathers of each system's pivot rows and coefficient words;
 * :func:`reconstruct_batched` — pivot-row rebuild + triangular back pass of
   all B systems (``_make_reconstruct_kernel_b`` via ``_reconstruct_batched``);
@@ -44,7 +48,14 @@ from .gauss_blocked import (
     rref_origin_blocked,
     selector_from_prow,
 )
-from .phase1 import reconstruct_plain, scan_batched_route, scan_steps_plain
+from .phase1 import (
+    launch_chunked,
+    reconstruct_plain,
+    scan_batched_route,
+    scan_chunked_route,
+    scan_chunked_steps_plain,
+    scan_steps_plain,
+)
 
 # Systems per batched elimination.  The reference's VMEM_BATCH_MAX = 16 was
 # the TPU's scoped-VMEM compile limit; here it bounds the device memory of a
@@ -94,10 +105,35 @@ def _check_batched(bT: torch.Tensor, K: int) -> None:
         raise ValueError(f"K={K} does not match bT's {bT.shape[1]} words")
 
 
+def scan_batched_chunked_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int,
+                               cols: int, chunk_rows: int):
+    """Plain twin of :func:`scan_batched_chunked` in the chain's order
+    (``phase1.scan_chunked_steps_plain``); outputs as :func:`scan_batched`."""
+    return scan_chunked_steps_plain(bT, used, w0, K, cols, chunk_rows)
+
+
+def scan_batched_chunked(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                         chunk_rows: int | None = None):
+    """The batched scan as a chain of launches over row chunks, each of one
+    cluster per system: the kernel for slices taller than the largest cluster
+    holds (``phase1.scan_batched_route``), any slices with ``chunk_rows``
+    given (by default ``phase1.scan_chunk_rows``).  Raises when a chunk fits
+    no cluster or the card cannot place one.  Outputs as
+    :func:`scan_batched`."""
+    _check_batched(bT, K)
+    nb, kw, rows = bT.shape
+    route = scan_chunked_route(rows, kw, chunk_rows, nb, "scan_batched_chunked")
+    if not _cuda.on_cuda(bT):
+        return scan_batched_chunked_plain(bT, used, w0, K, cols, route.chunk_rows)
+    return launch_chunked("gf2_scan_batched_chunked", "scan_batched_chunked", bT, used, w0, K,
+                          cols, route, batched=True)
+
+
 def scan_batched_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The batched scan by one block per system with the state in global
-    memory: the kernel for slices taller than the largest cluster holds
-    (``phase1.scan_batched_route``); outputs as :func:`scan_batched`."""
+    memory: the earlier kernel for slices taller than the largest cluster
+    holds, on no path of the default engine since :func:`scan_batched_chunked`
+    took them, kept to be timed beside it; outputs as :func:`scan_batched`."""
     _check_batched(bT, K)
     if not _cuda.on_cuda(bT):
         return scan_batched_plain(bT, used, w0, K, cols)
@@ -122,15 +158,16 @@ def scan_batched(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: in
     """The forward scan of one panel in each of B systems: bT (B, kw, rows),
     used (B, rows) int32.  Returns (prow (B, K), used' (B, rows), cT
     (B, kw, rows)); per system the contract of ``phase1.scan``.  On the card
-    one launch of B clusters, or past the largest cluster's rows of B single
-    blocks (``phase1.scan_batched_route``, decided from the shape alone)."""
+    one launch of B clusters, or past the largest cluster's rows the chained
+    scan, a launch of B clusters a chunk (``phase1.scan_batched_route``,
+    decided from the shape alone)."""
     _check_batched(bT, K)
     if not _cuda.on_cuda(bT):
         return scan_batched_plain(bT, used, w0, K, cols)
     nb, kw, rows = bT.shape
     route = scan_batched_route(nb, rows, kw)
-    if route.kernel == "scan_batched_block":
-        return scan_batched_block(bT, used, w0, K, cols)
+    if route.kernel == "scan_batched_chunked":
+        return scan_batched_chunked(bT, used, w0, K, cols, route.chunk_rows)
     return scan_batched_cluster(bT, used, w0, K, cols, route.nblocks)
 
 

@@ -344,16 +344,27 @@ def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     others the table update on the SMs beside it; past the largest cluster's
     rows :func:`update_scan_block` (``phase1.scan_route``, decided from the
     shape alone)."""
-    from .phase1 import scan_route  # here: phase1 imports this module
-
     rows, wp, kw = _check_shapes(a, sel, pf)
     update_scan_rule(wp, w0)
     if not _cuda.on_cuda(a):
         return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
-    route = scan_route(rows, kw)
-    if route.kernel == "scan_block":
+    kernel, nblocks = update_scan_route(rows, kw)
+    if kernel == "update_scan_block":
         return update_scan_block(a, sel, pf, bTn, used, w0n, cols, w0)
-    return update_scan_cluster(a, sel, pf, bTn, used, w0n, cols, w0, route.nblocks)
+    return update_scan_cluster(a, sel, pf, bTn, used, w0n, cols, w0, nblocks)
+
+
+def update_scan_route(rows: int, kw: int) -> tuple[str, int]:
+    """(kernel, blocks of its scan cluster) of the fused update + scan: the
+    1-pivot scan's cluster (``phase1.scan_route``), or past what the largest
+    cluster holds the one-block kernel ``update_scan_block`` (1 block).  A
+    pure function of the shape."""
+    from .phase1 import scan_route  # here: phase1 imports this module
+
+    route = scan_route(rows, kw)
+    if route.kernel != "scan":
+        return "update_scan_block", 1
+    return "update_scan", route.nblocks
 
 
 # -- the update engines pallas, mxu2, mxu4 ------------------------------------------

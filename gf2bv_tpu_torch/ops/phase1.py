@@ -10,9 +10,13 @@ step structure:
   - ``""``: one pivot per step (``_make_scan_kernel``); CUDA
     ``csrc/scan.cu`` ``gf2_scan``, a thread-block cluster with the state in
     shared memory (body in ``csrc/scan_cluster.cuh``), or, for more rows than the largest cluster holds,
-    ``gf2_scan_block`` (:func:`scan_block`: one block, state in global
-    memory); :func:`scan_route` picks between them from the shape alone;
-    twin of both :func:`scan_plain`;
+    ``gf2_scan_chunked`` (:func:`scan_chunked`, ``csrc/scan_chunked.cu``: a
+    chain of cluster scans over row chunks, each applying the pivots the
+    chunks before it elected); :func:`scan_route` picks between them from the
+    shape alone; twin of both :func:`scan_plain`, and
+    :func:`scan_chunked_plain` in the chain's order.  ``gf2_scan_block``
+    (:func:`scan_block`: one block, state in global memory) is the earlier
+    kernel for the tall slices, on no path of the default engine;
   - ``"2"``: two pivots per step (``_make_scan_kernel2``), :func:`scan2`;
     CUDA ``csrc/scan2.cu`` ``gf2_scan2``, a thread-block cluster that elects
     both pivots of a pair in one exchange (body in
@@ -164,50 +168,137 @@ SCAN2_SLOT_QUADS = 7
 _SCAN2_HEADER_BYTES = 16 * (2 * 16 * SCAN2_SLOT_QUADS + 2 * (SCAN_THREADS // 32) + 1)
 
 
+# the chained scan's record of the columns taken, in shared memory after the
+# election's header: the pivots' words [256][2] quads, then their rows [256]
+_RECORD_BYTES = 16 * (2 * 256 + 256 // 4)
+
+
 class ScanRoute(NamedTuple):
-    kernel: str  # "scan" (the cluster kernel) or "scan_block"
-    nblocks: int  # blocks of the cluster; 1 for scan_block
+    kernel: str  # "scan" (the cluster kernel) or a one-block kernel
+    nblocks: int  # blocks of the cluster; 1 for a one-block kernel
     rows_per_block: int
-    smem_bytes: int  # dynamic shared memory of one block; 0 for scan_block
+    smem_bytes: int  # dynamic shared memory of one block; 0 for a one-block kernel
+
+
+class ChunkedScanRoute(NamedTuple):
+    """The chained scan of a slice too tall for one cluster: ``chunks``
+    launches, chunk c the rows [c * chunk_rows, (c + 1) * chunk_rows), each
+    on a cluster of ``nblocks`` blocks (``rows_per_block`` rows and
+    ``smem_bytes`` of shared memory a block) but the last, on
+    ``nblocks_last``."""
+
+    kernel: str  # "scan_chunked" or "scan_batched_chunked"
+    nblocks: int
+    rows_per_block: int
+    smem_bytes: int
+    chunks: int
+    chunk_rows: int
+    nblocks_last: int
 
 
 def scan_smem_bytes(rows_per_block: int, kw: int, minkey: bool = False,
-                    pairs: bool = False) -> int:
+                    pairs: bool = False, chained: bool = False) -> int:
     """Shared memory of one block of the cluster scan: the header (the
     min-key election's with ``minkey``, the two-pivot election's with
-    ``pairs``), then the slice words of each row in 16-byte halves of four,
-    rows padded to 32."""
+    ``pairs``; with ``chained`` the chained scan's record after it), then the
+    slice words of each row in 16-byte halves of four, rows padded to 32."""
     header = (_SCAN2_HEADER_BYTES if pairs else _MINKEY_HEADER_BYTES if minkey
-              else _SCAN_HEADER_BYTES)
+              else _SCAN_HEADER_BYTES) + (_RECORD_BYTES if chained else 0)
     return header + 16 * (-(-kw // 4)) * (-(-rows_per_block // 32) * 32)
 
 
-def scan_fits(rows_per_block: int, kw: int, minkey: bool = False, pairs: bool = False) -> bool:
+def scan_fits(rows_per_block: int, kw: int, minkey: bool = False, pairs: bool = False,
+              chained: bool = False) -> bool:
     """Whether one block of the cluster scan can own that many rows."""
     return (rows_per_block <= SCAN_MAX_SLOTS * SCAN_THREADS
-            and scan_smem_bytes(rows_per_block, kw, minkey, pairs) <= SCAN_SMEM_MAX)
+            and scan_smem_bytes(rows_per_block, kw, minkey, pairs, chained) <= SCAN_SMEM_MAX)
 
 
-def scan_max_rows(kw: int) -> int:
-    """The most rows the largest cluster holds; a taller slice takes
-    :func:`scan_block`."""
-    per_block = (SCAN_SMEM_MAX - _SCAN_HEADER_BYTES) // (16 * (-(-kw // 4))) // 32 * 32
+def scan_max_rows(kw: int, chained: bool = False) -> int:
+    """The most rows the largest cluster holds (with ``chained``: as one
+    chunk of the chained scan); a taller slice takes :func:`scan_chunked`."""
+    header = _SCAN_HEADER_BYTES + (_RECORD_BYTES if chained else 0)
+    per_block = (SCAN_SMEM_MAX - header) // (16 * (-(-kw // 4))) // 32 * 32
     return SCAN_CLUSTER_SIZES[-1] * min(per_block, SCAN_MAX_SLOTS * SCAN_THREADS)
 
 
-def scan_route(rows: int, kw: int) -> ScanRoute:
+def scan_route(rows: int, kw: int) -> ScanRoute | ChunkedScanRoute:
     """Which kernel scans a (kw, rows) slice, and on how many blocks: the
     smallest cluster whose blocks own at most ``SCAN_BLOCK_ROWS`` rows each;
     failing that the largest cluster, if its blocks hold the state (shared
-    memory, and ``SCAN_MAX_SLOTS`` rows a thread); else the one-block kernel
-    with its state in global memory."""
+    memory, and ``SCAN_MAX_SLOTS`` rows a thread); else the chained scan
+    (:func:`scan_chunked_route`)."""
     if rows < 1 or not 1 <= kw <= 8:
         raise ValueError(f"no scan kernel for rows={rows}, kw={kw}")
+    nb = _cluster_rule(rows, kw)
+    if nb is None:
+        return scan_chunked_route(rows, kw)
+    rpb = -(-rows // nb)
+    return ScanRoute("scan", nb, rpb, scan_smem_bytes(rpb, kw))
+
+
+def _cluster_rule(rows: int, kw: int, chained: bool = False) -> int | None:
+    """The smallest cluster whose blocks own at most ``SCAN_BLOCK_ROWS`` rows
+    each, failing that the largest, if its blocks hold the state; None when
+    none does."""
     for nb in SCAN_CLUSTER_SIZES:
         rpb = -(-rows // nb)
-        if scan_fits(rpb, kw) and (rpb <= SCAN_BLOCK_ROWS or nb == SCAN_CLUSTER_SIZES[-1]):
-            return ScanRoute("scan", nb, rpb, scan_smem_bytes(rpb, kw))
-    return ScanRoute("scan_block", 1, rows, 0)
+        if scan_fits(rpb, kw, chained=chained) and (
+                rpb <= SCAN_BLOCK_ROWS or nb == SCAN_CLUSTER_SIZES[-1]):
+            return nb
+    return None
+
+
+def _halved_for_batch(nb: int, batch: int, rows: int, kw: int, chained: bool = False) -> int:
+    """``nb`` halved while the batch has more systems than the card runs
+    clusters of that size at once (``SCAN_RESIDENT_CLUSTERS``) and the smaller
+    cluster still holds a slice of ``rows`` rows."""
+    while (nb > 1 and batch > SCAN_RESIDENT_CLUSTERS[nb]
+           and scan_fits(-(-rows // (nb // 2)), kw, chained=chained)):
+        nb //= 2
+    return nb
+
+
+def scan_chunk_rows(rows: int, kw: int) -> int:
+    """The chained scan's chunk: the fewest chunks a cluster holds, of equal
+    rows (the last may have fewer).  A step's cost grows with the rows a
+    thread owns, so equal chunks beat filling the largest cluster first
+    (both cuts measured on the H100: ``PERF.md`` §6)."""
+    chunks = -(-rows // scan_max_rows(kw, chained=True))
+    return -(-rows // chunks)
+
+
+def _chunk_cluster(rows: int, kw: int, batch: int) -> int:
+    """Blocks a system for one chunk of ``rows`` rows of the chained scan: the
+    cluster rule of :func:`scan_route`, halved for the batch as in
+    :func:`scan_batched_route`, with the record in shared memory."""
+    nb = _cluster_rule(rows, kw, chained=True)
+    if nb is None:
+        raise ValueError(f"a chunk of {rows} rows fits no cluster at kw={kw}")
+    return _halved_for_batch(nb, batch, rows, kw, chained=True)
+
+
+def scan_chunked_route(rows: int, kw: int, chunk_rows: int | None = None, batch: int = 1,
+                       kernel: str = "scan_chunked") -> ChunkedScanRoute:
+    """The chained scan's launches for ``batch`` (kw, rows) slices: chunks of
+    ``chunk_rows`` rows (by default :func:`scan_chunk_rows`; any count from 1
+    to what the largest cluster holds), each on the cluster
+    :func:`_chunk_cluster` picks for its rows.  A pure function of the
+    shape."""
+    if rows < 1 or not 1 <= kw <= 8 or batch < 1:
+        raise ValueError(f"no chained scan for rows={rows}, kw={kw}, batch={batch}")
+    most = scan_max_rows(kw, chained=True)
+    if chunk_rows is None:
+        chunk_rows = scan_chunk_rows(rows, kw)
+    if not 1 <= chunk_rows <= most:
+        raise ValueError(f"chunk_rows={chunk_rows} outside 1..{most}")
+    chunks = -(-rows // chunk_rows)
+    full = min(chunk_rows, rows)
+    nb = _chunk_cluster(full, kw, batch)
+    rpb = -(-full // nb)
+    last = _chunk_cluster(rows - (chunks - 1) * chunk_rows, kw, batch)
+    return ChunkedScanRoute(kernel, nb, rpb, scan_smem_bytes(rpb, kw, chained=True), chunks,
+                            chunk_rows, last)
 
 
 # Clusters of each size that an H100 (132 SMs) runs at once, one block an SM
@@ -226,17 +317,14 @@ def scan_batched_route(batch: int, rows: int, kw: int) -> ScanRoute:
     (``SCAN_RESIDENT_CLUSTERS``) and the smaller cluster still holds a slice:
     measured at the flagship slice, one wave of 8-block clusters (0.30 ms a
     panel) beats two waves of 16-block ones (0.48), and two of 8 (0.59) three
-    of 16 (0.71).  Past the largest cluster's rows the one-block kernel per
-    system (``scan_batched_block``)."""
+    of 16 (0.71).  Past the largest cluster's rows the chained scan, a
+    cluster per system in each launch (``scan_batched_chunked``)."""
     if batch < 1:
         raise ValueError(f"no scan kernel for a batch of {batch}")
     route = scan_route(rows, kw)
-    if route.kernel == "scan_block":
-        return ScanRoute("scan_batched_block", 1, rows, 0)
-    nb = route.nblocks
-    while (nb > 1 and batch > SCAN_RESIDENT_CLUSTERS[nb]
-           and scan_fits(-(-rows // (nb // 2)), kw)):
-        nb //= 2
+    if route.kernel == "scan_chunked":
+        return scan_chunked_route(rows, kw, batch=batch, kernel="scan_batched_chunked")
+    nb = _halved_for_batch(route.nblocks, batch, rows, kw)
     rpb = -(-rows // nb)
     return ScanRoute("scan_batched", nb, rpb, scan_smem_bytes(rpb, kw))
 
@@ -256,12 +344,107 @@ def scan_occupancy(rows: int, kw: int, nblocks: int) -> int:
 
 def scan_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The 1-pivot scan by one block with its state in global memory: the
-    kernel for slices taller than the largest cluster holds
-    (:func:`scan_route`); outputs as :func:`scan`."""
+    earlier kernel for slices taller than the largest cluster holds, on no
+    path of the default engine since :func:`scan_chunked` took them, kept to
+    be timed beside it; outputs as :func:`scan`."""
     _check_k(bT, K)
     if not _cuda.on_cuda(bT):
         return scan_plain(bT, used, w0, K, cols)
     return _launch_scan("gf2_scan_block", "scan_block", bT, used, w0, K, cols)
+
+
+def scan_chunked_steps_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int,
+                             cols: int, chunk_rows: int):
+    """The chained scan's order over B systems, plain torch: bT (B, kw,
+    rows), used (B, rows).  The chunks of ``chunk_rows`` rows in turn, each
+    alone but for a record of the columns the chunks before it took (the
+    pivot's global row and its words as they stood at that step): at a taken
+    column every candidate of the chunk gets the recorded words and its
+    coefficient bit; at another valid column the chunk elects its lowest
+    candidate, which is the global pivot, and records it.  Returns (prow
+    (B, K), used' (B, rows), cT (B, kw, rows)), bit for bit those of
+    :func:`scan_steps_plain`."""
+    nb, kw, rows = bT.shape
+    dev = bT.device
+    prow = torch.full((nb, K), -1, dtype=I32, device=dev)
+    rec_words = torch.zeros((nb, K, kw), dtype=I32, device=dev)
+    u_out = torch.empty_like(used)
+    c_out = torch.empty_like(bT)
+    for base in range(0, rows, chunk_rows):
+        b = bT[:, :, base : base + chunk_rows].clone()
+        u = used[:, base : base + chunk_rows].clone()
+        c = torch.zeros_like(b)
+        n = b.shape[2]
+        lane = torch.arange(n, dtype=I32, device=dev)[None, :]
+        for jj in range(K):
+            if not 1 <= 32 * w0 + jj <= cols:
+                continue
+            sw, sh = jj >> 5, jj & 31
+            cand = (((b[:, sw] >> sh) & 1) == 1) & (u == 0)  # (B, n)
+            taken = prow[:, jj] >= 0  # (B,): the record's rows are prow's
+            piv = torch.where(cand & ~taken[:, None], lane, n).amin(dim=1)
+            has = piv < n
+            mine = (lane == piv[:, None]) & has[:, None]
+            words = b.gather(2, torch.where(has, piv, 0).long()[:, None, None]
+                             .expand(nb, kw, 1))[:, :, 0]  # (B, kw): the pivot's now
+            bp = torch.where(taken[:, None], rec_words[:, jj], words)
+            elim = cand & ~mine
+            b[:, sw:] ^= torch.where(elim[:, None, :], bp[:, sw:, None], 0)
+            c[:, sw] ^= torch.where(elim, _bitval(sh), 0).to(I32)
+            u = torch.where(mine, 1, u).to(I32)
+            prow[:, jj] = torch.where(has, base + piv, prow[:, jj])
+            rec_words[:, jj] = torch.where(has[:, None], words, rec_words[:, jj])
+        u_out[:, base : base + n] = u
+        c_out[:, :, base : base + n] = c
+    return prow, u_out, c_out
+
+
+def scan_chunked_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                       chunk_rows: int):
+    """Plain twin of :func:`scan_chunked` in the chain's order: bT (kw, rows),
+    used (1, rows).  Outputs as :func:`scan_plain`, bit for bit."""
+    prow, u, c = scan_chunked_steps_plain(bT[None], used, w0, K, cols, chunk_rows)
+    return prow[0], u, c[0]
+
+
+def launch_chunked(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor, w0: int,
+                   K: int, cols: int, route: ChunkedScanRoute, batched: bool):
+    """Launch the chained scan: one C call that launches its ``route.chunks``
+    kernels in order on the stream, counted as that many launches.  bT
+    (B, kw, rows), used (B, rows); the record is scratch of 9 K words a
+    system."""
+    nb, kw, rows = bT.shape
+    dev = bT.device
+    _cuda.require(bT, "bT", (nb, kw, rows), dev)
+    _cuda.require(used, "used", (nb, rows), dev)
+    prow = torch.empty((nb, K), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    record = torch.empty((nb, 9 * K), dtype=I32, device=dev)
+    shape = (rows, kw, int(w0), int(cols), route.chunk_rows, route.nblocks, route.nblocks_last)
+    rc = getattr(_cuda.lib(), fn_name)(
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        record.data_ptr(), *((nb,) if batched else ()), *shape, _cuda.stream_of(bT),
+    )
+    _cuda.check(rc, f"{key} kernel")
+    _cuda.LAUNCHES[key] += route.chunks
+    return prow, used_o, cT
+
+
+def scan_chunked(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                 chunk_rows: int | None = None):
+    """The 1-pivot scan as a chain of cluster scans over row chunks: the
+    kernel for slices taller than the largest cluster holds
+    (:func:`scan_route`), any slice with ``chunk_rows`` given (by default
+    :func:`scan_chunk_rows`).  Raises when a chunk fits no cluster or the card
+    cannot place one.  Outputs as :func:`scan`."""
+    _check_k(bT, K)
+    route = scan_chunked_route(bT.shape[1], bT.shape[0], chunk_rows)
+    if not _cuda.on_cuda(bT):
+        return scan_chunked_plain(bT, used, w0, K, cols, route.chunk_rows)
+    prow, used_o, cT = launch_chunked("gf2_scan_chunked", "scan_chunked", bT[None], used, w0,
+                                      K, cols, route, batched=False)
+    return prow[0], used_o, cT[0]
 
 
 def scan_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
@@ -292,7 +475,7 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
     1-pivot scan, ``"2"`` :func:`scan2`, ``"m"`` :func:`scan_minkey` (the
     1-pivot scan for ``MINKEY_MAX_ROWS`` rows or more).  All three give the
     same outputs.  On the card the 1-pivot scan is the cluster kernel or, past
-    the largest cluster's rows, :func:`scan_block` (:func:`scan_route`)."""
+    the largest cluster's rows, :func:`scan_chunked` (:func:`scan_route`)."""
     if variant == "m" and bT.shape[1] >= MINKEY_MAX_ROWS:
         variant = ""
     if variant == "2":
@@ -305,8 +488,8 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
     if not _cuda.on_cuda(bT):
         return scan_plain(bT, used, w0, K, cols)
     route = scan_route(bT.shape[1], bT.shape[0])
-    if route.kernel == "scan_block":
-        return scan_block(bT, used, w0, K, cols)
+    if route.kernel == "scan_chunked":
+        return scan_chunked(bT, used, w0, K, cols, route.chunk_rows)
     return scan_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
@@ -426,7 +609,7 @@ def scan2_route(rows: int, kw: int) -> ScanRoute:
     one-block kernel ``scan2_block``.  A pure function of the shape."""
     route = scan_route(rows, kw)
     rpb = route.rows_per_block
-    if route.kernel == "scan_block" or not scan_fits(rpb, kw, pairs=True):
+    if route.kernel != "scan" or not scan_fits(rpb, kw, pairs=True):
         return ScanRoute("scan2_block", 1, rows, 0)
     return ScanRoute("scan2", route.nblocks, rpb, scan_smem_bytes(rpb, kw, pairs=True))
 
@@ -883,7 +1066,7 @@ def phase1_fused_route(rows: int, kw: int) -> ScanRoute:
     (:func:`scan_route`), or past the largest cluster's rows the one-block
     kernel (``phase1_fused_block``).  A pure function of the shape."""
     route = scan_route(rows, kw)
-    if route.kernel == "scan_block":
+    if route.kernel != "scan":
         return ScanRoute("phase1_fused_block", 1, rows, 0)
     rpb = route.rows_per_block
     return ScanRoute("phase1_fused", route.nblocks, rpb, phase1_fused_smem_bytes(rpb, kw))

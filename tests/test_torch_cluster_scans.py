@@ -48,8 +48,10 @@ def t32(a):
 def test_scan_batched_route_holds_every_system(batch, rows, kw):
     route = phase1.scan_batched_route(batch, rows, kw)
     single = phase1.scan_route(rows, kw)
-    if single.kernel == "scan_block":  # the one-block kernel exactly where the single scan's is
-        assert route == ("scan_batched_block", 1, rows, 0)
+    if single.kernel == "scan_chunked":  # the chained scan exactly where the single scan's is
+        assert route == phase1.scan_chunked_route(rows, kw, batch=batch,
+                                                  kernel="scan_batched_chunked")
+        assert route.chunk_rows == single.chunk_rows and route.chunks == single.chunks
         return
     assert route.kernel == "scan_batched"
     assert route.nblocks in phase1.SCAN_CLUSTER_SIZES and route.nblocks <= single.nblocks
@@ -82,7 +84,7 @@ def test_scan_batched_route_of_the_solver_shapes():
     assert phase1.scan_batched_route(16, 20224, 8)[:3] == ("scan_batched", 8, 2528)
     assert phase1.scan_batched_route(16, 40192, 8)[:3] == ("scan_batched", 16, 2512)
     assert phase1.scan_batched_route(16, 10000, 8)[:3] == ("scan_batched", 4, 2500)
-    assert phase1.scan_batched_route(3, 67328, 8).kernel == "scan_batched_block"
+    assert phase1.scan_batched_route(3, 67328, 8).kernel == "scan_batched_chunked"
     assert phase1.scan_batched_route(4, 20224, 8)[1:] == phase1.scan_route(20224, 8)[1:]
 
 

@@ -35,7 +35,7 @@ def _rand(rng, shape, dev):
 
 
 # rows that take each route of the 1-pivot scan: one block, clusters of 2, 4, 8
-# and 16 blocks, and the one-block kernel past the largest cluster
+# and 16 blocks, and the chained scan past the largest cluster
 SCAN_ROUTE_SHAPES = [
     (512, 64, 0, 5000), (512, 64, 2, 80), (2048, 256, 8, 300),
     (3000, 256, 0, 10**6), (20224, 256, 160, 19968),
@@ -57,7 +57,8 @@ def test_scan_kernel(dev, rows, K, w0, cols, used_frac):
     route = phase1.scan_route(rows, K // 32)
     _cuda.reset_launches()
     got = phase1.scan(bT, used, w0, K, cols)
-    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {route.kernel: 1}
+    launches = route.chunks if route.kernel == "scan_chunked" else 1  # a launch a chunk
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {route.kernel: launches}
     want = phase1.scan_plain(bT, used, w0, K, cols)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -67,7 +68,8 @@ def test_scan_kernel(dev, rows, K, w0, cols, used_frac):
 def test_scan_routes_are_all_taken():
     taken = {(r.kernel, r.nblocks) for r in
              (phase1.scan_route(rows, K // 32) for rows, K, _, _ in SCAN_ROUTE_SHAPES)}
-    assert taken == {("scan", nb) for nb in phase1.SCAN_CLUSTER_SIZES} | {("scan_block", 1)}
+    assert taken == ({("scan", nb) for nb in phase1.SCAN_CLUSTER_SIZES}
+                     | {("scan_chunked", phase1.SCAN_CLUSTER_SIZES[-1])})
 
 
 @pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
@@ -224,7 +226,7 @@ def test_wrapper_counts_launches(dev):
         "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
         "scan_batched_block": 0, "update_scan_block": 0,
         "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
-        "update_mxu2_probe": 0,
+        "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
     }
 
 
@@ -576,17 +578,19 @@ def test_update_scan_on_every_cluster_size(dev, nblocks):
 
 
 def test_very_tall_slices_take_the_one_block_kernels(dev):
-    """Past the largest cluster's rows the batched scan and the fused update +
-    scan run their one-block kernels, by the route and not after a failure."""
+    """Past the largest cluster's rows the batched scan runs the chained scan
+    (a launch a chunk) and the fused update + scan its one-block kernel, by
+    the route and not after a failure."""
     rows, K, kw, wp = VERY_TALL_ROWS, 256, 8, 128
-    assert phase1.scan_route(rows, kw).kernel == "scan_block"
-    assert phase1.scan_batched_route(2, rows, kw).kernel == "scan_batched_block"
+    assert phase1.scan_route(rows, kw).kernel == "scan_chunked"
+    assert phase1.scan_batched_route(2, rows, kw).kernel == "scan_batched_chunked"
+    assert panel_update.update_scan_route(rows, kw) == ("update_scan_block", 1)
     rng = np.random.default_rng(67)
     bT = _rand(rng, (2, kw, rows), dev)
     used = u32_to_torch((rng.random((2, rows)) < 0.25).astype(np.uint32), dev)
     _cuda.reset_launches()
     got = gauss_batched.scan_batched(bT, used, 8, K, 10**6)
-    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_batched_block": 1}
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_batched_chunked": 2}
     for g, w in zip(got, gauss_batched.scan_batched_plain(bT, used, 8, K, 10**6)):
         assert torch.equal(g, w)
     a = _rand(rng, (rows, wp), dev)
@@ -1003,3 +1007,81 @@ def test_update_mxu2_probe_kernel(dev):
         panel_update.update_mxu2_probe(a.clone(), sel, pf, probe)
     torch.cuda.synchronize()
     assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_mxu2_probe": 4}
+
+
+# -- the chained scan of slices taller than one cluster --------------------------------
+
+
+def _chained_inputs(rng, B, kw, rows, pattern, dev, chunk_rows=None):
+    """B slices: ``random`` (a quarter of the rows used), ``chunk0-used`` (every
+    row of the first chunk used, so the later chunks elect), ``sparse`` (one
+    bit in 40 set: columns without a candidate, pivots in later chunks)."""
+    bT = rng.integers(0, 2**32, size=(B, kw, rows), dtype=np.uint32)
+    used = (rng.random((B, rows)) < 0.25).astype(np.uint32)
+    if pattern == "chunk0-used":
+        used[:, : phase1.scan_chunked_route(rows, kw, chunk_rows).chunk_rows] = 1
+    elif pattern == "sparse":
+        keep = (rng.random((B, kw, rows, 32)) < 1 / 40) * (1 << np.arange(32, dtype=np.uint64))
+        bT = keep.sum(-1).astype(np.uint32)
+    return u32_to_torch(bT, dev), u32_to_torch(used, dev)
+
+
+@pytest.mark.parametrize("pattern", ["random", "chunk0-used", "sparse"])
+@pytest.mark.parametrize("rows,kw,chunk_rows,w0,cols", [
+    (65537, 8, None, 8, 10**6), (67328, 8, None, 160, 19968), (140000, 8, None, 0, 200),
+    (70000, 1, None, 0, 10**6), (70000, 3, None, 2, 150), (5000, 8, 1024, 8, 10**6),
+])
+def test_scan_chunked_kernel(dev, rows, kw, chunk_rows, w0, cols, pattern):
+    """The chained scan equals its twin in the chain's order and the step twin
+    (max_abs_err 0): a one-row last chunk, the very tall system's shape, three
+    chunks, narrow slices, a forced chunk of 1024 rows; invalid columns at
+    either end; a launch a chunk."""
+    rng = np.random.default_rng(rows + kw + len(pattern))
+    bT, used = _chained_inputs(rng, 1, kw, rows, pattern, dev, chunk_rows)
+    K = 32 * kw
+    route = phase1.scan_chunked_route(rows, kw, chunk_rows)
+    _cuda.reset_launches()
+    got = phase1.scan_chunked(bT[0], used, w0, K, cols, chunk_rows)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_chunked": route.chunks}
+    want = phase1.scan_chunked_plain(bT[0], used, w0, K, cols, route.chunk_rows)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, phase1.scan_plain(bT[0], used, w0, K, cols)):
+        assert torch.equal(g, w)
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("B,rows", [(1, 67328), (2, 67328), (4, 67328), (2, 140000)])
+def test_scan_batched_chunked_kernel(dev, B, rows):
+    """One cluster per system in each launch, each system with its own record:
+    the systems differ (random, first chunk used, sparse), and each equals the
+    single chained scan's twin."""
+    rng = np.random.default_rng(B + rows)
+    kw, K, w0, cols = 8, 256, 160, 19968
+    parts = [_chained_inputs(rng, 1, kw, rows, ("random", "chunk0-used", "sparse")[b % 3], dev)
+             for b in range(B)]
+    bT = torch.cat([p[0] for p in parts]).contiguous()
+    used = torch.cat([p[1] for p in parts]).contiguous()
+    route = phase1.scan_batched_route(B, rows, kw)
+    assert route.kernel == "scan_batched_chunked"
+    _cuda.reset_launches()
+    got = gauss_batched.scan_batched(bT, used, w0, K, cols)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+        "scan_batched_chunked": route.chunks}
+    want = gauss_batched.scan_batched_chunked_plain(bT, used, w0, K, cols, route.chunk_rows)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, gauss_batched.scan_batched_plain(bT, used, w0, K, cols)):
+        assert torch.equal(g, w)
+        assert torch.equal(g, p)
+
+
+def test_scan_chunked_raises_instead_of_falling_back(dev):
+    """A chain the kernel cannot take (a cluster of 3 blocks) raises; nothing
+    else runs in its place and nothing is counted."""
+    rng = np.random.default_rng(9)
+    bT, used = _chained_inputs(rng, 1, 8, 67328, "random", dev)
+    bad = phase1.scan_chunked_route(67328, 8)._replace(nblocks=3)
+    _cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="scan_chunked kernel"):
+        phase1.launch_chunked("gf2_scan_chunked", "scan_chunked", bT, used, 8, 256, 10**6,
+                              bad, batched=False)
+    assert not any(_cuda.LAUNCHES.values())

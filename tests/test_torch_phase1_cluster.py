@@ -56,7 +56,7 @@ def test_phase1_fused_route(rows, kw):
     route = phase1.phase1_fused_route(rows, kw)
     scan = phase1.scan_route(rows, kw)
     if rows > phase1.scan_max_rows(kw):
-        assert scan.kernel == "scan_block"
+        assert scan.kernel == "scan_chunked"
         assert route == ("phase1_fused_block", 1, rows, 0)
         return
     assert route.kernel == "phase1_fused"

@@ -39,8 +39,10 @@ def t32(a):
 
 def _check_route(rows, kw):
     route = phase1.scan_route(rows, kw)
-    if route.kernel == "scan_block":
-        assert (route.nblocks, route.rows_per_block, route.smem_bytes) == (1, rows, 0)
+    if route.kernel == "scan_chunked":  # past the largest cluster: the chained scan
+        assert rows > phase1.scan_max_rows(kw)
+        assert route.chunks == -(-rows // route.chunk_rows) > 1
+        assert route.chunk_rows <= phase1.scan_max_rows(kw, chained=True)
         return route
     assert route.kernel == "scan"
     assert route.nblocks in phase1.SCAN_CLUSTER_SIZES
@@ -71,7 +73,7 @@ def test_scan_route_past_the_largest_cluster(kw):
     most = phase1.scan_max_rows(kw)
     route = _check_route(most, kw)
     assert (route.kernel, route.nblocks) == ("scan", phase1.SCAN_CLUSTER_SIZES[-1])
-    assert _check_route(most + 1, kw).kernel == "scan_block"
+    assert _check_route(most + 1, kw).kernel == "scan_chunked"
     assert not phase1.scan_fits(-(-(most + 1) // phase1.SCAN_CLUSTER_SIZES[-1]), kw)
 
 
@@ -82,7 +84,7 @@ def test_scan_route_of_the_solver_shapes():
     assert phase1.scan_route(40192, 8)[:3] == ("scan", 16, 2512)
     assert phase1.scan_route(phase1.SUBSET_ROWS, 8)[:3] == ("scan", 1, 768)
     assert phase1.scan_route(10000, 8)[:2] == ("scan", 8)
-    assert phase1.scan_route(67328, 8).kernel == "scan_block"
+    assert phase1.scan_route(67328, 8).kernel == "scan_chunked"
     assert phase1.scan_route(20224, 8) == phase1.scan_route(20224, 8)
 
 

@@ -219,7 +219,7 @@ def test_scan2_route(rows, kw):
     two-pivot header; the one-block kernel exactly past its largest cluster."""
     route = phase1.scan2_route(rows, kw)
     scan = phase1.scan_route(rows, kw)
-    if scan.kernel == "scan_block" or not phase1.scan_fits(scan.rows_per_block, kw, pairs=True):
+    if scan.kernel != "scan" or not phase1.scan_fits(scan.rows_per_block, kw, pairs=True):
         assert route == ("scan2_block", 1, rows, 0)
         return
     assert route.kernel == "scan2"
