@@ -7,9 +7,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
 3. Holds each kernel (the ports of the fifteen TPU kernels, the chained scans
-   of slices taller than one cluster, and the five one-block kernels kept
-   beside the cluster scan, the batched scan, the fused update + scan, the
-   fused phase 1 and the two-pivot scan) against its plain PyTorch twin on the
+   and the chained fused kernels of slices taller than one cluster, and the
+   five one-block kernels kept beside the cluster scan, the batched scan, the
+   fused update + scan, the fused phase 1 and the two-pivot scan) against its
+   plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
@@ -52,7 +53,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (67328 rows), one system and two, against their twins in the chain's order
    and the step twins, timed from a CUDA graph's replay under both cuts of the
    rows into chunks (equal chunks, the route's; the largest cluster filled
-   first) beside the one-block kernels they replaced.
+   first) beside the one-block kernels they replaced; at the same panel the
+   chained fused phase 1 and fused update + scan (full and trailing) against
+   their twins in the chain's order, the step twins and the split engine,
+   timed beside the one-block kernels they replaced, the split engine, the
+   update apart, the chain alone and its first link alone, and the two-pivot
+   scan's one-block kernel, which the very tall system still runs.
    Then the launch floor: microseconds per launch over 256 chained launches
    of the probe (many blocks, 16-byte accesses), of torch.bitwise_xor and of
    the one-tile update.
@@ -96,9 +102,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    which must run the chained scan (79 panels x 2 chunks launches, no
    one-block scan; timed cold and warm, best of 3, with the device time of a
    profiled call), under mxu_la, which must run the chained scan for its
-   first slice and the one-block fused update + scan 79 times, under phase 1
-   pallas, which must run the one-block fused phase 1 79 times, and under
-   pallas_scan2, which must run the one-block two-pivot scan 79 times.
+   first slice and the chained fused update + scan 79 x 2 chunks launches,
+   and under phase 1 pallas, which must run the chained fused phase 1 79 x 2
+   chunks launches (no one-block kernel under either; each timed cold and
+   warm, best of 3, and profiled: device time by kernel, idle share), and
+   under pallas_scan2, which must run the one-block two-pivot scan 79 times.
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -194,12 +202,12 @@ KERNELS = {
                     "gf2bv_tpu/ops/pallas_phase1.py:439"),
     "phase1_fused": ("phase1_fused", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
                      "gf2bv_tpu/ops/pallas_phase1.py:39"),
-    "phase1_fused_block": ("phase1_fused_block", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
-                           "gf2bv_tpu/ops/pallas_phase1.py:39"),
+    "phase1_fused_chunked": ("phase1_fused_chunked", "gf2bv_tpu_torch/csrc/fused_chunked.cu",
+                             "gf2bv_tpu/ops/pallas_phase1.py:39"),
     "update_scan": ("update_scan", "gf2bv_tpu_torch/csrc/panel_update.cu",
                     "gf2bv_tpu/ops/pallas_update.py:514"),
-    "update_scan_block": ("update_scan_block", "gf2bv_tpu_torch/csrc/panel_update.cu",
-                          "gf2bv_tpu/ops/pallas_update.py:514"),
+    "update_scan_chunked": ("update_scan_chunked", "gf2bv_tpu_torch/csrc/fused_chunked.cu",
+                            "gf2bv_tpu/ops/pallas_update.py:514"),
     "update_pallas": ("update_pallas", "gf2bv_tpu_torch/csrc/update_table.cu",
                       "gf2bv_tpu/ops/pallas_update.py:35"),
     "update_mxu2": ("update_mxu2", "gf2bv_tpu_torch/csrc/update_mma.cu",
@@ -487,11 +495,12 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
 
 
 def check_chunked(dev, card: str, w0: int) -> dict:
-    """The chained scans at panel 20 of the very tall system, one system and
-    two, each system with a quarter of its rows used: held against their
-    twins in the chain's order and the step twins, timed from a CUDA graph's
-    replay under both cuts of the rows into chunks, beside the one-block
-    kernels they replaced."""
+    """The chained kernels at panel 20 of the very tall system, each system
+    with a quarter of its rows used: the chained scans, one system and two,
+    held against their twins in the chain's order and the step twins, timed
+    from a CUDA graph's replay under both cuts of the rows into chunks, beside
+    the one-block kernels they replaced; then the chained fused phase 1 and
+    fused update + scan (check_fused_chunked)."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_batched, phase1
 
@@ -499,6 +508,7 @@ def check_chunked(dev, card: str, w0: int) -> dict:
     mats = torch.stack([flagship_system(dev, mt_outputs(SEED + 20 + b, VERY_TALL_SAMPLES)[1],
                                         VERY_TALL_ROWS) for b in range(2)])
     bT2 = mats[:, :, w0 : w0 + kw].transpose(1, 2).contiguous()
+    a = mats[0].contiguous()
     del mats
     gen = torch.Generator().manual_seed(SEED + 21)
     used2 = (torch.rand((2, VERY_TALL_ROWS), generator=gen) < 0.25).to(torch.int32).to(dev)
@@ -532,6 +542,112 @@ def check_chunked(dev, card: str, w0: int) -> dict:
               + f"; the one-block kernel {block_ms:.4f} ms; twin {res[name][2]:.1f} ms; route "
               f"{route.chunks} chunks of {route.chunk_rows} rows on {route.nblocks} blocks "
               f"({card})")
+    res.update(check_fused_chunked(dev, card, a, bT, used, w0, res["scan_chunked"][1]))
+    return res
+
+
+def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -> dict:
+    """The chained fused phase 1 and fused update + scan at panel 20 of the
+    very tall system, by their routes, against their twins in the chain's
+    order, the step twins and (phase 1) the split engine; each timed from a
+    CUDA graph's replay beside the one-block kernel it replaced, the split
+    engine or the update apart, the chain alone and its first link alone
+    (the first chunk's rows scanned as a slice of their own); the two-pivot
+    scan's one-block kernel at the same panel."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import gauss_blocked, panel_update, phase1
+
+    kw = K // 32
+    res = {}
+    froute = phase1.phase1_fused_route(VERY_TALL_ROWS, kw)
+    if froute.kernel != "phase1_fused_chunked":
+        raise AssertionError(f"very tall fused phase 1 routed to {froute.kernel}")
+    chunk = froute.chunk_rows
+    args = (a, bT, used, w0, K, COLS)
+    out_k = phase1.phase1_panel(*args)
+    out_p = phase1.phase1_panel_chunked_plain(*args, chunk)
+    require_equal("phase1_fused_chunked against the step twin",
+                  zip(out_k, phase1.phase1_panel_plain(*args)))
+    require_equal("phase1_fused_chunked against the split engine",
+                  zip(out_k, phase1.phase1_panel_split(*args)))
+    pivots = out_k[1][out_k[1] >= 0]
+    if pivots.numel() == 0:
+        raise AssertionError("phase1_fused_chunked: the very tall panel has no pivots")
+    note_bound("phase1_fused_chunked", nbytes(bT, used, *out_k) + 4 * K * WP)
+    res["phase1_fused_chunked"] = (
+        require_equal("phase1_fused_chunked", zip(out_k, out_p)),
+        graph_ms(lambda: phase1.phase1_panel(*args), 16),
+        cuda_ms(lambda: phase1.phase1_panel_chunked_plain(*args, chunk), 1))
+    block_out = phase1.phase1_panel_block(*args)
+    require_equal("phase1_fused_block at the very tall panel", zip(block_out, out_p))
+    block_ms = graph_ms(lambda: phase1.phase1_panel_block(*args), 2)
+    split_ms = graph_ms(lambda: phase1.phase1_panel_split(*args), 16)
+    first = bT[:, :chunk].contiguous(), used[:, :chunk].contiguous()
+    link0_ms = graph_ms(lambda: phase1.scan_chunked(*first, w0, K, COLS), 16)
+    again = graph_ms(lambda: phase1.phase1_panel(*args), 16)
+    nocol = graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, 0), 16)
+    print(f"phase1_fused_chunked at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph "
+          f"replay): {res['phase1_fused_chunked'][1]:.4f} ms (again {again:.4f}), "
+          f"{froute.chunks} chunks of {chunk} rows on {froute.nblocks} / {froute.nblocks_last} "
+          f"blocks, pivot rows in chunks {sorted(set((pivots // chunk).tolist()))}; the "
+          f"one-block kernel (phase1_fused_block) {block_ms:.4f} ms; split engine (chained scan "
+          f"+ gathers + reconstruct) {split_ms:.4f} ms; the chained scan alone {chain_ms:.4f} "
+          f"ms, its first link alone {link0_ms:.4f} ms; no valid column {nocol:.4f} ms; twin "
+          f"{res['phase1_fused_chunked'][2]:.1f} ms ({card})")
+
+    # the two-pivot scan's one-block kernel, which the very tall system still runs
+    want = phase1.scan_plain(bT, used, w0, K, COLS)
+    require_equal("scan2_block at the very tall panel",
+                  zip(phase1.scan2_block(bT, used, w0, K, COLS), want))
+    scan2_ms = graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 2)
+    print(f"scan2_block at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph replay): "
+          f"{scan2_ms:.4f} ms ({1000 * scan2_ms / K:.3f} us a step) ({card})")
+
+    # the next panel's slice after this panel's update, as the look-ahead loop has it
+    pf, prow = out_k[0], out_k[1]
+    sel = gauss_blocked.selector_from_prow(bT.T.contiguous(), prow)
+    uroute = panel_update.update_scan_route(VERY_TALL_ROWS, kw)
+    if uroute.kernel != "update_scan_chunked":
+        raise AssertionError(f"very tall fused update + scan routed to {uroute.kernel}")
+    errs, ms_k, ms_p = [], [], []
+    scratch = a.clone()
+    for w0t in (None, w0):
+        nxt = panel_update.update_full_plain(a.clone(), sel, pf) if w0t is None else \
+            panel_update.update_trailing_plain(a.clone(), sel, pf, w0t)
+        bTn = nxt[:, w0 + kw : w0 + 2 * kw].T.contiguous()
+        del nxt
+        uargs = (sel, pf, bTn, used, w0 + kw, COLS, w0t)
+        out_k = panel_update.update_scan(a.clone(), *uargs)
+        out_p = panel_update.update_scan_chunked_plain(a.clone(), *uargs, uroute.chunk_rows)
+        require_equal(f"update_scan_chunked w0={w0t} against the step twin",
+                      zip(out_k, panel_update.update_scan_plain(a.clone(), *uargs)))
+        require_equal(f"update_scan_block w0={w0t} at the very tall panel", zip(
+            panel_update.update_scan_block(a.clone(), *uargs), out_p))
+        upd_bytes = update_bytes(VERY_TALL_ROWS, kw,
+                                 WP if w0t is None else 1 + WP - 128 * (w0t // 128))
+        note_bound("update_scan_chunked", upd_bytes + nbytes(bTn, used, *out_k[1:]))
+        errs.append(require_equal(f"update_scan_chunked w0={w0t}", zip(out_k, out_p)))
+        ms_k.append(graph_ms(lambda: panel_update.update_scan(scratch, *uargs), 16))
+        ms_p.append(cuda_ms(lambda: panel_update.update_scan_chunked_plain(
+            scratch, *uargs, uroute.chunk_rows), 1))
+        block_ms = graph_ms(lambda: panel_update.update_scan_block(scratch, *uargs), 2)
+        upd_ms = graph_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
+                          else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 16)
+        scan_ms = graph_ms(lambda: phase1.scan(bTn, used, w0 + kw, K, COLS), 16)
+        firstn = bTn[:, : uroute.chunk_rows].contiguous(), used[:, : uroute.chunk_rows].contiguous()
+        link0_ms = graph_ms(lambda: phase1.scan_chunked(*firstn, w0 + kw, K, COLS), 16)
+        part = graph_ms(lambda: panel_update.update_scan(
+            scratch, sel, pf, bTn, used, w0 + kw, 0, w0t), 16)
+        print(f"update_scan_chunked w0={w0t} at the very tall panel 20 ({VERY_TALL_ROWS} rows, "
+              f"graph replay): {ms_k[-1]:.4f} ms, {uroute.chunks} launches (a link each, "
+              f"{panel_update.update_scan_first_rows(VERY_TALL_ROWS)} of the update's rows "
+              f"beside the first, the rest beside the others); the one-block kernel "
+              f"(update_scan_block) "
+              f"{block_ms:.4f} ms; apart: the chained scan {scan_ms:.4f} ms (its first link "
+              f"alone {link0_ms:.4f} ms) and the update {upd_ms:.4f} ms; its update with no "
+              f"valid column {part:.4f} ms; twin {ms_p[-1]:.1f} ms ({card})")
+    # the time is the mean of the full and trailing cases
+    res["update_scan_chunked"] = (max(errs), sum(ms_k) / 2, sum(ms_p) / 2)
     return res
 
 
@@ -1431,29 +1547,24 @@ def check_engines(dev, card: str) -> dict:
           f"rows than the largest cluster holds), default engine: state recovered; launches "
           f"{counts}; solve_mt19937 cold {cold:.4f} s, warm best of 3 {warm:.4f} s ({card})")
     profile_solve(very_tall, card, "very tall system, pallas_scan+mxu", warm)
-    with engines_env("pallas_scan", "mxu_la"):
-        _cuda.reset_launches()
-        got, cold = timed(
-            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
-        counts = check_launches("very tall system, mxu_la", {
-            "scan_chunked": chunks, "reconstruct": 79, "update_scan_block": 79,
-            "update_full": 79})
-    if got != vstate:
-        raise AssertionError("very tall system, mxu_la: state not recovered")
-    launches["update_scan_block"] = counts["update_scan_block"]
-    print(f"very tall system, pallas_scan+mxu_la: state recovered; launches {counts}; "
-          f"solve_mt19937 {cold:.4f} s ({card})")
-    with engines_env("pallas", "mxu"):
-        _cuda.reset_launches()
-        got, cold = timed(
-            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
-        counts = check_launches("very tall system, phase 1 pallas", {
-            "phase1_fused_block": 79, "update_full": 16, "update_seg": 63})
-    if got != vstate:
-        raise AssertionError("very tall system, phase 1 pallas: state not recovered")
-    launches["phase1_fused_block"] = counts["phase1_fused_block"]
-    print(f"very tall system, pallas+mxu: state recovered; launches {counts}; "
-          f"solve_mt19937 {cold:.4f} s ({card})")
+    # the fused engines run their chained kernels: a launch a chunk of every panel
+    for p1, p2, want in (
+            ("pallas_scan", "mxu_la", {"scan_chunked": chunks, "reconstruct": 79,
+                                       "update_scan_chunked": 79 * chunks, "update_full": 79}),
+            ("pallas", "mxu", {"phase1_fused_chunked": 79 * chunks, "update_full": 16,
+                               "update_seg": 63})):
+        with engines_env(p1, p2):
+            _cuda.reset_launches()
+            got, cold = timed(very_tall)
+            counts = check_launches(f"very tall system, {p1}+{p2}", want)
+            if got != vstate:
+                raise AssertionError(f"very tall system, {p1}+{p2}: state not recovered")
+            launches.update({k: counts[k] for k in want if k.endswith("_chunked")
+                             and k != "scan_chunked"})
+            warm = warm_best(very_tall, vstate, f"very tall system, {p1}+{p2}")
+            print(f"very tall system, {p1}+{p2}: state recovered; launches {counts}; "
+                  f"solve_mt19937 cold {cold:.4f} s, warm best of 3 {warm:.4f} s ({card})")
+            profile_solve(very_tall, card, f"very tall system, {p1}+{p2}", warm)
     with engines_env("pallas_scan2", "mxu"):
         _cuda.reset_launches()
         got, cold = timed(
@@ -1646,8 +1757,8 @@ def main() -> int:
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan2_block", "scan_minkey", "phase1_fused", "phase1_fused_block",
-                "update_scan", "scan_chunked", "update_scan_block"):
+    for key in ("scan2", "scan2_block", "scan_minkey", "phase1_fused", "phase1_fused_chunked",
+                "update_scan", "scan_chunked", "update_scan_chunked"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)
     launches["launch_probe"] = check_launch_floor(dev, card)

@@ -63,13 +63,17 @@
 // flagship shape), under which the update (0.11-0.12 ms on the SMs that are
 // left) hides.
 //
-// gf2_update_scan_block is that kernel's earlier design under its own name,
-// for rows past what the largest cluster holds: block 0 runs the one-block
-// scan with its state in global memory (scan_system.cuh), blocks 1.. run
-// 256-row x 32-word mask-and-XOR tiles.
+// The kernel and its launch live in update_scan.cuh, which the chained
+// kernel's first link (fused_chunked.cu) shares for slices taller than one
+// cluster.  gf2_update_scan_block is that kernel's earlier design under its
+// own name, on no solve's path since the chained kernel took those slices,
+// kept to be timed beside it: block 0 runs the one-block scan with its state
+// in global memory (scan_system.cuh), blocks 1.. run 256-row x 32-word
+// mask-and-XOR tiles.
 
 #include "scan_cluster.cuh"
 #include "scan_system.cuh"
+#include "update_scan.cuh"
 #include "update_table.cuh"
 
 namespace {
@@ -188,76 +192,6 @@ update_scan_block_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
       threadIdx.x % kTileWords, threadIdx.x / kTileWords, smem);
 }
 
-// The fused update + scan: blocks [0, nb) are the scan cluster, block nb + u
-// for u < nupdate is update block u (strip u % nstrips, row chunk
-// u / nstrips), the rest pad the last cluster.
-static_assert(gf2::kClusterThreads == gf2::kTabThreads, "one block size for both bodies");
-
-struct UpdatePart {  // the update, cut into blocks as launch_table_update would
-  uint32_t* a;
-  const uint32_t* sel;
-  const uint32_t* pf;
-  int rows, wp, kw, word_lo;
-  gf2::TableGrid grid;
-};
-
-struct ScanPart {  // the scan as gf2_scan would launch it
-  const uint32_t* bTn;
-  const int32_t* used_in;
-  int32_t* prow;
-  int32_t* used_out;
-  uint32_t* cT;
-  int w0n, cols, rpb, rpb_pad, nb;
-};
-
-template <bool kCluster, int kSlots>
-__global__ void __launch_bounds__(gf2::kClusterThreads, 1)
-update_scan_kernel(const UpdatePart up, const ScanPart sc) {
-  extern __shared__ uint4 smem4[];
-  if ((int)blockIdx.x < sc.nb) {
-    gf2::scan_cluster_body<kCluster, kSlots>(sc.bTn, sc.used_in, sc.prow, sc.used_out, sc.cT,
-                                             up.rows, up.kw, sc.w0n, sc.cols, sc.rpb,
-                                             sc.rpb_pad, smem4, (int)blockIdx.x, sc.nb);
-    return;
-  }
-  const gf2::TableGrid& g = up.grid;
-  const int u = (int)blockIdx.x - sc.nb;
-  if (u >= g.nstrips * g.nchunks) return;
-  gf2::table_update_body<0, false>(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo,
-                                   g.const_word, g.chunk_rows, g.aligned, g.sel_vec,
-                                   u % g.nstrips, u / g.nstrips, smem4);
-}
-
-// const_word: the caller's; up.grid is filled here.
-template <bool kCluster, int kSlots>
-cudaError_t launch_update_scan(UpdatePart up, int const_word, const ScanPart& sc,
-                               const gf2::ScanGeometry& g, cudaStream_t stream) {
-  static gf2::ClusterLaunchState state;
-  auto kernel = update_scan_kernel<kCluster, kSlots>;
-  const size_t table = gf2::table_smem_bytes(up.kw);
-  const size_t smem = g.smem > table ? g.smem : table;
-  cudaError_t rc = gf2::prepare_cluster_launch(kernel, &state, sc.nb, smem, stream);
-  int nsm = 0;
-  if (rc == cudaSuccess) rc = gf2::sm_count(&nsm);
-  if (rc != cudaSuccess) return rc;
-  // the update's blocks run beside the scan cluster: on the blocks the card
-  // holds at once in clusters of nb (at most one per SM), less the scan's
-  int beside = state.max_clusters[sc.nb] * sc.nb;
-  if (beside > nsm) beside = nsm;
-  beside -= sc.nb;
-  if (beside < 1) beside = sc.nb;  // nothing beside it: they run after it
-  if (!gf2::table_grid(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo, const_word, 1,
-                       beside, &up.grid))
-    return cudaErrorInvalidValue;
-  const int nupdate = up.grid.nstrips * up.grid.nchunks;
-  const int grid = sc.nb + (nupdate + sc.nb - 1) / sc.nb * sc.nb;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  gf2::cluster_config(&cfg, &attr, grid, sc.nb, smem, stream);
-  rc = cudaLaunchKernelEx(&cfg, kernel, up, sc);
-  return rc != cudaSuccess ? rc : cudaGetLastError();
-}
-
 }  // namespace
 
 // out[i] = (a ? a[i] : 0) ^ XOR_{t : bit t of sel[i]} pf[t] on the words
@@ -336,19 +270,11 @@ extern "C" int gf2_update_scan(uint32_t* a, const uint32_t* sel, const uint32_t*
                                int nblocks, cudaStream_t stream) {
   gf2::ScanGeometry g;
   if (!gf2::scan_geometry(rows, kw, nblocks, &g)) return (int)cudaErrorInvalidValue;
-  const UpdatePart up = {a, sel, pf, rows, wp, kw, word_lo, {}};
-  const ScanPart sc = {bTn, used_in, prow, used_out, cT, w0n, cols, g.rpb, g.rpb_pad, nblocks};
-#define GF2_UPDATE_SCAN_SLOTS(n)                                                          \
-  if (g.slots <= n)                                                                       \
-    return (int)(nblocks == 1 ? launch_update_scan<false, n>(up, const_word, sc, g, stream) \
-                              : launch_update_scan<true, n>(up, const_word, sc, g, stream));
-  GF2_UPDATE_SCAN_SLOTS(1)
-  GF2_UPDATE_SCAN_SLOTS(2)
-  GF2_UPDATE_SCAN_SLOTS(3)
-  GF2_UPDATE_SCAN_SLOTS(5)
-  GF2_UPDATE_SCAN_SLOTS(gf2::kMaxSlots)
-#undef GF2_UPDATE_SCAN_SLOTS
-  return (int)cudaErrorInvalidValue;
+  const gf2::UpdatePart up = {a, sel, pf, rows, wp, kw, word_lo, {}};
+  const gf2::ScanPart sc = {bTn, used_in, prow, used_out, cT, w0n, cols,
+                            g.rpb, g.rpb_pad, nblocks, rows};
+  return (int)gf2::launch_update_scan_by_slots<false>(up, const_word, sc, g, gf2::ScanChain{},
+                                                      stream);
 }
 
 // The same function by the earlier design: block 0 the one-block scan with

@@ -26,22 +26,21 @@
 //      wait acquires at cluster scope, makes every block's prow and cT
 //      visible to every block (with nb = 1, a __syncthreads);
 //   3. every block solves T (pf = T . a[prow]) by itself with the rebuild's
-//      blocked coefficient solve (coeff_blocked_body in reconstruct_coeff.cuh)
-//      on its first four warps, reading the pivot rows' slice words from a
-//      and their coefficients from cT through prow, into its own shared
-//      memory: the same 0.026 ms in every block, and no exchange;
+//      blocked coefficient solve, reading the pivot rows through prow;
 //   4. block r forms the strips r, r + nb, ... of pf's 4-word strips with the
-//      table body of update_table.cuh, reading the pivot rows of each strip
-//      from a through prow (no gather).
-// The block's shared memory is the larger of the scan's and the scan header
-// plus T and the larger of the solve's words and the tables; the product
-// stages start after the scan's header, so nothing the exchange used is
-// written again.  The coefficient solve is compiled for K = 256 and takes
-// every kw (the groups past kw hold no pivot and are skipped), so the kernel
-// has the scan's ten instantiations and no more.
+//      table body, reading the pivot rows of each strip from a through prow.
+// Stages 3-4 are phase1_product_body (phase1_product.cuh), which the chained
+// kernel's last link (fused_chunked.cu) calls too.  The block's shared memory
+// is the larger of the scan's and the scan header plus T and the larger of the
+// solve's words and the tables; the product stages start after the scan's
+// header, so nothing the exchange used is written again.  The coefficient
+// solve is compiled for K = 256 and takes every kw, so the kernel has the
+// scan's ten instantiations and no more.
 //
-// gf2_phase1_fused_block is the earlier design under its own name, for rows
-// past what the largest cluster holds: ONE block of 1024 threads, the scan
+// gf2_phase1_fused_block is the earlier design under its own name, on no
+// solve's path since the chained kernel (fused_chunked.cu) took the rows past
+// what the largest cluster holds, kept to be timed beside it: ONE block of
+// 1024 threads, the scan
 // with its state in L2 (scan_system.cuh), each panel row carried in shared
 // memory as [T | slice] (T: the combination of pivot rows a[prow[t]] it is
 // made of; slice: its words w0 .. w0+kw-1), rebuilt per pivot step from the
@@ -51,10 +50,9 @@
 // at full width on the same SM, each pivot row read from a once per 32-word
 // tile.
 
-#include "reconstruct_coeff.cuh"
+#include "phase1_product.cuh"
 #include "scan_cluster.cuh"
 #include "scan_system.cuh"
-#include "update_table.cuh"
 
 namespace {
 
@@ -167,20 +165,6 @@ phase1_fused_block_kernel(const uint32_t* __restrict__ a, const uint32_t* __rest
 
 static_assert(gf2::kClusterThreads == gf2::kTabThreads, "one block size for the scan and tables");
 
-// The coefficient solve runs compiled for K = 256 whatever kw is.
-constexpr int kFusedSolveKw = 8;
-constexpr int kFusedSolveSmemWords = 2816;  // the solve's shared memory at K = 256, words
-static_assert(kFusedSolveSmemWords == gf2::blocked_smem_words(kFusedSolveKw),
-              "the solve's shared memory");
-
-// Bytes of the product stages after the scan's header: T (32 kw rows of kw
-// words, a whole number of quads), then the solve's words or the tables.
-size_t fused_product_bytes(int kw) {
-  const size_t solve = sizeof(uint32_t) * kFusedSolveSmemWords;
-  const size_t tables = gf2::table_smem_bytes(kw);
-  return sizeof(uint32_t) * 32 * kw * kw + (solve > tables ? solve : tables);
-}
-
 // The grid is ONE cluster of nb = gridDim.x blocks (plain when nb == 1);
 // block b has rank b.  nstrips: pf's 4-word strips; aligned: a, pf and wp
 // allow 16-byte accesses.
@@ -197,20 +181,9 @@ phase1_fused_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
                                            cols, rpb, rpb_pad, smem4, rank, nb);
   if (!kCluster) __syncthreads();
 
-  // 3. T of the panel into this block's shared memory, after the scan's header
-  uint32_t* tbits = reinterpret_cast<uint32_t*>(smem4 + gf2::kScanHeaderQuads);  // [32 kw][kw]
-  uint4* work = smem4 + gf2::kScanHeaderQuads + 8 * kw * kw;  // the solve's words, then tables
-  if (threadIdx.x < 32 * gf2::blocked_quads(kFusedSolveKw)) {
-    const gf2::CoeffIndexed src = {a, cT, prow, rows, wp, w0, kw};
-    gf2::coeff_blocked_body<kFusedSolveKw>(src, tbits, kw, reinterpret_cast<uint32_t*>(work));
-  }
-  __syncthreads();
-
-  // 4. this block's strips of pf = T . a[prow]: the K rows are one chunk
-  const int K = 32 * kw;
-  for (int strip = rank; strip < nstrips; strip += nb)
-    gf2::table_update_body<0, true, true>(pf, tbits, a, K, wp, kw, 0, 0, K, aligned, kw == 8,
-                                          strip, 0, work, prow);
+  // 3-4. T, then this block's strips of pf, after the scan's header
+  gf2::phase1_product_body(a, cT, prow, pf, rows, wp, kw, w0, nstrips, aligned,
+                           smem4 + gf2::kScanHeaderQuads, rank, nb);
 }
 
 struct FusedCall {
@@ -229,7 +202,7 @@ template <bool kCluster, int kSlots>
 cudaError_t launch_fused(const FusedCall& c, const gf2::ScanGeometry& g) {
   static gf2::ClusterLaunchState state;
   auto kernel = phase1_fused_kernel<kCluster, kSlots>;
-  const size_t product = sizeof(uint4) * gf2::kScanHeaderQuads + fused_product_bytes(c.kw);
+  const size_t product = sizeof(uint4) * gf2::kScanHeaderQuads + gf2::fused_product_bytes(c.kw);
   const size_t smem = g.smem > product ? g.smem : product;
   cudaError_t rc = gf2::prepare_cluster_launch(kernel, &state, c.nblocks, smem, c.stream);
   if (rc != cudaSuccess) return rc;

@@ -41,8 +41,7 @@
 // shape (phase1.scan_chunked_route); every chunk takes one cluster size but
 // the last, which may be smaller.
 
-#include <algorithm>
-
+#include "scan_chunked.cuh"
 #include "scan_cluster.cuh"
 
 namespace {
@@ -71,32 +70,8 @@ scan_chunk_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
       rpb_pad, smem4, (int)blockIdx.x - b * nb, nb, chain);
 }
 
-// One call of the chained scan: `batch` systems, chunks of chunk_rows rows
-// from row 0, each on clusters of nblocks blocks but the last, on
-// nblocks_last.
-struct ChunkCall {
-  const uint32_t* bT_in;
-  const int32_t* used_in;
-  int32_t* prow;
-  int32_t* used_out;
-  uint32_t* cT;
-  int32_t* record;
-  int batch, rows, kw, w0, cols, chunk_rows, nblocks, nblocks_last;
-  cudaStream_t stream;
-};
-
-constexpr int kHeader = gf2::scan_header_quads<false, true>();
-
-// The geometry of the chunk at `base`; false when no cluster holds it.
-bool chunk_geometry(const ChunkCall& c, int base, int* nrows, int* nb,
-                    gf2::ScanGeometry* g) {
-  *nrows = std::min(c.chunk_rows, c.rows - base);
-  *nb = base + c.chunk_rows >= c.rows ? c.nblocks_last : c.nblocks;
-  return gf2::scan_geometry(*nrows, c.kw, *nb, g, kHeader);
-}
-
 template <bool kCluster, int kSlots>
-cudaError_t launch_chunk(const ChunkCall& c, int base, int nrows, int nb,
+cudaError_t launch_chunk(const gf2::ChunkCall& c, int base, int nrows, int nb,
                          const gf2::ScanGeometry& g) {
   static gf2::ClusterLaunchState state;
   auto kernel = scan_chunk_kernel<kCluster, kSlots>;
@@ -111,8 +86,23 @@ cudaError_t launch_chunk(const ChunkCall& c, int base, int nrows, int nb,
   return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 
-cudaError_t launch_chunk_by_slots(const ChunkCall& c, int base, int nrows, int nb,
-                                  const gf2::ScanGeometry& g) {
+// Every chunk's geometry is checked before the first launch, so that a call
+// the kernel cannot take launches nothing.
+cudaError_t scan_chunked(const gf2::ChunkCall& c) {
+  if (!gf2::chain_fits(c)) return cudaErrorInvalidValue;
+  for (int base = 0; base < c.rows; base += c.chunk_rows) {
+    const cudaError_t rc = gf2::launch_chain_link(c, base);
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+cudaError_t gf2::launch_chain_link(const ChunkCall& c, int base) {
+  int nrows, nb;
+  ScanGeometry g;
+  if (!chunk_geometry(c, base, &nrows, &nb, &g)) return cudaErrorInvalidValue;
 #define GF2_CHUNK_SLOTS(n)                                                 \
   if (g.slots <= n)                                                        \
     return nb == 1 ? launch_chunk<false, n>(c, base, nrows, nb, g)         \
@@ -121,30 +111,10 @@ cudaError_t launch_chunk_by_slots(const ChunkCall& c, int base, int nrows, int n
   GF2_CHUNK_SLOTS(2)
   GF2_CHUNK_SLOTS(3)
   GF2_CHUNK_SLOTS(5)
-  GF2_CHUNK_SLOTS(gf2::kMaxSlots)
+  GF2_CHUNK_SLOTS(kMaxSlots)
 #undef GF2_CHUNK_SLOTS
   return cudaErrorInvalidValue;
 }
-
-// Every chunk's geometry is checked before the first launch, so that a call
-// the kernel cannot take launches nothing.
-cudaError_t scan_chunked(const ChunkCall& c) {
-  if (c.batch < 1 || c.rows < 1 || c.chunk_rows < 1 || c.kw < 1 ||
-      c.kw > gf2::kMaxRecordCols / 32)
-    return cudaErrorInvalidValue;
-  int nrows, nb;
-  gf2::ScanGeometry g;
-  for (int base = 0; base < c.rows; base += c.chunk_rows)
-    if (!chunk_geometry(c, base, &nrows, &nb, &g)) return cudaErrorInvalidValue;
-  for (int base = 0; base < c.rows; base += c.chunk_rows) {
-    chunk_geometry(c, base, &nrows, &nb, &g);
-    const cudaError_t rc = launch_chunk_by_slots(c, base, nrows, nb, g);
-    if (rc != cudaSuccess) return rc;
-  }
-  return cudaSuccess;
-}
-
-}  // namespace
 
 // The chained scan of one system; record: scratch of 9 K words.
 extern "C" int gf2_scan_chunked(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,

@@ -45,6 +45,7 @@ LAUNCHES = {
     "scan_batched_block": 0, "update_scan_block": 0,
     "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
     "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
+    "phase1_fused_chunked": 0, "update_scan_chunked": 0,
 }
 
 _P = ctypes.c_void_p
@@ -98,6 +99,13 @@ _SIGNATURES = {
     #  bT_work, w0n, cols, stream)
     "gf2_update_scan_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                               _P],
+    # (a, bT_in, used_in, prow, used_out, cT, record, pf, rows, wp, kw, w0, cols, chunk_rows,
+    #  nblocks, nblocks_last, stream)
+    "gf2_phase1_fused_chunked": [_P] * 8 + [_I] * 8 + [_P],
+    # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT, record,
+    #  w0n, cols, chunk_rows, nblocks, nblocks_last, first_rows, stream)
+    "gf2_update_scan_chunked": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_table": [_P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, word_lo, const_word, stream)

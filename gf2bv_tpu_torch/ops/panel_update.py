@@ -23,8 +23,13 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
   ``csrc/panel_update.cu`` ``gf2_update_scan``: one launch whose cluster 0 is
   the cluster scan (``csrc/scan_cluster.cuh``) and whose other clusters run
   the table kernel's body (``csrc/update_table.cuh``); past the largest
-  cluster's rows ``gf2_update_scan_block`` (:func:`update_scan_block`: one
-  scanning block, mask-and-XOR tiles); plain twin :func:`update_scan_plain`.
+  cluster's rows ``gf2_update_scan_chunked`` (:func:`update_scan_chunked`,
+  ``csrc/fused_chunked.cu``: the same launch with link 0 of the chained scan
+  as its scan cluster, then the chain's other links); plain twin
+  :func:`update_scan_plain`, and :func:`update_scan_chunked_plain` in the
+  chain's order.  ``gf2_update_scan_block`` (:func:`update_scan_block`: one
+  scanning block, mask-and-XOR tiles) is the earlier kernel for the tall
+  slices, on no solve's path.
 
 * :func:`update_pallas` — the full-width update of the ``pallas`` engine
   (``_panel_update_kernel`` via ``panel_update``); CUDA
@@ -270,11 +275,32 @@ def update_scan_rule(wp: int, w0: int | None) -> tuple[int, bool]:
     return lo, lo > 0
 
 
+def update_scan_chunked_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                              bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                              w0: int | None, chunk_rows: int):
+    """Plain twin of :func:`update_scan_chunked` in the kernel's order: the
+    update under its rule, then the chained scan of ``bTn``
+    (``phase1.scan_chunked_plain``).  Outputs as :func:`update_scan_plain`,
+    bit for bit."""
+    from .phase1 import scan_chunked_plain  # here: phase1 imports this module
+
+    if w0 is None:
+        update_full_plain(a, sel, pf)
+    else:
+        update_trailing_plain(a, sel, pf, w0)
+    prow, used_o, cT = scan_chunked_plain(bTn, used, w0n, pf.shape[0], cols, chunk_rows)
+    return a, prow, cT, used_o
+
+
 def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int, cols: int,
-                        w0: int | None, nblocks: int | None):
+                        w0: int | None, nblocks: int | None, route=None,
+                        first_rows: int | None = None):
     """Launch a fused update + scan kernel: the cluster kernel with its scan
-    on ``nblocks`` blocks, or (``nblocks`` None) the one-block kernel, which
-    takes a working copy of the slice in global memory."""
+    on ``nblocks`` blocks, the chained kernel on ``route``'s chunks (a
+    ``phase1.ChunkedScanRoute``, counted as a launch a chunk; the record is
+    scratch of 9 K words) with ``first_rows`` of the update beside its first
+    link, or (both None) the one-block kernel, which takes a working copy of
+    the slice in global memory."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     dev = a.device
     for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
@@ -287,7 +313,13 @@ def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int,
     prow = torch.empty((32 * kw,), dtype=torch.int32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bTn)
-    if nblocks is None:
+    launches = 1
+    if route is not None:
+        record = torch.empty((9 * 32 * kw,), dtype=torch.int32, device=dev)
+        tail = (record.data_ptr(), int(w0n), int(cols), route.chunk_rows, route.nblocks,
+                route.nblocks_last, int(first_rows))
+        launches = route.chunks
+    elif nblocks is None:
         work = torch.empty_like(bTn)
         tail = (work.data_ptr(), int(w0n), int(cols))
     else:
@@ -298,7 +330,7 @@ def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int,
         *tail, _cuda.stream_of(a),
     )
     _cuda.check(rc, f"{key} kernel")
-    _cuda.LAUNCHES[key] += 1
+    _cuda.LAUNCHES[key] += launches
     return a, prow, cT, used_o
 
 
@@ -306,9 +338,10 @@ def update_scan_block(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
                       bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
                       w0: int | None = None):
     """The fused update + scan with its scan by ONE block and the state in
-    global memory, its update by mask-and-XOR tiles: the kernel for slices
-    taller than the largest cluster holds (``phase1.scan_route``); arguments
-    and outputs as :func:`update_scan`."""
+    global memory, its update by mask-and-XOR tiles: the earlier kernel for
+    slices taller than the largest cluster holds, on no solve's path since
+    :func:`update_scan_chunked` took them, kept to be timed beside it;
+    arguments and outputs as :func:`update_scan`."""
     _, wp, _ = _check_shapes(a, sel, pf)
     update_scan_rule(wp, w0)
     if not _cuda.on_cuda(a):
@@ -332,6 +365,47 @@ def update_scan_cluster(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
                                cols, w0, nblocks)
 
 
+def update_scan_first_rows(rows: int) -> int:
+    """The rows of the update the chained kernel runs beside the chain's
+    first link, three quarters; the rest is spread in equal parts over the
+    later links.  Measured at the very tall panel (two links: the first
+    0.28 ms, the second 0.07; the update on the SMs beside them 0.38-0.44
+    ms): the whole update beside the first link takes 0.475 / 0.407 ms (full
+    / trailing), 7/8 0.429 / 0.380, 3/4 0.423 / 0.356, 5/8 0.435 / 0.401
+    (``scripts/tune_fused_chunked_torch.py`` on an H100 80GB HBM3 at 700 W;
+    ``PERF.md`` §6)."""
+    return max(1, rows * 3 // 4)
+
+
+def update_scan_chunked(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
+                        bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
+                        w0: int | None = None, chunk_rows: int | None = None,
+                        first_rows: int | None = None):
+    """The fused update + scan with its scan chained over row chunks: each
+    link of the chained scan is a launch whose first cluster scans the chunk
+    beside clusters of the update, rows ``[0, first_rows)`` of it beside the
+    first link (by default :func:`update_scan_first_rows`) and the rest in
+    equal parts beside the later ones.  The kernel for slices taller than the
+    largest cluster holds (:func:`update_scan_route`), any slice with
+    ``chunk_rows`` given (by default ``phase1.scan_chunk_rows``).  Raises
+    when a chunk fits no cluster or the card cannot place one.  Outputs as
+    :func:`update_scan`."""
+    from .phase1 import scan_chunked_route  # here: phase1 imports this module
+
+    rows, wp, kw = _check_shapes(a, sel, pf)
+    update_scan_rule(wp, w0)
+    route = scan_chunked_route(rows, kw, chunk_rows, kernel="update_scan_chunked")
+    if first_rows is None:
+        first_rows = update_scan_first_rows(rows)
+    if not 1 <= first_rows <= rows:
+        raise ValueError(f"first_rows={first_rows} outside 1..{rows}")
+    if not _cuda.on_cuda(a):
+        return update_scan_chunked_plain(a, sel, pf, bTn, used, w0n, cols, w0,
+                                         route.chunk_rows)
+    return _launch_update_scan("gf2_update_scan_chunked", "update_scan_chunked", a, sel, pf,
+                               bTn, used, w0n, cols, w0, None, route, first_rows)
+
+
 def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
                 bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
                 w0: int | None = None):
@@ -342,29 +416,30 @@ def update_scan(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     (kw, rows), used' (1, rows)), the reference's order.  On the card ONE
     launch of thread-block clusters: cluster 0 runs the cluster scan, the
     others the table update on the SMs beside it; past the largest cluster's
-    rows :func:`update_scan_block` (``phase1.scan_route``, decided from the
-    shape alone)."""
+    rows :func:`update_scan_chunked` (:func:`update_scan_route`, decided from
+    the shape alone)."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     update_scan_rule(wp, w0)
     if not _cuda.on_cuda(a):
         return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
-    kernel, nblocks = update_scan_route(rows, kw)
-    if kernel == "update_scan_block":
-        return update_scan_block(a, sel, pf, bTn, used, w0n, cols, w0)
-    return update_scan_cluster(a, sel, pf, bTn, used, w0n, cols, w0, nblocks)
+    route = update_scan_route(rows, kw)
+    if route.kernel == "update_scan_chunked":
+        return update_scan_chunked(a, sel, pf, bTn, used, w0n, cols, w0, route.chunk_rows)
+    return update_scan_cluster(a, sel, pf, bTn, used, w0n, cols, w0, route.nblocks)
 
 
-def update_scan_route(rows: int, kw: int) -> tuple[str, int]:
-    """(kernel, blocks of its scan cluster) of the fused update + scan: the
-    1-pivot scan's cluster (``phase1.scan_route``), or past what the largest
-    cluster holds the one-block kernel ``update_scan_block`` (1 block).  A
-    pure function of the shape."""
+def update_scan_route(rows: int, kw: int):
+    """The route of the fused update + scan's scan part: the 1-pivot scan's
+    (``phase1.scan_route``) under the fused kernel's name, ``update_scan`` on
+    that cluster, or past what the largest cluster holds
+    ``update_scan_chunked`` on the chained scan's chunks and clusters (a
+    ``phase1.ChunkedScanRoute``).  A pure function of the shape."""
     from .phase1 import scan_route  # here: phase1 imports this module
 
     route = scan_route(rows, kw)
-    if route.kernel != "scan":
-        return "update_scan_block", 1
-    return "update_scan", route.nblocks
+    if route.kernel == "scan_chunked":
+        return route._replace(kernel="update_scan_chunked")
+    return route._replace(kernel="update_scan")
 
 
 # -- the update engines pallas, mxu2, mxu4 ------------------------------------------

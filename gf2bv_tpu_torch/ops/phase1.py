@@ -48,9 +48,14 @@ step structure:
   ``csrc/phase1_fused.cu``: ``gf2_phase1_fused``, one thread-block cluster
   (the cluster scan, then in every block the blocked coefficient solve and
   its share of the product ``pf = T.a[prow]``), or past the largest
-  cluster's rows ``gf2_phase1_fused_block`` (:func:`phase1_panel_block`: one
-  block, the scan's state in global memory); :func:`phase1_fused_route`
-  picks between them; plain twin :func:`phase1_panel_plain`.
+  cluster's rows ``gf2_phase1_fused_chunked`` (:func:`phase1_panel_chunked`,
+  ``csrc/fused_chunked.cu``: the chained scan, its last link followed by the
+  coefficient solve and the product); :func:`phase1_fused_route` picks
+  between them; plain twin :func:`phase1_panel_plain`, and
+  :func:`phase1_panel_chunked_plain` in the chain's order.
+  ``gf2_phase1_fused_block`` (:func:`phase1_panel_block`: one block, the
+  scan's state in global memory) is the earlier kernel for the tall slices,
+  on no solve's path.
 
 :func:`phase1_panel_split` (scan, gather, rebuild) and
 :func:`phase1_scan_subset` (the scan of the ``pallas_sub`` engine) are the
@@ -174,7 +179,7 @@ _RECORD_BYTES = 16 * (2 * 256 + 256 // 4)
 
 
 class ScanRoute(NamedTuple):
-    kernel: str  # "scan" (the cluster kernel) or a one-block kernel
+    kernel: str  # a cluster kernel ("scan", "phase1_fused", ...) or a one-block kernel
     nblocks: int  # blocks of the cluster; 1 for a one-block kernel
     rows_per_block: int
     smem_bytes: int  # dynamic shared memory of one block; 0 for a one-block kernel
@@ -187,7 +192,9 @@ class ChunkedScanRoute(NamedTuple):
     ``smem_bytes`` of shared memory a block) but the last, on
     ``nblocks_last``."""
 
-    kernel: str  # "scan_chunked" or "scan_batched_chunked"
+    # "scan_chunked", "scan_batched_chunked", or a fused kernel on the same
+    # chunks: "phase1_fused_chunked", "update_scan_chunked"
+    kernel: str
     nblocks: int
     rows_per_block: int
     smem_bytes: int
@@ -1044,30 +1051,36 @@ def phase1_panel_plain(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     return pf, prow, u[None, :]
 
 
-# The fused kernel's shared memory past the scan's header (mirrors
-# csrc/phase1_fused.cu): T (32 kw rows of kw words), then the larger of the
+# The fused kernels' shared memory past the scan's header (mirrors
+# csrc/phase1_product.cuh): T (32 kw rows of kw words), then the larger of the
 # coefficient solve's words (compiled for K = 256) and the tables of the
 # product (csrc/update_table.cuh: 4 kw x 256 entries of 16 bytes, and the
 # strip's 32 kw rows).
 FUSED_SOLVE_SMEM_WORDS = 2816
 
 
-def phase1_fused_smem_bytes(rows_per_block: int, kw: int) -> int:
-    """Shared memory of one block of the fused cluster kernel: the larger of
-    the scan's and the scan's header plus the product stages."""
+def phase1_fused_smem_bytes(rows_per_block: int, kw: int, chained: bool = False) -> int:
+    """Shared memory of one block of the fused cluster kernel (with
+    ``chained``: of the chained kernel's last link): the larger of the
+    scan's and the scan's header plus the product stages, which start after
+    the header (with ``chained`` the election's header and the record)."""
     tables = 16 * (4 * kw * 256 + 32 * kw)
     product = 4 * 32 * kw * kw + max(4 * FUSED_SOLVE_SMEM_WORDS, tables)
-    return max(scan_smem_bytes(rows_per_block, kw), _SCAN_HEADER_BYTES + product)
+    header = _SCAN_HEADER_BYTES + (_RECORD_BYTES if chained else 0)
+    return max(scan_smem_bytes(rows_per_block, kw, chained=chained), header + product)
 
 
-def phase1_fused_route(rows: int, kw: int) -> ScanRoute:
+def phase1_fused_route(rows: int, kw: int) -> ScanRoute | ChunkedScanRoute:
     """Which kernel runs the fused phase 1 of a (rows, wp) matrix with a
     (kw, rows) slice: the cluster kernel on the 1-pivot scan's cluster
-    (:func:`scan_route`), or past the largest cluster's rows the one-block
-    kernel (``phase1_fused_block``).  A pure function of the shape."""
+    (:func:`scan_route`), or past the largest cluster's rows the chained
+    kernel (``phase1_fused_chunked``) on the chained scan's chunks and
+    clusters, its last link's blocks asking for
+    ``phase1_fused_smem_bytes(..., chained=True)``.  A pure function of the
+    shape."""
     route = scan_route(rows, kw)
-    if route.kernel != "scan":
-        return ScanRoute("phase1_fused_block", 1, rows, 0)
+    if route.kernel == "scan_chunked":
+        return route._replace(kernel="phase1_fused_chunked")
     rpb = route.rows_per_block
     return ScanRoute("phase1_fused", route.nblocks, rpb, phase1_fused_smem_bytes(rpb, kw))
 
@@ -1110,9 +1123,10 @@ def _check_panel(a: torch.Tensor, bT: torch.Tensor, w0: int, K: int) -> None:
 def phase1_panel_block(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
                        w0: int, K: int, cols: int):
     """The fused phase 1 by ONE block, the scan's state in global memory and
-    each panel row rebuilt per pivot step: the kernel for matrices taller
-    than the largest cluster holds (:func:`phase1_fused_route`); arguments and
-    outputs as :func:`phase1_panel`."""
+    each panel row rebuilt per pivot step: the earlier kernel for matrices
+    taller than the largest cluster holds, on no solve's path since
+    :func:`phase1_panel_chunked` took them, kept to be timed beside it;
+    arguments and outputs as :func:`phase1_panel`."""
     _check_panel(a, bT, w0, K)
     if not _cuda.on_cuda(a):
         return phase1_panel_plain(a, bT, used, w0, K, cols)
@@ -1133,6 +1147,68 @@ def phase1_panel_cluster(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
                           nblocks)
 
 
+def phase1_panel_chunked_plain(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                               w0: int, K: int, cols: int, chunk_rows: int):
+    """Plain twin of :func:`phase1_panel_chunked` in the kernel's order: the
+    chained scan (:func:`scan_chunked_plain`), then the blocked coefficient
+    solve (:func:`reconstruct_coeff_blocked_plain`) on the slice words of
+    ``a[prow]`` and the coefficients ``cT[:, prow]`` read through prow (zero
+    where prow is -1), then the product ``pf = T.a[prow]``.  Outputs as
+    :func:`phase1_panel_plain`, bit for bit."""
+    kw = K // 32
+    prow, used_o, cT = scan_chunked_plain(bT, used, w0, K, cols, chunk_rows)
+    has = (prow >= 0)[:, None]
+    ps = prow.clamp(min=0).long()
+    arows = torch.where(has, a[ps], 0)
+    coeff = torch.where(has, cT[:, ps].T, 0).contiguous()
+    tbits = reconstruct_coeff_blocked_plain(arows[:, w0 : w0 + kw].contiguous(), coeff, prow)
+    pf = torch.zeros((K, a.shape[1]), dtype=I32, device=a.device)
+    rank_k_xor_(pf, tbits, arows)
+    return pf, prow, used_o
+
+
+def phase1_panel_chunked(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
+                         w0: int, K: int, cols: int, chunk_rows: int | None = None):
+    """The fused phase 1 as a chain of cluster launches over row chunks: the
+    chained scan's links, the last followed in the same launch by the
+    coefficient solve and the product.  The kernel for matrices taller than
+    the largest cluster holds (:func:`phase1_fused_route`), any matrix with
+    ``chunk_rows`` given (by default :func:`scan_chunk_rows`).  Raises when
+    a chunk fits no cluster or the card cannot place one.  Outputs as
+    :func:`phase1_panel`."""
+    _check_panel(a, bT, w0, K)
+    route = scan_chunked_route(a.shape[0], K // 32, chunk_rows, kernel="phase1_fused_chunked")
+    if not _cuda.on_cuda(a):
+        return phase1_panel_chunked_plain(a, bT, used, w0, K, cols, route.chunk_rows)
+    return launch_phase1_chunked(a, bT, used, w0, K, cols, route)
+
+
+def launch_phase1_chunked(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor, w0: int,
+                          K: int, cols: int, route: ChunkedScanRoute):
+    """Launch the chained fused phase 1 on ``route``'s chunks: one C call
+    that launches its ``route.chunks`` kernels in order on the stream,
+    counted as that many launches; the record is scratch of 9 K words."""
+    rows, wp = a.shape
+    kw = K // 32
+    dev = a.device
+    _cuda.require(a, "a", (rows, wp), dev)
+    _cuda.require(bT, "bT", (kw, rows), dev)
+    _cuda.require(used, "used", (1, rows), dev)
+    prow = torch.empty((K,), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    record = torch.empty((9 * K,), dtype=I32, device=dev)
+    pf = torch.empty((K, wp), dtype=I32, device=dev)
+    rc = _cuda.lib().gf2_phase1_fused_chunked(
+        a.data_ptr(), bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
+        cT.data_ptr(), record.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0), int(cols),
+        route.chunk_rows, route.nblocks, route.nblocks_last, _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "phase1_fused_chunked kernel")
+    _cuda.LAUNCHES["phase1_fused_chunked"] += route.chunks
+    return pf, prow, used_o
+
+
 def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
                  w0: int, K: int, cols: int):
     """Phase 1 of one panel in one launch: the scan of :func:`scan`, the
@@ -1143,13 +1219,13 @@ def phase1_panel(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     :func:`phase1_panel_split`.  On the card one thread-block cluster (the
     cluster scan, then in every block the coefficient solve and its strips of
     ``pf = T.a[prow]``), or past the largest cluster's rows
-    :func:`phase1_panel_block` (:func:`phase1_fused_route`)."""
+    :func:`phase1_panel_chunked` (:func:`phase1_fused_route`)."""
     _check_panel(a, bT, w0, K)
     if not _cuda.on_cuda(a):
         return phase1_panel_plain(a, bT, used, w0, K, cols)
     route = phase1_fused_route(a.shape[0], K // 32)
-    if route.kernel == "phase1_fused_block":
-        return phase1_panel_block(a, bT, used, w0, K, cols)
+    if route.kernel == "phase1_fused_chunked":
+        return phase1_panel_chunked(a, bT, used, w0, K, cols, route.chunk_rows)
     return phase1_panel_cluster(a, bT, used, w0, K, cols, route.nblocks)
 
 

@@ -187,7 +187,8 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
 
 
 def test_new_kernels_are_counted_under_their_own_names():
-    for key in ("scan_batched", "scan_batched_block", "update_scan", "update_scan_block"):
+    for key in ("scan_batched", "scan_batched_block", "update_scan", "update_scan_block",
+                "update_scan_chunked"):
         assert key in _cuda.LAUNCHES
     assert "gf2_scan_occupancy" in _cuda._SIGNATURES
 
@@ -234,11 +235,14 @@ def test_update_scan_wrappers_run_the_twin_on_cpu_tensors(w0):
     _cuda.reset_launches()
     for got in (panel_update.update_scan(a.clone(), sel, pf, bTn, used, 4, 5000, w0),
                 panel_update.update_scan_block(a.clone(), sel, pf, bTn, used, 4, 5000, w0),
-                panel_update.update_scan_cluster(a.clone(), sel, pf, bTn, used, 4, 5000, w0, 8)):
+                panel_update.update_scan_cluster(a.clone(), sel, pf, bTn, used, 4, 5000, w0, 8),
+                panel_update.update_scan_chunked(a.clone(), sel, pf, bTn, used, 4, 5000, w0,
+                                                 100)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert not any(_cuda.LAUNCHES.values())
-    for fn in (panel_update.update_scan, panel_update.update_scan_block):
+    for fn in (panel_update.update_scan, panel_update.update_scan_block,
+               panel_update.update_scan_chunked):
         with pytest.raises(ValueError, match="outside"):
             fn(a.clone(), sel, pf, bTn, used, 4, 5000, wp)
 

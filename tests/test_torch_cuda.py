@@ -227,6 +227,7 @@ def test_wrapper_counts_launches(dev):
         "scan_batched_block": 0, "update_scan_block": 0,
         "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
         "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
+        "phase1_fused_chunked": 0, "update_scan_chunked": 0,
     }
 
 
@@ -579,12 +580,13 @@ def test_update_scan_on_every_cluster_size(dev, nblocks):
 
 def test_very_tall_slices_take_the_one_block_kernels(dev):
     """Past the largest cluster's rows the batched scan runs the chained scan
-    (a launch a chunk) and the fused update + scan its one-block kernel, by
-    the route and not after a failure."""
+    and the fused update + scan its chained kernel (a launch a chunk, the
+    one-block kernels on no path), by the route and not after a failure."""
     rows, K, kw, wp = VERY_TALL_ROWS, 256, 8, 128
     assert phase1.scan_route(rows, kw).kernel == "scan_chunked"
     assert phase1.scan_batched_route(2, rows, kw).kernel == "scan_batched_chunked"
-    assert panel_update.update_scan_route(rows, kw) == ("update_scan_block", 1)
+    route = panel_update.update_scan_route(rows, kw)
+    assert route.kernel == "update_scan_chunked"
     rng = np.random.default_rng(67)
     bT = _rand(rng, (2, kw, rows), dev)
     used = u32_to_torch((rng.random((2, rows)) < 0.25).astype(np.uint32), dev)
@@ -598,7 +600,7 @@ def test_very_tall_slices_take_the_one_block_kernels(dev):
     pf = _rand(rng, (K, wp), dev)
     _cuda.reset_launches()
     got = panel_update.update_scan(a.clone(), sel, pf, bT[0], used[:1], 16, 10**6, 8)
-    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_scan_block": 1}
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_scan_chunked": route.chunks}
     want = panel_update.update_scan_plain(a.clone(), sel, pf, bT[0], used[:1], 16, 10**6, 8)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -678,22 +680,24 @@ FUSED_ROWS = [20224, 40192, VERY_TALL_ROWS]
 @pytest.mark.parametrize("kw", [1, 2, 4, 8])
 @pytest.mark.parametrize("rows", FUSED_ROWS)
 def test_phase1_fused_cluster_kernel(dev, rows, kw):
-    """The fused phase 1 by its route (the cluster kernel, the one-block
-    kernel past the largest cluster) against its twin and the split engine:
-    the first, a middle and the last panel, a panel with no valid column, and
-    a system with every row used (no pivot)."""
+    """The fused phase 1 by its route (the cluster kernel, the chained kernel
+    past the largest cluster) against its twin and the split engine: the
+    first, a middle and the last panel, a panel with no valid column, and a
+    system with every row used (no pivot)."""
     K, wp = 32 * kw, 640 if kw == 8 else 384
     rng = np.random.default_rng(rows + kw + 23)
     a = _rand(rng, (rows, wp), dev)
     route = phase1.phase1_fused_route(rows, kw)
-    assert route.kernel == ("phase1_fused_block" if rows == VERY_TALL_ROWS else "phase1_fused")
+    chained = rows == VERY_TALL_ROWS
+    assert route.kernel == ("phase1_fused_chunked" if chained else "phase1_fused")
     for frac in (0.3, 1.0):
         used = u32_to_torch((rng.random((1, rows)) < frac).astype(np.uint32), dev)
         for w0, cols in _panels_cases(kw, wp):
             bT = a[:, w0 : w0 + kw].T.contiguous()
             _cuda.reset_launches()
             got = phase1.phase1_panel(a, bT, used, w0, K, cols)
-            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {route.kernel: 1}
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                route.kernel: route.chunks if chained else 1}
             want = phase1.phase1_panel_plain(a, bT, used, w0, K, cols)
             torch.cuda.synchronize()
             for g, w, sp in zip(got, want, phase1.phase1_panel_split(a, bT, used, w0, K, cols)):
@@ -1084,4 +1088,124 @@ def test_scan_chunked_raises_instead_of_falling_back(dev):
     with pytest.raises(RuntimeError, match="scan_chunked kernel"):
         phase1.launch_chunked("gf2_scan_chunked", "scan_chunked", bT, used, 8, 256, 10**6,
                               bad, batched=False)
+    assert not any(_cuda.LAUNCHES.values())
+
+
+# -- the fused kernels of slices taller than one cluster -------------------------------
+
+
+def _spread_used(rows, chunk_rows, K, rng):
+    """Every row used but a few in each chunk (K in all, the last chunk's
+    share the largest), so that on a dense slice every chunk elects pivots
+    and the product reads pivot rows of every chunk."""
+    starts = list(range(0, rows, chunk_rows))
+    per = K // (2 * len(starts))
+    used = np.ones((1, rows), np.uint32)
+    for i, lo in enumerate(starts):
+        n = K - per * (len(starts) - 1) if i == len(starts) - 1 else per
+        hi = min(rows, lo + chunk_rows)
+        used[0, rng.choice(np.arange(lo, hi), size=min(n, hi - lo), replace=False)] = 0
+    return used
+
+
+# (rows, wp, kw, chunk_rows): the route's cut of the very tall system, the
+# largest cluster filled first (last chunk 1792 rows on 2 blocks), chunks of
+# 8192 (nine, the last on 2 blocks), and 5000 rows in chunks of 1024 (the
+# last, 904 rows, on one block with every strip of the product)
+FUSED_CHUNKED_SHAPES = [(VERY_TALL_ROWS, 640, 8, None), (VERY_TALL_ROWS, 640, 8, 65536),
+                        (VERY_TALL_ROWS, 640, 8, 8192), (5000, 640, 8, 1024),
+                        (70000, 384, 3, None)]
+
+
+@pytest.mark.parametrize("rows,wp,kw,chunk_rows", FUSED_CHUNKED_SHAPES)
+def test_phase1_fused_chunked_kernel(dev, rows, wp, kw, chunk_rows):
+    """The chained fused phase 1 equals its twin in the chain's order and the
+    step twin (max_abs_err 0): a middle panel, the last panel (cut by cols)
+    and a panel with no valid column, with a third of the rows used, every
+    row used, and few rows free in each chunk (pivot rows read from every
+    chunk, asserted); a launch a chunk."""
+    K = 32 * kw
+    rng = np.random.default_rng(rows + wp + (chunk_rows or 0))
+    a = _rand(rng, (rows, wp), dev)
+    route = phase1.scan_chunked_route(rows, kw, chunk_rows, kernel="phase1_fused_chunked")
+    useds = {"a third": (rng.random((1, rows)) < 0.3).astype(np.uint32),
+             "all": np.ones((1, rows), np.uint32),
+             "spread": _spread_used(rows, route.chunk_rows, K, rng)}
+    for name, u in useds.items():
+        used = u32_to_torch(u, dev)
+        for w0, cols in ((wp // 2 // kw * kw, 10**6), (wp - kw, 32 * wp - 40), (kw, 0)):
+            bT = a[:, w0 : w0 + kw].T.contiguous()
+            _cuda.reset_launches()
+            got = phase1.phase1_panel_chunked(a, bT, used, w0, K, cols, chunk_rows)
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                "phase1_fused_chunked": route.chunks}
+            want = phase1.phase1_panel_chunked_plain(a, bT, used, w0, K, cols, route.chunk_rows)
+            torch.cuda.synchronize()
+            for g, w, p in zip(got, want, phase1.phase1_panel_plain(a, bT, used, w0, K, cols)):
+                assert torch.equal(g, w), (name, w0, cols)
+                assert torch.equal(g, p), (name, w0, cols)
+            pivots = got[1][got[1] >= 0]
+            if name == "all" or cols == 0:
+                assert pivots.numel() == 0 and int(got[0].abs().sum()) == 0
+            if name == "spread" and cols == 10**6:
+                assert set((pivots // route.chunk_rows).tolist()) == set(range(route.chunks))
+
+
+@pytest.mark.parametrize("rows,wp,kw,chunk_rows", FUSED_CHUNKED_SHAPES)
+def test_update_scan_chunked_kernel(dev, rows, wp, kw, chunk_rows):
+    """The update beside the chained scan's links (the route's share beside
+    the first, and a third of the rows there with the rest beside the later
+    links) equals its twin in the chain's order and the step twin: full and
+    trailing at a middle and the last panel, the next panel's scan inside the
+    matrix, at its last panel and past cols (no valid column), with a third
+    of the rows used and every row used; a launch a chunk."""
+    K = 32 * kw
+    rng = np.random.default_rng(rows + wp + (chunk_rows or 0) + 1)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, kw), dev)
+    pf = _rand(rng, (K, wp), dev)
+    cols = 32 * wp - 40
+    route = phase1.scan_chunked_route(rows, kw, chunk_rows, kernel="update_scan_chunked")
+    for frac in (0.3, 1.0):
+        used = u32_to_torch((rng.random((1, rows)) < frac).astype(np.uint32), dev)
+        for w0, w0n in ((None, kw), (wp // 2 // kw * kw, wp - kw), (wp - kw, wp)):
+            bTn = _rand(rng, (kw, rows), dev)
+            want = panel_update.update_scan_chunked_plain(a.clone(), sel, pf, bTn, used, w0n,
+                                                          cols, w0, route.chunk_rows)
+            step = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
+            # the update's rows by the route's rule, and a third of them beside link 0
+            for first in (None, rows // 3):
+                _cuda.reset_launches()
+                got = panel_update.update_scan_chunked(a.clone(), sel, pf, bTn, used, w0n, cols,
+                                                       w0, chunk_rows, first)
+                assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                    "update_scan_chunked": route.chunks}
+                torch.cuda.synchronize()
+                for g, w, p in zip(got, want, step):
+                    assert torch.equal(g, w), (frac, w0, w0n, first)
+                    assert torch.equal(g, p), (frac, w0, w0n, first)
+                if frac == 1.0 or w0n == wp:
+                    assert int((got[1] >= 0).sum()) == 0
+
+
+def test_fused_chunked_kernels_raise_instead_of_falling_back(dev):
+    """A chain the kernels cannot take (a cluster of 3 blocks) raises; nothing
+    else runs in its place (no twin, no one-block kernel) and nothing is
+    counted."""
+    rng = np.random.default_rng(10)
+    rows, wp, K = VERY_TALL_ROWS, 128, 256
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, 8), dev)
+    pf = _rand(rng, (K, wp), dev)
+    used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
+    bT = a[:, 8:16].T.contiguous()
+    _cuda.reset_launches()
+    bad = phase1.phase1_fused_route(rows, 8)._replace(nblocks=3)
+    with pytest.raises(RuntimeError, match="phase1_fused_chunked kernel"):
+        phase1.launch_phase1_chunked(a, bT, used, 8, K, 10**6, bad)
+    bad = panel_update.update_scan_route(rows, 8)._replace(nblocks_last=3)
+    with pytest.raises(RuntimeError, match="update_scan_chunked kernel"):
+        panel_update._launch_update_scan("gf2_update_scan_chunked", "update_scan_chunked",
+                                         a, sel, pf, bT, used, 16, 10**6, 8, None, bad, rows)
+    torch.cuda.synchronize()
     assert not any(_cuda.LAUNCHES.values())

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from gf2bv_tpu.ops import pallas_phase1
 from gf2bv_tpu.ops.pallas_phase1 import _call_scan_kernel
 from gf2bv_tpu_torch import torch_to_u32, u32_to_torch
-from gf2bv_tpu_torch.ops import _cuda, panel_update, phase1
+from gf2bv_tpu_torch.ops import _cuda, phase1
 
 torch.set_num_threads(2)
 
@@ -52,12 +52,15 @@ def _constant(source: str, name: str) -> int:
 def test_phase1_fused_route(rows, kw):
     """The cluster kernel on the 1-pivot scan's cluster, its shared memory
     the larger of the scan's and the product stages' and under 227 KB; the
-    one-block kernel exactly past the largest cluster's rows."""
+    chained kernel on the chained scan's chunks and clusters exactly past the
+    largest cluster's rows, its last link's shared memory under 227 KB."""
     route = phase1.phase1_fused_route(rows, kw)
     scan = phase1.scan_route(rows, kw)
     if rows > phase1.scan_max_rows(kw):
         assert scan.kernel == "scan_chunked"
-        assert route == ("phase1_fused_block", 1, rows, 0)
+        assert route == scan._replace(kernel="phase1_fused_chunked")
+        assert phase1.phase1_fused_smem_bytes(route.rows_per_block, kw, chained=True) <= (
+            phase1.SCAN_SMEM_MAX)
         return
     assert route.kernel == "phase1_fused"
     assert (route.nblocks, route.rows_per_block) == (scan.nblocks, scan.rows_per_block)
@@ -69,7 +72,7 @@ def test_phase1_fused_route(rows, kw):
 def test_phase1_fused_route_of_the_solver_shapes():
     """The flagship and the tall system run one cluster of 16 blocks, the
     tables (132 KB at K = 256) setting the shared memory; the very tall
-    system the one-block kernel; the boundary is the scan's."""
+    system the chained kernel; the boundary is the scan's."""
     assert phase1.scan_max_rows(8) == 65536
     assert phase1.phase1_fused_route(20224, 8)[:3] == ("phase1_fused", 16, 1264)
     tables = 16 * (4 * 8 * 256 + 32 * 8)
@@ -77,8 +80,8 @@ def test_phase1_fused_route_of_the_solver_shapes():
         phase1.scan_smem_bytes(0, 8) + 4 * 256 * 8 + tables)
     assert phase1.phase1_fused_route(40192, 8)[:3] == ("phase1_fused", 16, 2512)
     assert phase1.phase1_fused_route(65536, 8).kernel == "phase1_fused"
-    assert phase1.phase1_fused_route(65537, 8).kernel == "phase1_fused_block"
-    assert phase1.phase1_fused_route(67328, 8).kernel == "phase1_fused_block"
+    assert phase1.phase1_fused_route(65537, 8).kernel == "phase1_fused_chunked"
+    assert phase1.phase1_fused_route(67328, 8).kernel == "phase1_fused_chunked"
     # one block owning 4096 rows: the scan's state outweighs the tables
     one = phase1.phase1_fused_route(4000, 8)
     assert one.smem_bytes == max(phase1.scan_smem_bytes(one.rows_per_block, 8),
@@ -117,8 +120,8 @@ def test_constants_mirror_the_sources():
     assert phase1.scan_smem_bytes(0, 8, minkey=True) == header
     assert phase1.scan_smem_bytes(0, 8) == 16 * (2 * 16 * _constant(
         "scan_cluster.cuh", "kSlotQuads") + 2 * 32 // 4 + 1)
-    words = _constant("phase1_fused.cu", "kFusedSolveSmemWords")
-    solve_kw = _constant("phase1_fused.cu", "kFusedSolveKw")
+    words = _constant("phase1_product.cuh", "kFusedSolveSmemWords")
+    solve_kw = _constant("phase1_product.cuh", "kFusedSolveKw")
     assert phase1.FUSED_SOLVE_SMEM_WORDS == words == 32 * solve_kw * (solve_kw + 1) + 64 * solve_kw
     assert "(size_t)(4 * kw * 256 + 32 * kw) * sizeof(uint4)" in (
         CSRC / "update_table.cuh").read_text()
@@ -126,19 +129,25 @@ def test_constants_mirror_the_sources():
 
 def test_bodies_live_in_the_headers():
     """The coefficient solve is one body (reconstruct_coeff.cuh) that the
-    rebuild and the fused phase 1 call; the cluster scan's exchange lives in
+    rebuild and the fused phase 1's product stages (phase1_product.cuh, which
+    the fused kernels call) use; the cluster scan's exchange lives in
     scan_cluster.cuh alone."""
     assert "coeff_blocked_body" in (CSRC / "reconstruct_coeff.cuh").read_text()
-    for source in ("reconstruct.cu", "phase1_fused.cu"):
+    for source, call in (("reconstruct.cu", "gf2::coeff_blocked_body<"),
+                         ("phase1_product.cuh", "coeff_blocked_body<")):
         text = (CSRC / source).read_text()
         assert '#include "reconstruct_coeff.cuh"' in text
-        assert "gf2::coeff_blocked_body<" in text
+        assert call in text
         assert "shfl4(r[g]" not in text
     for source in ("scan.cu", "phase1_fused.cu"):
         text = (CSRC / source).read_text()
         assert '#include "scan_cluster.cuh"' in text
         assert "mbarrier" not in text and "st.async" not in text
-    assert "table_update_body<0, true, true>" in (CSRC / "phase1_fused.cu").read_text()
+    assert "table_update_body<0, true, true>" in (CSRC / "phase1_product.cuh").read_text()
+    for source in ("phase1_fused.cu", "fused_chunked.cu"):
+        text = (CSRC / source).read_text()
+        assert '#include "phase1_product.cuh"' in text
+        assert "gf2::phase1_product_body(" in text
 
 
 def test_new_entry_points_are_declared_and_counted():
@@ -265,24 +274,6 @@ def _fused_inputs(K, w0, used_frac, seed):
     return a, bT, used
 
 
-def _cluster_composition(a, bT, used, w0, K, cols):
-    """The cluster kernel's stages in plain PyTorch: the scan, the blocked
-    coefficient solve on the slice words of a[prow] and the coefficients
-    cT[:, prow] read through prow (zero where prow is -1), the product
-    T.a[prow]."""
-    prow, used_o, cT = phase1.scan_plain(bT, used, w0, K, cols)
-    kw = K // 32
-    has = (prow >= 0)[:, None]
-    ps = prow.clamp(min=0).long()
-    arows = torch.where(has, a[ps], 0)
-    coeff = torch.where(has, cT[:, ps].T, 0).contiguous()
-    tbits = phase1.reconstruct_coeff_blocked_plain(arows[:, w0 : w0 + kw].contiguous(), coeff,
-                                                   prow)
-    pf = torch.zeros((K, a.shape[1]), dtype=torch.int32)
-    panel_update.rank_k_xor_(pf, tbits, arows)
-    return pf, prow, used_o
-
-
 @pytest.mark.parametrize("K,w0,cols,used_frac", _fused_cases())
 def test_phase1_panel_matches_pallas(K, w0, cols, used_frac):
     a, bT, used = _fused_inputs(K, w0, used_frac, K + w0 + int(10 * used_frac))
@@ -292,8 +283,10 @@ def test_phase1_panel_matches_pallas(K, w0, cols, used_frac):
     assert (want[1] >= 0).any() == has_pivot
     args = (t32(a), t32(bT), torch.from_numpy(used), w0, K, cols)
     _cuda.reset_launches()
+    # the cluster kernel's composition (scan, blocked coefficient solve through
+    # prow, product) is the chained kernel's twin with one chunk of all the rows
     for got in (phase1.phase1_panel(*args), phase1.phase1_panel_cluster(*args, 16),
-                phase1.phase1_panel_block(*args), _cluster_composition(*args)):
+                phase1.phase1_panel_block(*args), phase1.phase1_panel_chunked_plain(*args, ROWS)):
         assert np.array_equal(torch_to_u32(got[0]), want[0])
         assert np.array_equal(got[1].numpy(), want[1])
         assert np.array_equal(got[2].numpy(), want[2])

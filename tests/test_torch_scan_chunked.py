@@ -14,8 +14,9 @@ Here:
   which each case that breaks a wrong chain occurs (asserted on the input
   and the reference's outputs) and on random ones;
 * the routes: ``scan_route`` and ``scan_batched_route`` give the chained scan
-  past what the largest cluster holds, while the two-pivot scan, the fused
-  phase 1 and the fused update + scan keep their one-block kernels there;
+  past what the largest cluster holds, and so, on the same chunks, do the
+  fused phase 1 and the fused update + scan, while the two-pivot scan keeps
+  its one-block kernel there;
 * the constants and C signatures mirrored from ``csrc/``; the wrappers on
   CPU tensors.
 
@@ -225,9 +226,9 @@ def test_the_record_costs_no_rows():
 
 def test_routes_of_the_very_tall_system():
     """67328 rows at K = 256: two chunks of 33664 rows on 16 blocks (5 rows a
-    thread) for the 1-pivot and the batched scan; the two-pivot scan, the
-    fused phase 1 and the fused update + scan keep their one-block kernels, and
-    every route is the cluster's up to 65536 rows."""
+    thread) for the 1-pivot and the batched scan, and for the chained fused
+    phase 1 and fused update + scan; the two-pivot scan keeps its one-block
+    kernel, and every route is the cluster's up to 65536 rows."""
     assert phase1.scan_route(67328, 8) == (
         "scan_chunked", 16, 2104, phase1.scan_smem_bytes(2104, 8, chained=True), 2, 33664, 16)
     for batch in (1, 2, 4, 7, 16):
@@ -235,12 +236,14 @@ def test_routes_of_the_very_tall_system():
         assert route[:1] + route[4:] == ("scan_batched_chunked", 2, 33664, 16)
         assert route.nblocks == 16  # 8 blocks cannot hold 33664 rows
     assert phase1.scan2_route(67328, 8).kernel == "scan2_block"
-    assert phase1.phase1_fused_route(67328, 8).kernel == "phase1_fused_block"
-    assert panel_update.update_scan_route(67328, 8) == ("update_scan_block", 1)
+    chained = phase1.scan_route(67328, 8)
+    assert phase1.phase1_fused_route(67328, 8) == chained._replace(kernel="phase1_fused_chunked")
+    assert panel_update.update_scan_route(67328, 8) == chained._replace(
+        kernel="update_scan_chunked")
     assert phase1.scan_route(65536, 8)[:2] == ("scan", 16)
     assert phase1.scan_batched_route(2, 65536, 8).kernel == "scan_batched"
-    assert panel_update.update_scan_route(65536, 8) == ("update_scan", 16)
-    assert panel_update.update_scan_route(20224, 8) == (
+    assert panel_update.update_scan_route(65536, 8)[:2] == ("update_scan", 16)
+    assert panel_update.update_scan_route(20224, 8)[:2] == (
         "update_scan", phase1.scan_route(20224, 8).nblocks)
 
 
