@@ -7,10 +7,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
 3. Holds each kernel (the ports of the fifteen TPU kernels, the chained scans
-   and the chained fused kernels of slices taller than one cluster, and the
-   five one-block kernels kept beside the cluster scan, the batched scan, the
-   fused update + scan, the fused phase 1 and the two-pivot scan) against its
-   plain PyTorch twin on the
+   (1-pivot, batched, two-pivot) and the chained fused kernels of slices
+   taller than one cluster, and the five one-block kernels kept beside the
+   cluster scan, the batched scan, the fused update + scan, the fused phase 1
+   and the two-pivot scan) against its plain PyTorch twin on the
    card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
    K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
    full-width update, segmented update (dead_tiles 1..4), trailing update
@@ -27,7 +27,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    slice, beside the one-block kernel and the clusters of each size the card
    runs at once, and each scan's time per step.  The update
    engines' kernels (the table kernel of engine pallas, the tensor-core
-   kernels of mxu2 and mxu4) run at panel 20 of the 768-word multi-RHS
+   kernel that mxu2 and mxu4 share under their two rules) run at panel 20 of
+   the 768-word multi-RHS
    matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words, the
    three again from a CUDA graph's replay with the mxu2 kernel's time with
    each of three costs taken out in turn; the
@@ -53,12 +54,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (67328 rows), one system and two, against their twins in the chain's order
    and the step twins, timed from a CUDA graph's replay under both cuts of the
    rows into chunks (equal chunks, the route's; the largest cluster filled
-   first) beside the one-block kernels they replaced; at the same panel the
+   first) beside the one-block kernels they replaced; the chained two-pivot
+   scan the same way, beside its first link alone, the one-block kernel it
+   replaced and the 1-pivot chain; at the same panel the
    chained fused phase 1 and fused update + scan (full and trailing) against
    their twins in the chain's order, the step twins and the split engine,
    timed beside the one-block kernels they replaced, the split engine, the
-   update apart, the chain alone and its first link alone, and the two-pivot
-   scan's one-block kernel, which the very tall system still runs.
+   update apart, the chain alone and its first link alone.
    Then the launch floor: microseconds per launch over 256 chained launches
    of the probe (many blocks, 16-byte accesses), of torch.bitwise_xor and of
    the one-tile update.
@@ -106,7 +108,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and under phase 1 pallas, which must run the chained fused phase 1 79 x 2
    chunks launches (no one-block kernel under either; each timed cold and
    warm, best of 3, and profiled: device time by kernel, idle share), and
-   under pallas_scan2, which must run the one-block two-pivot scan 79 times.
+   under pallas_scan2, which must run the chained two-pivot scan 79 x 2 chunks
+   launches (no one-block kernel; cold, warm best of 3, profiled).
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -114,7 +117,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    79 full updates, 0 segmented; warm time, recoveries per second, the device
    time of solve_multi_rhs_device alone, a profile; the same batch under
    GF2BV_TPU_PHASE2 = pallas, mxu2, mxu4 (79 launches of the engine's own
-   kernel, none of the default update), answers equal.
+   kernel, none of the default update), answers equal, each profiled.
 12. Sweep: the flagship with 12 state bits pinned, solve_one_sweep over all
    4096 candidates: exactly one solves and it is the true state; warm time,
    candidates per second; the second call reuses the cached device matrix.
@@ -173,7 +176,7 @@ HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 INT8_OPS_PER_MS = 1.979e12  # 1,979 TOP/s, dense int8 tensor cores at 700 W
 TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 TALL_ROWS = 40192  # its padded rows
-VERY_TALL_SAMPLES = 2100  # past the largest cluster: the chained scan, the one-block kernels
+VERY_TALL_SAMPLES = 2100  # past the largest cluster: the chained kernels
 VERY_TALL_ROWS = 67328  # its padded rows
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
@@ -196,8 +199,8 @@ KERNELS = {
     "reconstruct_batched": ("reconstruct_batched", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                             "gf2bv_tpu/ops/gauss_batched.py:107"),
     "scan2": ("scan2", "gf2bv_tpu_torch/csrc/scan2.cu", "gf2bv_tpu/ops/pallas_phase1.py:353"),
-    "scan2_block": ("scan2_block", "gf2bv_tpu_torch/csrc/scan2.cu",
-                    "gf2bv_tpu/ops/pallas_phase1.py:353"),
+    "scan2_chunked": ("scan2_chunked", "gf2bv_tpu_torch/csrc/scan2_chunked.cu",
+                      "gf2bv_tpu/ops/pallas_phase1.py:353"),
     "scan_minkey": ("scan_minkey", "gf2bv_tpu_torch/csrc/scan.cu",
                     "gf2bv_tpu/ops/pallas_phase1.py:439"),
     "phase1_fused": ("phase1_fused", "gf2bv_tpu_torch/csrc/phase1_fused.cu",
@@ -542,7 +545,58 @@ def check_chunked(dev, card: str, w0: int) -> dict:
               + f"; the one-block kernel {block_ms:.4f} ms; twin {res[name][2]:.1f} ms; route "
               f"{route.chunks} chunks of {route.chunk_rows} rows on {route.nblocks} blocks "
               f"({card})")
+    res.update(check_scan2_chunked(card, bT, used, w0, res["scan_chunked"][1]))
     res.update(check_fused_chunked(dev, card, a, bT, used, w0, res["scan_chunked"][1]))
+    return res
+
+
+def check_scan2_chunked(card: str, bT, used, w0: int, chain_ms: float) -> dict:
+    """The chained two-pivot scan at panel 20 of the very tall system, by its
+    route, against its twin in the chain's order and the step twins; timed
+    from a CUDA graph's replay under both cuts of the rows, beside its first
+    link alone (the first chunk's rows scanned as a slice of their own), the
+    one-block kernel it replaced and the 1-pivot chain on the same inputs."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import phase1
+
+    kw = K // 32
+    route = phase1.scan2_route(VERY_TALL_ROWS, kw)
+    if route.kernel != "scan2_chunked":
+        raise AssertionError(f"very tall two-pivot scan routed to {route.kernel}")
+    chunk = route.chunk_rows
+    out_k = phase1.scan2(bT, used, w0, K, COLS)
+    require_equal("scan2_chunked against the step twin",
+                  zip(out_k, phase1.scan2_plain(bT, used, w0, K, COLS)))
+    require_equal("scan2_chunked against the 1-pivot twin",
+                  zip(out_k, phase1.scan_plain(bT, used, w0, K, COLS)))
+    pivots = out_k[0][out_k[0] >= 0]
+    if pivots.numel() == 0:
+        raise AssertionError("scan2_chunked: the very tall panel has no pivots")
+    note_bound("scan2_chunked", nbytes(bT, used, *out_k))
+    err = require_equal("scan2_chunked", zip(out_k, phase1.scan2_chunked_plain(
+        bT, used, w0, K, COLS, chunk)))
+    most = phase1.scan_max_rows(kw, chained=True, pairs=True)
+    require_equal("scan2_chunked, largest cluster first", zip(
+        phase1.scan2_chunked(bT, used, w0, K, COLS, most), out_k))
+    require_equal("scan2_block at the very tall panel",
+                  zip(phase1.scan2_block(bT, used, w0, K, COLS), out_k))
+    ms = graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 16)
+    res = {"scan2_chunked": (err, ms, cuda_ms(
+        lambda: phase1.scan2_chunked_plain(bT, used, w0, K, COLS, chunk), 1))}
+    again = graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 16)
+    cut_b = graph_ms(lambda: phase1.scan2_chunked(bT, used, w0, K, COLS, most), 16)
+    first = bT[:, :chunk].contiguous(), used[:, :chunk].contiguous()
+    link0 = graph_ms(lambda: phase1.scan2_chunked(*first, w0, K, COLS), 16)
+    block_ms = graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 2)
+    chain1 = graph_ms(lambda: phase1.scan_chunked(bT, used, w0, K, COLS), 16)
+    print(f"scan2_chunked at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph replay): "
+          f"{ms:.4f} ms (again {again:.4f}; {2000 * ms / K:.3f} us a pair), {route.chunks} "
+          f"chunks of {chunk} rows on {route.nblocks} / {route.nblocks_last} blocks, pivot rows "
+          f"in chunks {sorted(set((pivots // chunk).tolist()))}; largest cluster first "
+          f"{cut_b:.4f} ms; its first link alone {link0:.4f} ms; the one-block kernel "
+          f"(scan2_block) {block_ms:.4f} ms ({1000 * block_ms / K:.3f} us a step); the 1-pivot "
+          f"chain (scan_chunked) {chain1:.4f} ms (earlier in this run {chain_ms:.4f}); twin "
+          f"{res['scan2_chunked'][2]:.1f} ms ({card})")
     return res
 
 
@@ -552,8 +606,7 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
     order, the step twins and (phase 1) the split engine; each timed from a
     CUDA graph's replay beside the one-block kernel it replaced, the split
     engine or the update apart, the chain alone and its first link alone
-    (the first chunk's rows scanned as a slice of their own); the two-pivot
-    scan's one-block kernel at the same panel."""
+    (the first chunk's rows scanned as a slice of their own)."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_blocked, panel_update, phase1
 
@@ -595,13 +648,6 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
           f"ms, its first link alone {link0_ms:.4f} ms; no valid column {nocol:.4f} ms; twin "
           f"{res['phase1_fused_chunked'][2]:.1f} ms ({card})")
 
-    # the two-pivot scan's one-block kernel, which the very tall system still runs
-    want = phase1.scan_plain(bT, used, w0, K, COLS)
-    require_equal("scan2_block at the very tall panel",
-                  zip(phase1.scan2_block(bT, used, w0, K, COLS), want))
-    scan2_ms = graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 2)
-    print(f"scan2_block at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph replay): "
-          f"{scan2_ms:.4f} ms ({1000 * scan2_ms / K:.3f} us a step) ({card})")
 
     # the next panel's slice after this panel's update, as the look-ahead loop has it
     pf, prow = out_k[0], out_k[1]
@@ -1565,17 +1611,20 @@ def check_engines(dev, card: str) -> dict:
             print(f"very tall system, {p1}+{p2}: state recovered; launches {counts}; "
                   f"solve_mt19937 cold {cold:.4f} s, warm best of 3 {warm:.4f} s ({card})")
             profile_solve(very_tall, card, f"very tall system, {p1}+{p2}", warm)
+    # the two-pivot engine runs its chained scan: a launch a chunk of every panel
     with engines_env("pallas_scan2", "mxu"):
         _cuda.reset_launches()
-        got, cold = timed(
-            lambda: solve_mt19937(vouts, 32, samples=VERY_TALL_SAMPLES, device=dev))
+        got, cold = timed(very_tall)
         counts = check_launches("very tall system, pallas_scan2", {
-            "scan2_block": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
-    if got != vstate:
-        raise AssertionError("very tall system, pallas_scan2: state not recovered")
-    launches["scan2_block"] = counts["scan2_block"]
-    print(f"very tall system, pallas_scan2+mxu: state recovered; launches {counts}; "
-          f"solve_mt19937 {cold:.4f} s ({card})")
+            "scan2_chunked": 79 * chunks, "reconstruct": 79, "update_full": 16,
+            "update_seg": 63})
+        if got != vstate:
+            raise AssertionError("very tall system, pallas_scan2: state not recovered")
+        launches["scan2_chunked"] = counts["scan2_chunked"]
+        warm = warm_best(very_tall, vstate, "very tall system, pallas_scan2+mxu")
+        print(f"very tall system, pallas_scan2+mxu: state recovered; launches {counts}; "
+              f"solve_mt19937 cold {cold:.4f} s, warm best of 3 {warm:.4f} s ({card})")
+        profile_solve(very_tall, card, "very tall system, pallas_scan2+mxu", warm)
     return launches
 
 
@@ -1649,8 +1698,11 @@ def check_multi_rhs(dev, card: str) -> dict:
             t = min(timed(lambda: tmpl.solve_one_batch(batch))[1] for _ in range(2))
             dms = cuda_ms(
                 lambda: multi_rhs.solve_multi_rhs_device(cs.a_dev, COLS, rhs_dev, bw), 2)
-        print(f"multi-RHS under phase2={p2}: same states; launches {counts}; warm best of 2 "
-              f"{t:.4f} s = {NB_MULTI / t:.1f} recoveries/s; device alone {dms:.2f} ms ({card})")
+            print(f"multi-RHS under phase2={p2}: same states; launches {counts}; warm best of "
+                  f"2 {t:.4f} s = {NB_MULTI / t:.1f} recoveries/s; device alone {dms:.2f} ms "
+                  f"({card})")
+            profile_solve(lambda: tmpl.solve_one_batch(batch), card,
+                          f"multi-RHS B={NB_MULTI} under {p2}", t)
     return launches
 
 
@@ -1757,7 +1809,7 @@ def main() -> int:
     # the other kernels' counts come from the phases that drive them
     launches.update(check_batches(dev, card, single_s))
     engine_launches = check_engines(dev, card)
-    for key in ("scan2", "scan2_block", "scan_minkey", "phase1_fused", "phase1_fused_chunked",
+    for key in ("scan2", "scan2_chunked", "scan_minkey", "phase1_fused", "phase1_fused_chunked",
                 "update_scan", "scan_chunked", "update_scan_chunked"):
         launches[key] = engine_launches[key]
     check_skip_and_jnp(dev, card)

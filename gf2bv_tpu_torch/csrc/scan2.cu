@@ -10,10 +10,12 @@
 //
 // gf2_scan2_block is the earlier design under its own name: ONE block of 1024
 // threads with the state in global memory, each pair walking the rows through
-// L2 twice (the two elections, then the sweep).  It takes the slices taller
-// than the largest cluster holds.  There the second pivot's row is never
-// rewritten in the working slice (it is used from this step on and never read
-// again), so the loads of its words race with no write.
+// L2 twice (the two elections, then the sweep).  It is on no path: the slices
+// taller than the largest cluster holds take the chained two-pivot scan
+// (scan2_chunked.cu), and it is kept to be timed beside it.  The second
+// pivot's row is never rewritten in the working slice (it is used from this
+// step on and never read again), so the loads of its words race with no
+// write.
 
 #include "scan2_cluster.cuh"
 #include "scan_system.cuh"

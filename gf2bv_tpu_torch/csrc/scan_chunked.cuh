@@ -3,7 +3,7 @@
 // link (scan_chunked.cu, where the chain and why it is exact are described).
 // fused_chunked.cu runs the links of the fused phase 1 and of the fused
 // update + scan through it, all but the one link each fuses with its other
-// stage.
+// stage; scan2_chunked.cu runs the two-pivot chain on the same call.
 #pragma once
 
 #include <algorithm>
@@ -31,23 +31,25 @@ struct ChunkCall {
 constexpr int kChainHeaderQuads = scan_header_quads<false, true>();
 
 // The geometry of the chunk at `base`; false when no cluster holds it.
+// header_quads: a link's shared memory before its state (the two-pivot
+// chain's is larger).
 inline bool chunk_geometry(const ChunkCall& c, int base, int* nrows, int* nb,
-                           ScanGeometry* g) {
+                           ScanGeometry* g, int header_quads = kChainHeaderQuads) {
   *nrows = std::min(c.chunk_rows, c.rows - base);
   *nb = base + c.chunk_rows >= c.rows ? c.nblocks_last : c.nblocks;
-  return scan_geometry(*nrows, c.kw, *nb, g, kChainHeaderQuads);
+  return scan_geometry(*nrows, c.kw, *nb, g, header_quads);
 }
 
 // The arguments and every chunk's geometry, checked before the first launch
 // so that a call the kernels cannot take launches nothing.
-inline bool chain_fits(const ChunkCall& c) {
+inline bool chain_fits(const ChunkCall& c, int header_quads = kChainHeaderQuads) {
   if (c.batch < 1 || c.rows < 1 || c.chunk_rows < 1 || c.kw < 1 ||
       c.kw > kMaxRecordCols / 32)
     return false;
   int nrows, nb;
   ScanGeometry g;
   for (int base = 0; base < c.rows; base += c.chunk_rows)
-    if (!chunk_geometry(c, base, &nrows, &nb, &g)) return false;
+    if (!chunk_geometry(c, base, &nrows, &nb, &g, header_quads)) return false;
   return true;
 }
 

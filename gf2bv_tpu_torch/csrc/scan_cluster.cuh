@@ -59,7 +59,9 @@
 // the chunk elects at a column not taken is the global one: the writer
 // stores it in prow and, with its words as they stood at that step, in the
 // record.  The first chunk loads no record and writes prow and the record's
-// rows at every column.
+// rows at every column.  The record's load and the sweep of a run of taken
+// columns are helpers (below) that the two-pivot body's chained form
+// (scan2_cluster.cuh) calls too.
 //
 // The body takes the block's rank and the cluster's size as arguments: the
 // caller's grid may hold many clusters (one per system of a batch) or other
@@ -175,6 +177,77 @@ __device__ __forceinline__ int min_keys(const uint4* src, int n, int sw, int non
   return m;
 }
 
+// -- the chained scan's record, as both scan bodies use it ----------------------
+
+// Loads the record of the earlier chunks (K columns) into shared memory: the
+// pivots' words rec_w [K][2] quads and their rows rec_row [K].
+__device__ __forceinline__ void load_chain_record(const ScanChain& chain, uint4* rec_w,
+                                                  int* rec_row, int K, int tid, int nthreads) {
+  const uint4* gw = reinterpret_cast<const uint4*>(chain.record);
+  for (int j = tid; j < 2 * K; j += nthreads) rec_w[j] = gw[j];
+  for (int j = tid; j < K; j += nthreads) rec_row[j] = chain.record[8 * K + j];
+}
+
+// The end of the run of taken columns from jj (taken itself) within its word
+// and the valid columns [.., jhi).
+__device__ __forceinline__ int taken_run_end(const int* rec_row, int jj, int jhi) {
+  const int wend = min(jhi, (jj | 31) + 1);
+  int jend = jj + 1;
+  while (jend < wend && rec_row[jend] >= 0) ++jend;
+  return jend;
+}
+
+// The columns [jj, jend) of one word, all taken by earlier chunks: each
+// pivot's recorded words swept into this thread's live candidates, with their
+// coefficient bits, with no election, no exchange and no barrier.  The rows
+// are swept in registers (all of a thread's rows, or four at a time of
+// eight): each row is read and written once a run instead of once a column.
+template <int kSlots>
+__device__ __forceinline__ void sweep_taken_run(uint4* bT_s, const uint4* rec_w, int rpb_pad,
+                                                int halves, uint32_t live,
+                                                uint32_t (&c)[kSlots], int jj, int jend,
+                                                int tid, int nthreads) {
+  const int sw = jj >> 5, hs = sw >> 2, q = sw & 3;
+  const bool upper = hs == 0 && halves == 2;
+  constexpr int kGroup = kSlots % 4 ? kSlots : 4;  // divides kSlots
+#pragma unroll
+  for (int g0 = 0; g0 < kSlots; g0 += kGroup) {
+    uint4 v[kGroup], u[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int loc = (g0 + i) * nthreads + tid;
+      v[i] = u[i] = make_uint4(0u, 0u, 0u, 0u);
+      if ((live >> (g0 + i)) & 1u) {
+        v[i] = bT_s[hs * rpb_pad + loc];
+        if (upper) u[i] = bT_s[rpb_pad + loc];
+      }
+    }
+    for (int j = jj; j < jend; ++j) {
+      const uint32_t bj = 1u << (j & 31);
+      const uint4 r1 = rec_w[2 * j + 1];
+      uint4 bph = hs ? r1 : rec_w[2 * j];
+      if (q > 0) bph.x = 0u;
+      if (q > 1) bph.y = 0u;
+      if (q > 2) bph.z = 0u;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (!((live >> (g0 + i)) & 1u) || !(word_of(v[i], q) & bj)) continue;
+        v[i] = xor4(v[i], bph);
+        if (upper) u[i] = xor4(u[i], r1);
+        c[g0 + i] ^= bj;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int loc = (g0 + i) * nthreads + tid;
+      if ((live >> (g0 + i)) & 1u) {
+        bT_s[hs * rpb_pad + loc] = v[i];
+        if (upper) bT_s[rpb_pad + loc] = u[i];
+      }
+    }
+  }
+}
+
 // The scan of one system by the calling cluster.  kCluster: the block is one
 // of nb > 1 blocks of a cluster and `rank` its rank there; else nb == 1 and
 // rank == 0 (no exchange, no cluster barrier).  kSlots: rows a thread owns at
@@ -256,9 +329,7 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
   }
   const int K = 32 * kw;
   if (chained) {  // the record of the earlier chunks; read-only from here on
-    const uint4* gw = reinterpret_cast<const uint4*>(chain.record);
-    for (int j = tid; j < 2 * K; j += nthreads) rec_w[j] = gw[j];
-    for (int j = tid; j < K; j += nthreads) rec_row[j] = chain.record[8 * K + j];
+    load_chain_record(chain, rec_w, rec_row, K, tid, nthreads);
     if (!kCluster) __syncthreads();  // a cluster's barrier below orders it
   }
   // no block writes into another's shared memory before that block runs and
@@ -289,47 +360,8 @@ scan_cluster_body(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
     // each row is read and written once a run instead of once a column.
     const bool taken = chained && jj >= jlo && jj < jhi && rec_row[jj] >= 0;
     if (taken) {
-      const int wend = min(jhi, (jj | 31) + 1);
-      int jend = jj + 1;
-      while (jend < wend && rec_row[jend] >= 0) ++jend;
-      const bool upper = hs == 0 && halves == 2;
-      constexpr int kGroup = kSlots % 4 ? kSlots : 4;  // divides kSlots
-#pragma unroll
-      for (int g0 = 0; g0 < kSlots; g0 += kGroup) {
-        uint4 v[kGroup], u[kGroup];
-#pragma unroll
-        for (int i = 0; i < kGroup; ++i) {
-          const int loc = (g0 + i) * nthreads + tid;
-          v[i] = u[i] = make_uint4(0u, 0u, 0u, 0u);
-          if ((live >> (g0 + i)) & 1u) {
-            v[i] = bT_s[hs * rpb_pad + loc];
-            if (upper) u[i] = bT_s[rpb_pad + loc];
-          }
-        }
-        for (int j = jj; j < jend; ++j) {
-          const uint32_t bj = 1u << (j & 31);
-          const uint4 r1 = rec_w[2 * j + 1];
-          uint4 bph = hs ? r1 : rec_w[2 * j];
-          if (q > 0) bph.x = 0u;
-          if (q > 1) bph.y = 0u;
-          if (q > 2) bph.z = 0u;
-#pragma unroll
-          for (int i = 0; i < kGroup; ++i) {
-            if (!((live >> (g0 + i)) & 1u) || !(word_of(v[i], q) & bj)) continue;
-            v[i] = xor4(v[i], bph);
-            if (upper) u[i] = xor4(u[i], r1);
-            c[g0 + i] ^= bj;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kGroup; ++i) {
-          const int loc = (g0 + i) * nthreads + tid;
-          if ((live >> (g0 + i)) & 1u) {
-            bT_s[hs * rpb_pad + loc] = v[i];
-            if (upper) bT_s[rpb_pad + loc] = u[i];
-          }
-        }
-      }
+      const int jend = taken_run_end(rec_row, jj, jhi);
+      sweep_taken_run<kSlots>(bT_s, rec_w, rpb_pad, halves, live, c, jj, jend, tid, nthreads);
       jj = jend - 1;  // the step's tail below: the coefficients at the word's end
     }
     if (jj >= jlo && jj < jhi && !taken) {  // cluster-uniform

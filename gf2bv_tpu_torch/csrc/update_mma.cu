@@ -1,18 +1,16 @@
 // GF(2) rank-K panel update on the tensor cores: a ^= S . PF as a one-bit
 // matrix product (mma.sync ... b1 and.popc), parity, repack.
 //
-// Replaces two TPU kernel families of gf2bv_tpu/ops/pallas_update.py:
+// Replaces two TPU kernel families of gf2bv_tpu/ops/pallas_update.py, both
+// by ONE kernel, mxu2_strip_kernel, under each engine's rule for the words it
+// updates:
 //   * _mxu2_kernel / _mxu2_kernel_trailing (panel_update_mxu2, the "mxu2"
-//     engine) -> mxu2_strip_kernel: one launch; the 32 parity planes packed
-//     back into words with shifts and ORs in registers.  Trailing: a tile
-//     j >= 1 (tw = 128 words, or wp when 128 does not divide wp) with
-//     (j+1)*tw <= w0 keeps its words; tile 0 always gets the whole update;
-//   * _mxu4_kernel / _mxu4_kernel_trailing (panel_update_mxu4, "mxu4") ->
-//     mxu4_kernel: the same product, and the repack ALSO as a matrix product,
-//     parity bits (0/1 as u8) times power-of-two byte weights
-//     (mma.sync m16n8k32 u8), four bytes assembled into the word.  Trailing
-//     as the "mxu" engine: dead tiles kept, and tile 0 updates only word 0
-//     once tw <= w0.
+//     engine): a tile j >= 1 (tw = 128 words, or wp when 128 does not divide
+//     wp) with (j+1)*tw <= w0 keeps its words; tile 0 always gets the whole
+//     update (mxu2_rule);
+//   * _mxu4_kernel / _mxu4_kernel_trailing (panel_update_mxu4, "mxu4"): the
+//     "mxu" engine's rule: dead tiles kept, and tile 0 updates only word 0
+//     once tw <= w0 (mxu4_rule).
 // In place; the TPU kernels copy their dead tiles through, which is the same
 // values.
 //
@@ -24,14 +22,24 @@
 // K = 256 is exactly one instruction deep.  A's operand layout (row-major,
 // the 256 bits of a row contiguous) IS a packed selector row.  B wants, for
 // each output bit column (word w, bit p), its K bits contiguous: PF
-// transposed at bit level (warp ballots, one 32 x 32 bit block per warp).
+// transposed at bit level, 32 x 32 bits a warp at a time.
+//
+// Why the two engines are one kernel here.  The TPU's mxu4 packs the 32
+// parity planes back into words by a SECOND product against power-of-two byte
+// weights, because its matrix unit is the cheap way to move bits between its
+// lanes.  That is a device of the TPU: on Hopper the same repack cost a second
+// mma.sync (m16n8k32 u8), 4-byte read-modify-writes of a and a pre-kernel
+// writing PF transposed into scratch (0.41 ms on 768 words, 11x the byte
+// bound).  The strip kernel orders the bit columns so that each thread's
+// counts already make whole words, so the repack is shifts and ORs, and both
+// engines compute the same product; only their trailing rules differ.
 //
 // Fragments (PTX): thread (g = lane >> 2, t = lane & 3) holds A words t and
 // 4 + t of rows g and g + 8, B k-words t and 4 + t of column g, and the
 // counts of columns 2t and 2t + 1 for rows g and g + 8.
 //
-// mxu2 (mxu2_strip_kernel).  A block owns a strip of 32 words (one 128-byte
-// line of a row) and a range of 16-row tiles, a warp one tile at a time.
+// mxu2_strip_kernel.  A block owns a strip of 32 words (one 128-byte line of
+// a row) and a range of 16-row tiles, a warp one tile at a time.
 //   * The bit columns are ordered so that a thread's counts make whole words:
 //     column n of n-tile J (0..15) of word group G stands for word 4G + n / 2,
 //     bit 2J + n % 2.  After the 16 products of a group, thread (g, t) holds
@@ -43,31 +51,20 @@
 //     segment.  The tile of a is loaded before the products, so its latency
 //     hides under them.
 //   * Each block builds its strip's B in shared memory itself (warp k
-//     transposes k-word k of the 32 words), laid out so that one 16-byte load
-//     gives a thread the B fragments of two products and a warp's loads hit
-//     32 banks.  One launch, no scratch.
+//     transposes k-word k of the 32 words: a 32 x 32 bit block a word, in five
+//     __shfl_xor_sync stages), laid out so that one 16-byte load gives a
+//     thread the B fragments of two products and a warp's loads hit 32 banks.
+//     One launch, no scratch.
 //   gf2_update_mxu2_probe launches the same kernel with one cost taken out
 //   (the writes to a, the products, the B build), for timing.
-//
-// mxu4 (mxu4_kernel, the earlier design of both engines): a pre-kernel
-// (bit_transpose_kernel) writes PF transposed into scratch, the update
-// kernel stages the B strips of 8 word columns in shared memory (8 KB) and
-// each warp walks 16-row tiles: 4 mma per output word.  The accumulator
-// fragments of two n-tiles, parities packed as bytes, ARE an A fragment of
-// m16n8k32 (bytes k = 4t .. 4t + 3 of rows g and g + 8), under the column
-// order k = 16(j >> 1) + 4(c >> 1) + 2(j & 1) + (c & 1) for bit p = 8j + c.
-// The weight matrix B[k][n] = 2^(p & 7) where n == p >> 3 is built in
-// registers with that order, so no data moves between threads before the
-// second product.  Its result has byte n of the word in column n: threads
-// t = 0 and 1 of the quad hold bytes 0, 1 and 2, 3; columns 4..7 are unused.
 //
 // Bound on the H100: the product is 2 * rows * K * 32 * wp one-bit
 // operations, for which the data sheet names no rate; priced at the int8
 // tensor-core peak they would take 0.1286 ms on 20224 x 768 words, and the
-// mxu2 kernel takes less (0.110 ms), so that is no bound.  The bytes of a
-// (read and written once), sel and pf bound both kernels (0.0375 ms there).
-// mxu2 spends its time in about equal parts on the products, the traffic of
-// a and the B build (gf2_update_mxu2_probe takes each out: ~0.02 ms each).
+// kernel takes less (0.102-0.110 ms), so that is no bound.  The bytes of a
+// (read and written once), sel and pf bound it (0.0375 ms there).  Its time
+// goes in about equal parts to the products, the traffic of a and the B build
+// (gf2_update_mxu2_probe takes each out).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -84,16 +81,6 @@ __device__ __forceinline__ void mma_b1_and_popc(int (&c)[4], const uint32_t (&a)
       "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
       : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "r"(0), "r"(0), "r"(0), "r"(0));
-}
-
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "r"(0), "r"(0), "r"(0), "r"(0));
 }
@@ -127,6 +114,23 @@ constexpr size_t kMx2Smem =
 __device__ __forceinline__ int mx2_b_index(int w, int p, int k) {
   const int J = p >> 1, e = p & 1;
   return w * kMx2BWords + (J >> 1) * 32 + e * 16 + (k & 3) * 4 + (J & 1) * 2 + (k >> 2);
+}
+
+// The 32 x 32 bit block held by a warp, transposed: lane j holds row j (bit
+// p: column p), and after five exchange stages lane p holds column p (bit j:
+// row j's bit p).  Stage d swaps the off-diagonal d x d blocks of every 2d x 2d
+// block: a lane with bit d clear takes its partner's low bits of each 2d-bit
+// group into its high ones, the partner the other way.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  constexpr uint32_t kLow[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int d = 16 >> i;
+    const uint32_t m = kLow[i];
+    const uint32_t y = __shfl_xor_sync(kFull, x, d);
+    x = (lane & d) ? (x & ~m) | ((y >> d) & m) : (x & m) | ((y & m) << d);
+  }
+  return x;
 }
 
 // 16 bytes of global memory in one access.
@@ -190,16 +194,11 @@ mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
   if (!(kProbe & 4)) {  // B of the strip: warp k transposes k-word k of its nw words
     const int k = warp;
     const uint32_t* src = pf + (size_t)(32 * k + lane) * wp + s;  // row 32k + lane of pf
-#pragma unroll 2
+#pragma unroll 4
     for (int w = 0; w < kMx2Strip; ++w) {
       const uint32_t x = (k < kw && w < nw) ? src[w] : 0u;
-      uint32_t mine = 0u;  // lane p: bit j = bit p of pf[32k + j][s + w]
-#pragma unroll
-      for (int p = 0; p < 32; ++p) {
-        const uint32_t bal = __ballot_sync(kFull, (x >> p) & 1u);
-        if (lane == p) mine = bal;
-      }
-      bsm[mx2_b_index(w, lane, k)] = mine;
+      // lane p: bit j = bit p of pf[32k + j][s + w]
+      bsm[mx2_b_index(w, lane, k)] = transpose32(x, lane);
     }
   }
   __syncthreads();
@@ -285,8 +284,10 @@ cudaError_t launch_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf, in
   const int strips = (head_words + kMx2Strip - 1) / kMx2Strip +
                      (wp - word_lo + kMx2Strip - 1) / kMx2Strip;
   const int tiles = (rows + 15) / 16;
-  // row chunks: one wave of kMx2BlocksPerSm blocks an SM, a tile a warp at least
-  const int want = max(1, min((kMx2BlocksPerSm * nsm + strips - 1) / strips,
+  // row chunks: at most one wave of kMx2BlocksPerSm blocks an SM (rounded up,
+  // 20 strips of 640 words made 280 blocks where 264 run at once: a second
+  // wave of 16), a tile a warp at least
+  const int want = max(1, min(kMx2BlocksPerSm * nsm / strips,
                               (tiles + kMx2Warps - 1) / kMx2Warps));
   const int per_block = (tiles + want - 1) / want;
   const int chunks = (tiles + per_block - 1) / per_block;
@@ -294,99 +295,6 @@ cudaError_t launch_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf, in
   kernel<<<dim3(strips, chunks), kMx2Threads, kMx2Smem, stream>>>(
       a, sel, pf, rows, wp, kw, head_words, word_lo, per_block, vec);
   return cudaGetLastError();
-}
-
-// -- mxu4: the earlier design, bit transpose into scratch + 8-word strips ---------
-
-constexpr int kMmaThreads = 256;                 // 8 warps
-constexpr int kMmaWarps = kMmaThreads / 32;
-constexpr int kMmaWords = 8;                     // word columns per block
-constexpr int kMmaIter = 4;                      // 16-row tiles per warp
-constexpr int kMmaRows = kMmaWarps * 16 * kMmaIter;  // 512 rows per block
-constexpr int kBtWords = 256;  // transposed words per word column: [2][32][4]
-
-// pfT[w][h][p][t] = bits j = 0..31: bit p of pf[32 * (4h + t) + j][w]; zero
-// where 4h + t >= kw.  One block per word column, one warp per k-word.
-__global__ void __launch_bounds__(kMmaThreads)
-bit_transpose_kernel(uint32_t* __restrict__ pfT, const uint32_t* __restrict__ pf,
-                     int wp, int kw) {
-  const int w = blockIdx.x;
-  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t word = q < kw ? pf[(size_t)(32 * q + lane) * wp + w] : 0u;
-  uint32_t mine = 0u;
-#pragma unroll
-  for (int p = 0; p < 32; ++p) {
-    const uint32_t bal = __ballot_sync(kFull, (word >> p) & 1u);
-    if (lane == p) mine = bal;
-  }
-  pfT[(size_t)w * kBtWords + (q >> 2) * 128 + lane * 4 + (q & 3)] = mine;
-}
-
-// The update of words [0, head_words) and [word_lo, wp) in strips of
-// kMmaWords, repacked by the second product.
-__global__ void __launch_bounds__(kMmaThreads)
-mxu4_kernel(uint32_t* a, const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pfT,
-            int rows, int wp, int kw, int head_words, int word_lo) {
-  __shared__ uint32_t bt[kMmaWords * kBtWords];
-  const int nhead = (head_words + kMmaWords - 1) / kMmaWords;
-  int wbeg, wend;
-  if ((int)blockIdx.x < nhead) {
-    wbeg = blockIdx.x * kMmaWords;
-    wend = min(head_words, wbeg + kMmaWords);
-  } else {
-    wbeg = word_lo + (blockIdx.x - nhead) * kMmaWords;
-    wend = min(wp, wbeg + kMmaWords);
-  }
-  const int nw = wend - wbeg;
-  for (int i = threadIdx.x; i < nw * kBtWords; i += kMmaThreads)
-    bt[i] = pfT[(size_t)wbeg * kBtWords + i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t wb[2] = {0u, 0u};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (g == 2 * h + (i >> 1)) wb[h] |= (1u << (2 * t + (i & 1))) << (8 * i);
-
-  const int row0 = blockIdx.y * kMmaRows;
-  for (int it = 0; it < kMmaIter; ++it) {
-    const int rbase = row0 + (it * kMmaWarps + warp) * 16;
-    if (rbase >= rows) break;
-    const int r_lo = rbase + g, r_hi = rbase + g + 8;
-    uint32_t af[4];
-    load_a_fragment(af, sel, rbase, rows, kw, g, t);
-    for (int wc = 0; wc < nw; ++wc) {
-      const uint32_t* b = bt + wc * kBtWords;
-      int c[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma_b1_and_popc(c[j], af, b[(8 * j + g) * 4 + t], b[128 + (8 * j + g) * 4 + t]);
-      uint32_t lo = 0u, hi = 0u;
-      uint32_t ra[4];
-      ra[0] = (c[0][0] & 1) | ((c[0][1] & 1) << 8) | ((c[1][0] & 1) << 16) | ((c[1][1] & 1) << 24);
-      ra[1] = (c[0][2] & 1) | ((c[0][3] & 1) << 8) | ((c[1][2] & 1) << 16) | ((c[1][3] & 1) << 24);
-      ra[2] = (c[2][0] & 1) | ((c[2][1] & 1) << 8) | ((c[3][0] & 1) << 16) | ((c[3][1] & 1) << 24);
-      ra[3] = (c[2][2] & 1) | ((c[2][3] & 1) << 8) | ((c[3][2] & 1) << 16) | ((c[3][3] & 1) << 24);
-      int d[4];
-      mma_u8(d, ra, wb[0], wb[1]);
-      if (t < 2) {
-        lo = (((uint32_t)d[0] & 0xFFu) | (((uint32_t)d[1] & 0xFFu) << 8)) << (16 * t);
-        hi = (((uint32_t)d[2] & 0xFFu) | (((uint32_t)d[3] & 0xFFu) << 8)) << (16 * t);
-      }
-      lo |= __shfl_xor_sync(kFull, lo, 1);
-      hi |= __shfl_xor_sync(kFull, hi, 1);
-      lo |= __shfl_xor_sync(kFull, lo, 2);
-      hi |= __shfl_xor_sync(kFull, hi, 2);
-      if (t == (wc & 3)) {
-        const int w = wbeg + wc;
-        if (r_lo < rows) a[(size_t)r_lo * wp + w] ^= lo;
-        if (r_hi < rows) a[(size_t)r_hi * wp + w] ^= hi;
-      }
-    }
-  }
 }
 
 bool bad_shape(int rows, int wp, int kw, int w0) {
@@ -399,6 +307,15 @@ void mxu2_rule(int wp, int w0, int* head_words, int* word_lo) {
   const int dead = w0 < 0 ? 0 : w0 / tw;
   *head_words = dead >= 2 ? tw : 0;
   *word_lo = dead >= 2 ? dead * tw : 0;
+}
+
+// The mxu4 rule (the "mxu" engine's) as (head_words, word_lo): once tw <= w0
+// word 0 alone of tile 0 and the tiles from w0's on.
+void mxu4_rule(int wp, int w0, int* head_words, int* word_lo) {
+  const int tw = (wp % 128 == 0) ? 128 : wp;
+  const bool const_only = w0 >= 0 && tw <= w0;
+  *head_words = const_only ? 1 : 0;
+  *word_lo = const_only ? (w0 / tw) * tw : 0;
 }
 
 }  // namespace
@@ -428,22 +345,12 @@ extern "C" int gf2_update_mxu2_probe(uint32_t* a, const uint32_t* sel, const uin
   }
 }
 
-// a ^= S . PF, engine "mxu4".  pfT: scratch of wp * 256 words.  w0 < 0: every
-// word; else, once tw <= w0, word 0 and the tiles from w0's on.
-extern "C" int gf2_update_mxu4(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                               uint32_t* pfT, int rows, int wp, int kw, int w0,
-                               cudaStream_t stream) {
+// a ^= S . PF, engine "mxu4", in one launch.  w0 < 0: every word; else, once
+// tw <= w0, word 0 and the tiles from w0's on.
+extern "C" int gf2_update_mxu4(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
+                               int wp, int kw, int w0, cudaStream_t stream) {
   if (bad_shape(rows, wp, kw, w0)) return (int)cudaErrorInvalidValue;
-  const int tw = (wp % 128 == 0) ? 128 : wp;
-  const bool const_only = w0 >= 0 && tw <= w0;
-  const int head_words = const_only ? 1 : 0;
-  const int word_lo = const_only ? (w0 / tw) * tw : 0;
-  bit_transpose_kernel<<<wp, kMmaThreads, 0, stream>>>(pfT, pf, wp, kw);
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return (int)rc;
-  const int strips = (head_words + kMmaWords - 1) / kMmaWords +
-                     (wp - word_lo + kMmaWords - 1) / kMmaWords;
-  const dim3 grid(strips, (rows + kMmaRows - 1) / kMmaRows);
-  mxu4_kernel<<<grid, kMmaThreads, 0, stream>>>(a, sel, pfT, rows, wp, kw, head_words, word_lo);
-  return (int)cudaGetLastError();
+  int head_words, word_lo;
+  mxu4_rule(wp, w0, &head_words, &word_lo);
+  return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
 }

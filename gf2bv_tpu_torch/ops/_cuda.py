@@ -45,7 +45,7 @@ LAUNCHES = {
     "scan_batched_block": 0, "update_scan_block": 0,
     "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
     "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
-    "phase1_fused_chunked": 0, "update_scan_chunked": 0,
+    "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
 }
 
 _P = ctypes.c_void_p
@@ -85,6 +85,9 @@ _SIGNATURES = {
     "gf2_scan2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
     "gf2_scan2_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, record, rows, kw, w0, cols, chunk_rows,
+    #  nblocks, nblocks_last, stream)
+    "gf2_scan2_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gf2_scan_minkey_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan_minkey": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -116,8 +119,8 @@ _SIGNATURES = {
     "gf2_update_mxu2": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, probe, stream)
     "gf2_update_mxu2_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # (a, sel, pf, pfT scratch (wp * 256 words), rows, wp, kw, w0 (-1: full), stream)
-    "gf2_update_mxu4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (a, sel, pf, rows, wp, kw, w0 (-1: full), stream)
+    "gf2_update_mxu4": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (out, a, n words, stream)
     "gf2_launch_probe": [_P, _P, _I, _P],
 }

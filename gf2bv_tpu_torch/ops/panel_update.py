@@ -38,10 +38,11 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
 * :func:`update_mxu2` / :func:`update_mxu4` — the update as a tensor-core
   product on bit planes (``_mxu2_kernel`` / ``_mxu4_kernel`` and their
   trailing forms via ``panel_update_mxu2`` / ``panel_update_mxu4``); CUDA
-  ``csrc/update_mma.cu`` (one-bit ``mma.sync``; ``mxu2`` in one launch with
-  its words written back in 16-byte accesses, :func:`update_mxu2_probe`
-  timing it with one cost out; ``mxu4`` repacks with a second
-  ``mma.sync``); plain twins :func:`update_mxu2_plain` /
+  ``csrc/update_mma.cu``: one launch of one kernel for both engines
+  (one-bit ``mma.sync``, the counts arranged into whole words, written back
+  in 16-byte accesses; the TPU's second product that repacks ``mxu4``'s
+  parity planes has no use on the card), :func:`update_mxu2_probe` timing it
+  with one cost out; plain twins :func:`update_mxu2_plain` /
   :func:`update_mxu4_plain`, which follow the TPU bodies (unpack to 0/1,
   integer product, parity, repack).  Their trailing rules differ: ``mxu2``
   only skips tiles wholly left of ``w0`` and always updates tile 0 in full;
@@ -623,16 +624,12 @@ def update_mxu4_plain(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     return a
 
 
-def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0, scratch: bool):
-    """Launch a tensor-core update; ``scratch``: the kernel takes pf
-    transposed at bit level in a scratch of wp x 256 words (mxu4's pre-kernel
-    writes it)."""
+def _launch_mma(fn_name: str, key: str, what: str, a, sel, pf, w0):
+    """Launch a tensor-core update under its engine's trailing rule."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     _require_update_args(a, sel, pf, rows, wp, kw)
-    pf_t = torch.empty((wp, 256), dtype=I32, device=a.device) if scratch else None
     rc = getattr(_cuda.lib(), fn_name)(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), *([pf_t.data_ptr()] if scratch else []),
-        rows, wp, kw,
+        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw,
         -1 if w0 is None else int(w0), _cuda.stream_of(a),
     )
     _cuda.check(rc, what)
@@ -654,7 +651,7 @@ def update_mxu2(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
     if not _cuda.on_cuda(a):
         return update_mxu2_plain(a, sel, pf, w0)
     return _launch_mma("gf2_update_mxu2", "update_mxu2", "mxu2 panel update kernel",
-                       a, sel, pf, w0, scratch=False)
+                       a, sel, pf, w0)
 
 
 MXU2_PROBES = {0: "the kernel as it is", 1: "no loads or stores of a", 2: "no products",
@@ -682,13 +679,15 @@ def update_mxu2_probe(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, prob
 
 def update_mxu4(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
                 w0: int | None = None):
-    """The ``mxu4`` engine: the product of :func:`update_mxu2` with the
-    parity planes packed back into words by a second tensor-core product, in
-    place.  Trailing (``w0`` given) as :func:`update_trailing`: tiles wholly
-    left of ``w0`` keep their words and tile 0 then updates only word 0."""
+    """The ``mxu4`` engine: the product of :func:`update_mxu2`, in place.
+    Trailing (``w0`` given) as :func:`update_trailing`: tiles wholly left of
+    ``w0`` keep their words and tile 0 then updates only word 0.  On the card
+    one launch of the mxu2 kernel under that rule (the TPU body's second
+    product, which packs the parity planes back into words, is shifts and
+    ORs there)."""
     _, wp, _ = _check_shapes(a, sel, pf)
     _mxu_tiles(wp, w0)
     if not _cuda.on_cuda(a):
         return update_mxu4_plain(a, sel, pf, w0)
     return _launch_mma("gf2_update_mxu4", "update_mxu4", "mxu4 panel update kernel",
-                       a, sel, pf, w0, scratch=True)
+                       a, sel, pf, w0)

@@ -21,10 +21,13 @@ step structure:
     CUDA ``csrc/scan2.cu`` ``gf2_scan2``, a thread-block cluster that elects
     both pivots of a pair in one exchange (body in
     ``csrc/scan2_cluster.cuh``), or past the largest cluster's rows
-    ``gf2_scan2_block`` (:func:`scan2_block`: one block, state in global
-    memory); :func:`scan2_route` picks between them; twin
-    :func:`scan2_plain`, and :func:`scan2_cluster_plain` in the cluster
-    kernel's order;
+    ``gf2_scan2_chunked`` (:func:`scan2_chunked`, ``csrc/scan2_chunked.cu``:
+    the chain of :func:`scan_chunked` with the two-pivot body);
+    :func:`scan2_route` picks between them; twin :func:`scan2_plain`,
+    :func:`scan2_cluster_plain` in the cluster kernel's order and
+    :func:`scan2_chunked_plain` in the chain's.  ``gf2_scan2_block``
+    (:func:`scan2_block`: one block, state in global memory) is the earlier
+    kernel for the tall slices, on no path;
   - ``"m"``: election and extraction through packed min-keys
     (``_make_scan_kernel_minkey``), :func:`scan_minkey`; CUDA
     ``gf2_scan_minkey``, the cluster scan with the min-key election
@@ -192,8 +195,8 @@ class ChunkedScanRoute(NamedTuple):
     ``smem_bytes`` of shared memory a block) but the last, on
     ``nblocks_last``."""
 
-    # "scan_chunked", "scan_batched_chunked", or a fused kernel on the same
-    # chunks: "phase1_fused_chunked", "update_scan_chunked"
+    # "scan_chunked", "scan_batched_chunked", the two-pivot "scan2_chunked", or a
+    # fused kernel on the same chunks: "phase1_fused_chunked", "update_scan_chunked"
     kernel: str
     nblocks: int
     rows_per_block: int
@@ -221,10 +224,11 @@ def scan_fits(rows_per_block: int, kw: int, minkey: bool = False, pairs: bool = 
             and scan_smem_bytes(rows_per_block, kw, minkey, pairs, chained) <= SCAN_SMEM_MAX)
 
 
-def scan_max_rows(kw: int, chained: bool = False) -> int:
+def scan_max_rows(kw: int, chained: bool = False, pairs: bool = False) -> int:
     """The most rows the largest cluster holds (with ``chained``: as one
-    chunk of the chained scan); a taller slice takes :func:`scan_chunked`."""
-    header = _SCAN_HEADER_BYTES + (_RECORD_BYTES if chained else 0)
+    chunk of the chained scan; with ``pairs``: under the two-pivot header); a
+    taller slice takes :func:`scan_chunked` (:func:`scan2_chunked`)."""
+    header = scan_smem_bytes(0, kw, pairs=pairs, chained=chained)
     per_block = (SCAN_SMEM_MAX - header) // (16 * (-(-kw // 4))) // 32 * 32
     return SCAN_CLUSTER_SIZES[-1] * min(per_block, SCAN_MAX_SLOTS * SCAN_THREADS)
 
@@ -244,13 +248,13 @@ def scan_route(rows: int, kw: int) -> ScanRoute | ChunkedScanRoute:
     return ScanRoute("scan", nb, rpb, scan_smem_bytes(rpb, kw))
 
 
-def _cluster_rule(rows: int, kw: int, chained: bool = False) -> int | None:
+def _cluster_rule(rows: int, kw: int, chained: bool = False, pairs: bool = False) -> int | None:
     """The smallest cluster whose blocks own at most ``SCAN_BLOCK_ROWS`` rows
     each, failing that the largest, if its blocks hold the state; None when
     none does."""
     for nb in SCAN_CLUSTER_SIZES:
         rpb = -(-rows // nb)
-        if scan_fits(rpb, kw, chained=chained) and (
+        if scan_fits(rpb, kw, pairs=pairs, chained=chained) and (
                 rpb <= SCAN_BLOCK_ROWS or nb == SCAN_CLUSTER_SIZES[-1]):
             return nb
     return None
@@ -266,20 +270,20 @@ def _halved_for_batch(nb: int, batch: int, rows: int, kw: int, chained: bool = F
     return nb
 
 
-def scan_chunk_rows(rows: int, kw: int) -> int:
+def scan_chunk_rows(rows: int, kw: int, pairs: bool = False) -> int:
     """The chained scan's chunk: the fewest chunks a cluster holds, of equal
     rows (the last may have fewer).  A step's cost grows with the rows a
     thread owns, so equal chunks beat filling the largest cluster first
     (both cuts measured on the H100: ``PERF.md`` §6)."""
-    chunks = -(-rows // scan_max_rows(kw, chained=True))
+    chunks = -(-rows // scan_max_rows(kw, chained=True, pairs=pairs))
     return -(-rows // chunks)
 
 
-def _chunk_cluster(rows: int, kw: int, batch: int) -> int:
+def _chunk_cluster(rows: int, kw: int, batch: int, pairs: bool = False) -> int:
     """Blocks a system for one chunk of ``rows`` rows of the chained scan: the
     cluster rule of :func:`scan_route`, halved for the batch as in
     :func:`scan_batched_route`, with the record in shared memory."""
-    nb = _cluster_rule(rows, kw, chained=True)
+    nb = _cluster_rule(rows, kw, chained=True, pairs=pairs)
     if nb is None:
         raise ValueError(f"a chunk of {rows} rows fits no cluster at kw={kw}")
     return _halved_for_batch(nb, batch, rows, kw, chained=True)
@@ -290,21 +294,23 @@ def scan_chunked_route(rows: int, kw: int, chunk_rows: int | None = None, batch:
     """The chained scan's launches for ``batch`` (kw, rows) slices: chunks of
     ``chunk_rows`` rows (by default :func:`scan_chunk_rows`; any count from 1
     to what the largest cluster holds), each on the cluster
-    :func:`_chunk_cluster` picks for its rows.  A pure function of the
-    shape."""
+    :func:`_chunk_cluster` picks for its rows, with the two-pivot header for
+    ``scan2_chunked``'s links.  A pure function of the shape."""
     if rows < 1 or not 1 <= kw <= 8 or batch < 1:
         raise ValueError(f"no chained scan for rows={rows}, kw={kw}, batch={batch}")
-    most = scan_max_rows(kw, chained=True)
+    pairs = kernel == "scan2_chunked"
+    most = scan_max_rows(kw, chained=True, pairs=pairs)
     if chunk_rows is None:
-        chunk_rows = scan_chunk_rows(rows, kw)
+        chunk_rows = scan_chunk_rows(rows, kw, pairs)
     if not 1 <= chunk_rows <= most:
         raise ValueError(f"chunk_rows={chunk_rows} outside 1..{most}")
     chunks = -(-rows // chunk_rows)
     full = min(chunk_rows, rows)
-    nb = _chunk_cluster(full, kw, batch)
+    nb = _chunk_cluster(full, kw, batch, pairs)
     rpb = -(-full // nb)
-    last = _chunk_cluster(rows - (chunks - 1) * chunk_rows, kw, batch)
-    return ChunkedScanRoute(kernel, nb, rpb, scan_smem_bytes(rpb, kw, chained=True), chunks,
+    last = _chunk_cluster(rows - (chunks - 1) * chunk_rows, kw, batch, pairs)
+    return ChunkedScanRoute(kernel, nb, rpb,
+                            scan_smem_bytes(rpb, kw, pairs=pairs, chained=True), chunks,
                             chunk_rows, last)
 
 
@@ -416,10 +422,10 @@ def scan_chunked_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, co
 
 def launch_chunked(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor, w0: int,
                    K: int, cols: int, route: ChunkedScanRoute, batched: bool):
-    """Launch the chained scan: one C call that launches its ``route.chunks``
-    kernels in order on the stream, counted as that many launches.  bT
-    (B, kw, rows), used (B, rows); the record is scratch of 9 K words a
-    system."""
+    """Launch a chained scan (1-pivot, batched or two-pivot): one C call that
+    launches its ``route.chunks`` kernels in order on the stream, counted as
+    that many launches.  bT (B, kw, rows), used (B, rows); the record is
+    scratch of 9 K words a system."""
     nb, kw, rows = bT.shape
     dev = bT.device
     _cuda.require(bT, "bT", (nb, kw, rows), dev)
@@ -547,77 +553,142 @@ def scan2_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int
     return prow, u[None, :], c
 
 
+def _scan2_pair_step(b, u, c, jj0: int, valid0: bool, valid1: bool, nblocks: int):
+    """One pair step of the two-pivot cluster kernel on (kw, n) words ``b``,
+    used flags ``u`` (n,) and coefficients ``c``, updated in place, with the
+    columns' validity as the kernel's election sees it: each of ``nblocks``
+    blocks (``ceil(n / nblocks)`` contiguous rows) elects, from the same
+    state, m0 (its lowest column-0 candidate), P0 and P1: its lowest row of
+    ``cand1_h = valid1 & free & (bit1 ^ (cand0 & h))`` for h = 0 and 1.  That
+    formula needs pivot 0 only through its own bit jj0 + 1 (h), and excludes
+    pivot 0 itself (h ^ h = 0), so no block needs to know pivot 0 before it
+    elects.  The fold over the slots: pivot 0 is the first block's m0, h its
+    bit jj0 + 1, pivot 1 the first block's P_h.  Returns the pivots (n when
+    none) and their words from word jj0 // 32 on as they stand at their steps
+    (pivot 1's corrected by pivot 0), and the new used flags."""
+    kw, n = b.shape
+    rpb = -(-n // nblocks)
+    pad = nblocks * rpb - n
+    lane = torch.arange(n, dtype=I32, device=b.device)
+
+    def block_minima(cand):  # (nblocks,): each block's lowest row of cand, n if none
+        rws = torch.nn.functional.pad(torch.where(cand, lane, n), (0, pad), value=n)
+        return rws.reshape(nblocks, rpb).amin(dim=1)
+
+    sw, sh0 = jj0 >> 5, jj0 & 31
+    cur = b[sw]
+    free = u == 0
+    cand0 = (((cur >> sh0) & 1) == 1) & free & valid0
+    bit1 = (((cur >> (sh0 + 1)) & 1) == 1) & free & valid1
+    # the slots: each block's m0, P0, P1; the first block with a row wins
+    m0, p0, p1 = (block_minima(x) for x in (cand0, bit1, bit1 ^ (cand0 & valid1)))
+    piv0 = m0.amin()
+    has0 = piv0 < n
+    bp0 = b[sw:, torch.where(has0, piv0, 0).long()]
+    h = has0 & (((bp0[0] >> (sh0 + 1)) & 1) == 1)
+    piv1 = torch.where(h, p1, p0).amin()
+    has1 = piv1 < n
+    p1s = torch.where(has1, piv1, 0).long()
+    elim0 = cand0 & (lane != piv0)
+    cand1 = bit1 ^ (cand0 & h & valid1)
+    bp1 = b[sw:, p1s] ^ torch.where(elim0[p1s], bp0, 0)
+    elim1 = cand1 & (lane != piv1)
+    b[sw:] ^= (torch.where(elim0[None, :], bp0[:, None], 0)
+               ^ torch.where(elim1[None, :], bp1[:, None], 0))
+    c[sw] ^= (torch.where(elim0, _bitval(sh0), 0)
+              ^ torch.where(elim1, _bitval(sh0 + 1), 0)).to(I32)
+    u = torch.where(((lane == piv0) & has0) | ((lane == piv1) & has1), 1, u).to(I32)
+    return piv0, piv1, bp0, bp1, u
+
+
 def scan2_cluster_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
                         nblocks: int):
     """:func:`scan2_plain` in the order of the cluster kernel on ``nblocks``
-    blocks (``ceil(rows / nblocks)`` contiguous rows a block).  For each pair
-    every block elects, from the same state, m0 (its lowest column-0
-    candidate), P0 and P1: its lowest row of ``cand1_h = valid1 & free &
-    (bit1 ^ (cand0 & h))`` for h = 0 and 1.  That formula needs pivot 0 only
-    through its own bit jj0 + 1 (h), and excludes pivot 0 itself (h ^ h = 0),
-    so no block needs to know pivot 0 before it elects.  The fold over the
-    slots: pivot 0 is the first block's m0, h its bit jj0 + 1, pivot 1 the
-    first block's P_h.  Same arguments and outputs as :func:`scan2_plain`, bit
-    for bit."""
+    blocks (``ceil(rows / nblocks)`` contiguous rows a block), a pair at a
+    time as :func:`_scan2_pair_step` elects it.  Same arguments and outputs as
+    :func:`scan2_plain`, bit for bit."""
     kw, rows = bT.shape
     if nblocks not in SCAN_CLUSTER_SIZES:
         raise ValueError(f"no cluster of {nblocks} blocks")
-    dev = bT.device
-    rpb = -(-rows // nblocks)
-    pad = nblocks * rpb - rows
     b = bT.clone()
     u = used[0].clone()
     c = torch.zeros_like(bT)
-    prow = torch.full((K,), -1, dtype=I32, device=dev)
-    lane = torch.arange(rows, dtype=I32, device=dev)
-
-    def block_minima(cand):  # (nblocks,): each block's lowest row of cand, rows if none
-        rws = torch.nn.functional.pad(torch.where(cand, lane, rows), (0, pad), value=rows)
-        return rws.reshape(nblocks, rpb).amin(dim=1)
-
-    def first(slots):  # the first block's row: the ranges ascend with the block
-        return slots.amin()
-
+    prow = torch.full((K,), -1, dtype=I32, device=bT.device)
     for jj0 in range(0, K, 2):
-        sw, sh0 = jj0 >> 5, jj0 & 31
         g0 = 32 * w0 + jj0
-        valid0, valid1 = 1 <= g0 <= cols, 1 <= g0 + 1 <= cols
-        cur = b[sw]
-        free = u == 0
-        cand0 = (((cur >> sh0) & 1) == 1) & free & valid0
-        bit1 = (((cur >> (sh0 + 1)) & 1) == 1) & free & valid1
-        # the slots: each block's m0, P0, P1
-        m0, p0, p1 = (block_minima(x) for x in (cand0, bit1, bit1 ^ (cand0 & valid1)))
-        piv0 = first(m0)
-        has0 = piv0 < rows
-        bp0 = b[sw:, torch.where(has0, piv0, 0).long()]
-        h = has0 & (((bp0[0] >> (sh0 + 1)) & 1) == 1)
-        piv1 = first(torch.where(h, p1, p0))
-        has1 = piv1 < rows
-        p1s = torch.where(has1, piv1, 0).long()
-        elim0 = cand0 & (lane != piv0)
-        cand1 = bit1 ^ (cand0 & h & valid1)
-        bp1 = b[sw:, p1s] ^ torch.where(elim0[p1s], bp0, 0)
-        elim1 = cand1 & (lane != piv1)
-        prow[jj0] = torch.where(has0, piv0, -1)
-        prow[jj0 + 1] = torch.where(has1, piv1, -1)
-        b[sw:] ^= (torch.where(elim0[None, :], bp0[:, None], 0)
-                   ^ torch.where(elim1[None, :], bp1[:, None], 0))
-        c[sw] ^= (torch.where(elim0, _bitval(sh0), 0)
-                  ^ torch.where(elim1, _bitval(sh0 + 1), 0)).to(I32)
-        u = torch.where(((lane == piv0) & has0) | ((lane == piv1) & has1), 1, u).to(I32)
+        piv0, piv1, _, _, u = _scan2_pair_step(b, u, c, jj0, 1 <= g0 <= cols,
+                                               1 <= g0 + 1 <= cols, nblocks)
+        prow[jj0] = torch.where(piv0 < rows, piv0, -1)
+        prow[jj0 + 1] = torch.where(piv1 < rows, piv1, -1)
     return prow, u[None, :], c
 
 
-def scan2_route(rows: int, kw: int) -> ScanRoute:
+def scan2_chunked_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                        chunk_rows: int):
+    """Plain twin of :func:`scan2_chunked` in the chain's order: the chunks
+    of ``chunk_rows`` rows in turn, each alone but for a record of the
+    columns the chunks before it took (the pivot's global row and its words
+    as they stood at its step), each on the cluster its route gives.  A pair
+    (jj0, jj0 + 1) of a chunk is one of four cases: both taken (both recorded
+    pivots swept in order into the candidates); jj0 taken (its pivot swept,
+    then the pair's election with column jj0 empty); jj0 + 1 taken (the
+    election with column jj0 + 1 empty, then its pivot swept); neither (the
+    pair's election, :func:`_scan2_pair_step`).  An elected pivot is the
+    global one and is recorded, pivot 1 with its words after pivot 0's
+    correction.  Outputs as :func:`scan2_plain`, bit for bit."""
+    kw, rows = bT.shape
+    dev = bT.device
+    route = scan_chunked_route(rows, kw, chunk_rows, kernel="scan2_chunked")
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    rec_words = torch.zeros((K, kw), dtype=I32, device=dev)
+    u_out = torch.empty_like(used)
+    c_out = torch.empty_like(bT)
+    for base in range(0, rows, chunk_rows):
+        b = bT[:, base : base + chunk_rows].clone()
+        u = used[0, base : base + chunk_rows].clone()
+        c = torch.zeros_like(b)
+        n = b.shape[1]
+        nblocks = route.nblocks if base + chunk_rows < rows else route.nblocks_last
+        taken = (prow >= 0).tolist()  # the record as this chunk loads it
+
+        def sweep(jj):  # a taken column: its recorded pivot into every candidate
+            sw, sh = jj >> 5, jj & 31
+            cand = (((b[sw] >> sh) & 1) == 1) & (u == 0)
+            b[sw:] ^= torch.where(cand[None, :], rec_words[jj, sw:, None], 0)
+            c[sw] ^= torch.where(cand, _bitval(sh), 0).to(I32)
+
+        for jj0 in range(0, K, 2):
+            g0 = 32 * w0 + jj0
+            valid = (1 <= g0 <= cols, 1 <= g0 + 1 <= cols)
+            took = (valid[0] and taken[jj0], valid[1] and taken[jj0 + 1])
+            if took[0]:
+                sweep(jj0)
+            elect = (valid[0] and not took[0], valid[1] and not took[1])
+            if any(elect):
+                piv0, piv1, bp0, bp1, u = _scan2_pair_step(b, u, c, jj0, *elect, nblocks)
+                sw = jj0 >> 5
+                for jj, piv, bp in ((jj0, piv0, bp0), (jj0 + 1, piv1, bp1)):
+                    if piv < n:
+                        prow[jj] = base + piv
+                        rec_words[jj, sw:] = bp
+            if took[1]:
+                sweep(jj0 + 1)
+        u_out[0, base : base + n] = u
+        c_out[:, base : base + n] = c
+    return prow, u_out, c_out
+
+
+def scan2_route(rows: int, kw: int) -> ScanRoute | ChunkedScanRoute:
     """Which kernel runs the two-pivot scan of a (kw, rows) slice, and on how
     many blocks: the 1-pivot scan's cluster size (:func:`scan_route`) with the
-    two-pivot election's header; past what its largest cluster holds, the
-    one-block kernel ``scan2_block``.  A pure function of the shape."""
+    two-pivot election's header; wherever the 1-pivot scan chains, or the
+    pair's header alone makes the cluster's slice not fit, the chained
+    two-pivot scan ``scan2_chunked`` on the chain's equal chunks.  A pure
+    function of the shape."""
     route = scan_route(rows, kw)
     rpb = route.rows_per_block
     if route.kernel != "scan" or not scan_fits(rpb, kw, pairs=True):
-        return ScanRoute("scan2_block", 1, rows, 0)
+        return scan_chunked_route(rows, kw, kernel="scan2_chunked")
     return ScanRoute("scan2", route.nblocks, rpb, scan_smem_bytes(rpb, kw, pairs=True))
 
 
@@ -629,12 +700,29 @@ def _check_k2(bT: torch.Tensor, K: int) -> None:
 
 def scan2_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The two-pivot scan by one block with its state in global memory: the
-    kernel for slices taller than the largest cluster holds
-    (:func:`scan2_route`); outputs as :func:`scan`."""
+    earlier kernel for slices taller than the largest cluster holds, on no
+    path since :func:`scan2_chunked` took them, kept to be timed beside it;
+    outputs as :func:`scan`."""
     _check_k2(bT, K)
     if not _cuda.on_cuda(bT):
         return scan2_plain(bT, used, w0, K, cols)
     return _launch_scan("gf2_scan2_block", "scan2_block", bT, used, w0, K, cols)
+
+
+def scan2_chunked(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                  chunk_rows: int | None = None):
+    """The two-pivot scan as a chain of two-pivot cluster scans over row
+    chunks: the kernel for slices taller than the largest cluster holds
+    (:func:`scan2_route`), any slice with ``chunk_rows`` given (by default
+    the chain's equal chunks).  Raises when a chunk fits no cluster or the
+    card cannot place one.  Outputs as :func:`scan`."""
+    _check_k2(bT, K)
+    route = scan_chunked_route(bT.shape[1], bT.shape[0], chunk_rows, kernel="scan2_chunked")
+    if not _cuda.on_cuda(bT):
+        return scan2_chunked_plain(bT, used, w0, K, cols, route.chunk_rows)
+    prow, used_o, cT = launch_chunked("gf2_scan2_chunked", "scan2_chunked", bT[None], used, w0,
+                                      K, cols, route, batched=False)
+    return prow[0], used_o, cT[0]
 
 
 def scan2_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
@@ -652,13 +740,13 @@ def scan2_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: i
 def scan2(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The scan with two pivots per sequential step; outputs as :func:`scan`.
     On the card the cluster kernel or, past the largest cluster's rows,
-    :func:`scan2_block` (:func:`scan2_route`)."""
+    :func:`scan2_chunked` (:func:`scan2_route`)."""
     _check_k2(bT, K)
     if not _cuda.on_cuda(bT):
         return scan2_plain(bT, used, w0, K, cols)
     route = scan2_route(bT.shape[1], bT.shape[0])
-    if route.kernel == "scan2_block":
-        return scan2_block(bT, used, w0, K, cols)
+    if route.kernel == "scan2_chunked":
+        return scan2_chunked(bT, used, w0, K, cols, route.chunk_rows)
     return scan2_cluster(bT, used, w0, K, cols, route.nblocks)
 
 

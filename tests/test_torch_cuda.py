@@ -227,7 +227,7 @@ def test_wrapper_counts_launches(dev):
         "scan_batched_block": 0, "update_scan_block": 0,
         "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
         "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
-        "phase1_fused_chunked": 0, "update_scan_chunked": 0,
+        "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
     }
 
 
@@ -953,20 +953,105 @@ def test_scan2_election_cases_on_the_card(dev, case, nblocks):
 
 
 def test_scan2_block_takes_the_very_tall_slice(dev):
-    """Past the largest cluster's rows the two-pivot scan runs its one-block
-    kernel, by the route and not after a failure."""
+    """The kept one-block kernel still scans a slice past the largest
+    cluster's rows right when it is called, while the two-pivot scan's route
+    there is the chained kernel, taken by the route and not after a failure;
+    the largest cluster refuses the slice."""
     rows, K, kw = VERY_TALL_ROWS, 256, 8
-    assert phase1.scan2_route(rows, kw).kernel == "scan2_block"
+    route = phase1.scan2_route(rows, kw)
+    assert route.kernel == "scan2_chunked"
     rng = np.random.default_rng(71)
     bT = _rand(rng, (kw, rows), dev)
     used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
+    want = phase1.scan_plain(bT, used, 8, K, 10**6)
     _cuda.reset_launches()
     got = phase1.scan(bT, used, 8, K, 10**6, "2")
-    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2_block": 1}
-    for g, w in zip(got, phase1.scan_plain(bT, used, 8, K, 10**6)):
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2_chunked": route.chunks}
+    for g, b, w in zip(got, phase1.scan2_block(bT, used, 8, K, 10**6), want):
         assert torch.equal(g, w)
+        assert torch.equal(b, w)
     with pytest.raises(RuntimeError, match="scan2 kernel"):
         phase1.scan2_cluster(bT, used, 8, K, 10**6, 16)
+
+
+# (rows, kw, chunk_rows, w0, cols): the route's cut of the very tall system,
+# the largest cluster filled first (last link 1792 rows on 2 blocks), chunks of
+# 8192 (nine, the last on 2 blocks), 5000 rows in chunks of 1024 (the last,
+# 904 rows, on one block), 70000 rows at kw 3 with a panel crossing cols, and
+# a one-row last chunk with invalid column 0
+SCAN2_CHUNKED_SHAPES = [(VERY_TALL_ROWS, 8, None, 160, 19968),
+                        (VERY_TALL_ROWS, 8, 65536, 8, 10**6),
+                        (VERY_TALL_ROWS, 8, 8192, 160, 19968), (5000, 8, 1024, 8, 10**6),
+                        (70000, 3, None, 2, 150), (65537, 8, None, 0, 10**6)]
+
+
+@pytest.mark.parametrize("pattern", ["random", "chunk0-used", "sparse"])
+@pytest.mark.parametrize("rows,kw,chunk_rows,w0,cols", SCAN2_CHUNKED_SHAPES)
+def test_scan2_chunked_kernel(dev, rows, kw, chunk_rows, w0, cols, pattern):
+    """The chained two-pivot scan equals its twin in the chain's order, the
+    step twin and the 1-pivot scan's twin (max_abs_err 0), a launch a chunk:
+    a quarter of the rows used, the first chunk all used (the later chunks
+    elect), sparse (columns without a candidate, pivots in later chunks)."""
+    rng = np.random.default_rng(rows + kw + len(pattern) + 3)
+    bT, used = _chained_inputs(rng, 1, kw, rows, pattern, dev, chunk_rows)
+    K = 32 * kw
+    route = phase1.scan_chunked_route(rows, kw, chunk_rows, kernel="scan2_chunked")
+    _cuda.reset_launches()
+    got = phase1.scan2_chunked(bT[0], used, w0, K, cols, chunk_rows)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2_chunked": route.chunks}
+    want = phase1.scan2_chunked_plain(bT[0], used, w0, K, cols, route.chunk_rows)
+    torch.cuda.synchronize()
+    for g, w, p, q in zip(got, want, phase1.scan2_plain(bT[0], used, w0, K, cols),
+                          phase1.scan_plain(bT[0], used, w0, K, cols)):
+        assert torch.equal(g, w)
+        assert torch.equal(g, p)
+        assert torch.equal(g, q)
+    if pattern == "chunk0-used":
+        pivots = got[0][got[0] >= 0]
+        assert pivots.numel() and int(pivots.min()) >= route.chunk_rows
+
+
+def test_scan2_chunked_raises_instead_of_falling_back(dev):
+    """A chain the kernel cannot take (a cluster of 3 blocks, first or last)
+    raises; nothing else runs in its place (no one-block kernel, no twin) and
+    nothing is counted."""
+    rng = np.random.default_rng(12)
+    bT, used = _chained_inputs(rng, 1, 8, VERY_TALL_ROWS, "random", dev)
+    route = phase1.scan2_route(VERY_TALL_ROWS, 8)
+    _cuda.reset_launches()
+    for bad in (route._replace(nblocks=3), route._replace(nblocks_last=3)):
+        with pytest.raises(RuntimeError, match="scan2_chunked kernel"):
+            phase1.launch_chunked("gf2_scan2_chunked", "scan2_chunked", bT, used, 8, 256, 10**6,
+                                  bad, batched=False)
+    torch.cuda.synchronize()
+    assert not any(_cuda.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("rows,wp,K", [(20224, 640, 256), (20224, 768, 256), (20224, 638, 256),
+                                       (20224, 8, 256), (1000, 389, 160)])
+def test_update_mxu4_kernel(dev, rows, wp, K):
+    """mxu4 as one launch of the strip kernel under its own rule: the
+    flagship and multi-RHS widths, an unaligned width (scalar accesses), the
+    look-ahead engine's (rows, 8) slice and a ragged strip, full and trailing
+    (w0 in the first tile, on its edge, past it, in the last tile), the whole
+    matrix against the twin, which follows the TPU body's second product;
+    one launch of update_mxu4, nothing else."""
+    rng = np.random.default_rng(rows + wp + 67)
+    a = _rand(rng, (rows, wp), dev)
+    sel = _rand(rng, (rows, K // 32), dev)
+    pf = _rand(rng, (K, wp), dev)
+    for w0 in [None] + sorted({0, 127, 128, 160, 632} & set(range(wp))):
+        _cuda.reset_launches()
+        got = panel_update.update_mxu4(a.clone(), sel, pf, w0)
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_mxu4": 1}
+        want = panel_update.update_mxu4_plain(a.clone(), sel, pf, w0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w0
+    # an a that starts 4 bytes past a 16-byte boundary takes the scalar accesses
+    big = _rand(rng, (rows * wp + 1,), dev)
+    view = big[1:].view(rows, wp)
+    want = panel_update.update_mxu4_plain(view.clone(), sel, pf, 160 if wp > 160 else None)
+    assert torch.equal(panel_update.update_mxu4(view, sel, pf, 160 if wp > 160 else None), want)
 
 
 @pytest.mark.parametrize("rows,wp,K", UPDATE_SHAPES + [

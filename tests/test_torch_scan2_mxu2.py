@@ -1,5 +1,5 @@
-"""The two-pivot scan as a cluster kernel and the one-launch mxu2 update, as
-far as the CPU can hold them.
+"""The two-pivot scan as a cluster kernel and the one-launch mxu2 and mxu4
+updates, as far as the CPU can hold them.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``).  Here:
 
@@ -10,13 +10,16 @@ The kernels run only on the card (``tests/test_torch_cuda.py``).  Here:
   built by hand so that each election case that breaks a wrong election
   occurs (each asserted on the input), a first column that is not valid, a
   last valid column of either parity, no pivot, every row used;
-* ``phase1.scan2_route`` as a pure function of the shape, the constants the
-  Python side mirrors from ``csrc/`` and the new C signatures;
-* a numpy model of the mxu2 kernel's fragments (which thread holds which bit
-  column of which row, the B column order and shared-memory layout, the
-  repack into whole words, the staged 16-byte write-out) against
-  ``update_mxu2_plain`` and the Pallas ``panel_update_mxu2`` in interpret
-  mode under every trailing ``w0`` the card tests use.
+* ``phase1.scan2_route`` as a pure function of the shape (the chained
+  two-pivot scan past the largest cluster), the constants the Python side
+  mirrors from ``csrc/`` and the new C signatures;
+* a numpy model of the strip kernel's fragments (the five-stage shuffle
+  transpose that builds B, held against the ballot definition; which thread
+  holds which bit column of which row, the B column order and shared-memory
+  layout, the repack into whole words, the staged 16-byte write-out) against
+  ``update_mxu2_plain`` / ``update_mxu4_plain`` and the Pallas
+  ``panel_update_mxu2`` / ``panel_update_mxu4`` in interpret mode under every
+  trailing ``w0`` the card tests use and each engine's rule.
 
 Seeded numpy inputs; tolerance 0: integer GF(2) arithmetic.
 """
@@ -216,11 +219,16 @@ def test_scan2_cluster_twin_matches_pallas(K, w0, cols):
 @pytest.mark.parametrize("rows", [1, 256, 768, 2560, 20224, 40192, 65536, 65537, 67328])
 def test_scan2_route(rows, kw):
     """The cluster kernel on the 1-pivot scan's cluster size with the
-    two-pivot header; the one-block kernel exactly past its largest cluster."""
+    two-pivot header; the chained two-pivot scan exactly past its largest
+    cluster."""
     route = phase1.scan2_route(rows, kw)
     scan = phase1.scan_route(rows, kw)
     if scan.kernel != "scan" or not phase1.scan_fits(scan.rows_per_block, kw, pairs=True):
-        assert route == ("scan2_block", 1, rows, 0)
+        assert route == phase1.scan_chunked_route(rows, kw, kernel="scan2_chunked")
+        # the 1-pivot chain's equal chunks and clusters, under the pair's header
+        assert route[1:3] + route[4:] == scan[1:3] + scan[4:]
+        assert route.smem_bytes == phase1.scan_smem_bytes(route.rows_per_block, kw, pairs=True,
+                                                          chained=True) <= phase1.SCAN_SMEM_MAX
         return
     assert route.kernel == "scan2"
     assert (route.nblocks, route.rows_per_block) == (scan.nblocks, scan.rows_per_block)
@@ -233,8 +241,10 @@ def test_scan2_route_of_the_solver_shapes():
     assert phase1.scan2_route(40192, 8)[:3] == ("scan2", 16, 2512)
     assert phase1.scan2_route(768, 8)[:3] == ("scan2", 1, 768)
     assert phase1.scan2_route(65536, 8).kernel == "scan2"
-    assert phase1.scan2_route(65537, 8).kernel == "scan2_block"
-    assert phase1.scan2_route(67328, 8).kernel == "scan2_block"
+    assert phase1.scan2_route(65537, 8).kernel == "scan2_chunked"
+    assert phase1.scan2_route(67328, 8) == (
+        "scan2_chunked", 16, 2104, phase1.scan_smem_bytes(2104, 8, pairs=True, chained=True), 2,
+        33664, 16)
 
 
 @pytest.mark.parametrize("rows,kw", [(0, 8), (300, 9), (300, 0)])
@@ -280,9 +290,11 @@ def test_new_signatures_match_the_c_entry_points(name):
 def test_new_kernels_are_counted_under_their_own_names():
     for key in ("scan2", "scan2_block", "update_mxu2", "update_mxu2_probe"):
         assert key in _cuda.LAUNCHES
-    # one launch, no scratch: the mxu2 entry point takes no pf_t any more
+    # one launch, no scratch: neither tensor-core entry point takes pf
+    # transposed any more, and the two share their C signature
     assert "pfT" not in " ".join(_c_parameters("gf2_update_mxu2"))
-    assert "pfT" in " ".join(_c_parameters("gf2_update_mxu4"))
+    assert "pfT" not in " ".join(_c_parameters("gf2_update_mxu4"))
+    assert _cuda._SIGNATURES["gf2_update_mxu4"] == _cuda._SIGNATURES["gf2_update_mxu2"]
 
 
 def test_scan2_wrappers_run_the_twins_on_cpu_tensors():
@@ -346,30 +358,61 @@ def _mma16(a_frag, b_frag):
                      D[:, G_OF + 8, 2 * T_OF], D[:, G_OF + 8, 2 * T_OF + 1]], -1).transpose(1, 0, 2)
 
 
-def _mxu2_model(a, sel, pf, w0):
-    """The mxu2 kernel step by step on numpy arrays: a (rows, wp), sel (rows,
-    kw), pf (32 kw, wp) uint32; returns a ^ S.PF under the mxu2 trailing rule."""
+def _ballot_transpose(x):
+    """The definition of the B build's transpose: x (..., 32) words, row j in
+    lane j; lane p of the result holds bit j = bit p of x[j] (what 32 ballots,
+    each kept by lane p, give)."""
+    shifts = np.arange(32, dtype=np.uint64)
+    bits = (x.astype(np.uint64)[..., :, None] >> shifts) & 1  # [..][j][p]
+    return (bits << shifts[:, None]).sum(-2).astype(np.uint32)  # [..][p]
+
+
+def _shuffle_transpose(x):
+    """update_mma.cu: transpose32 on every warp of x (..., 32) at once:
+    stage d = 16, 8, 4, 2, 1 exchanges x with lane ^ d (__shfl_xor_sync); a
+    lane with bit d clear keeps its low bits of each 2d-bit group and takes
+    its partner's low bits into its high ones, the partner the other way."""
+    x = x.astype(np.uint32).copy()
+    lane = np.arange(32)
+    for d, m in zip((16, 8, 4, 2, 1), (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333,
+                                       0x55555555)):
+        m, dd = np.uint32(m), np.uint32(d)
+        y = x[..., lane ^ d]
+        upper = (lane & d) != 0
+        x = np.where(upper, (x & ~m) | ((y >> dd) & m), (x & m) | ((y & m) << dd))
+    return x
+
+
+def _strip_rule(wp, w0, engine):
+    """update_mma.cu: mxu2_rule / mxu4_rule as (head_words, word_lo)."""
+    tw = 128 if wp % 128 == 0 else wp
+    if engine == "mxu4":
+        return (1, w0 // tw * tw) if w0 is not None and tw <= w0 else (0, 0)
+    dead = 0 if w0 is None else w0 // tw
+    return (tw, dead * tw) if dead >= 2 else (0, 0)
+
+
+def _mxu2_model(a, sel, pf, w0, engine="mxu2"):
+    """The strip kernel step by step on numpy arrays: a (rows, wp), sel (rows,
+    kw), pf (32 kw, wp) uint32; returns a ^ S.PF under the engine's trailing
+    rule (the same kernel runs both)."""
     a = a.copy()
     rows, wp = a.shape
     kw = sel.shape[1]
-    tw = 128 if wp % 128 == 0 else wp
-    dead = 0 if w0 is None else w0 // tw
-    head, lo = (tw, dead * tw) if dead >= 2 else (0, 0)
+    head, lo = _strip_rule(wp, w0, engine)
     strips = [(s, head) for s in range(0, head, STRIP)] + [(s, wp) for s in range(lo, wp, STRIP)]
-    shifts = np.arange(32, dtype=np.uint64)
     w_idx, p_idx, k_idx = np.meshgrid(np.arange(STRIP), np.arange(32), np.arange(8), indexing="ij")
     b_at = _b_index(w_idx, p_idx, k_idx)
     sel_pad = np.zeros((rows + 16, 8), np.uint32)
     sel_pad[:rows, :kw] = sel
     for s, end in strips:
         nw = min(STRIP, end - s)
-        # B of the strip: warp k transposes k-word k; lane p keeps the ballot of
-        # bit p: bit j = bit p of pf[32k + j][s + w]
-        x = np.zeros((STRIP, 8, 32), np.uint64)  # [w][k][lane j]
+        # B of the strip: warp k transposes k-word k by five shuffle stages;
+        # lane p gets bit j = bit p of pf[32k + j][s + w]
+        x = np.zeros((STRIP, 8, 32), np.uint32)  # [w][k][lane j]
         x[:nw, :kw] = pf[:, s : s + nw].T.reshape(nw, kw, 32)
-        ballots = (((x[:, :, :, None] >> shifts) & 1) << shifts[:, None]).sum(2)  # [w][k][p]
         bsm = np.zeros(STRIP * B_WORDS, np.uint32)
-        bsm[b_at] = ballots.transpose(0, 2, 1).astype(np.uint32)
+        bsm[b_at] = _shuffle_transpose(x).transpose(0, 2, 1)
         for rbase in range(0, rows, 16):
             af = np.stack([sel_pad[rbase + G_OF, T_OF], sel_pad[rbase + G_OF + 8, T_OF],
                            sel_pad[rbase + G_OF, 4 + T_OF], sel_pad[rbase + G_OF + 8, 4 + T_OF]],
@@ -423,6 +466,26 @@ def test_mxu2_b_layout_is_a_bijection_and_conflict_free():
     assert (STAGE * 4) % 16 == 0  # staged rows keep 16-byte alignment
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_shuffle_transpose_is_the_ballot_transpose(seed):
+    """The five-stage shuffle transpose of the B build gives every lane what
+    the 32 ballots gave (lane p: bit j = bit p of row j's word) on random,
+    sparse and structured 32 x 32 blocks."""
+    rng = np.random.default_rng(seed)
+    blocks = [rng.integers(0, 2**32, size=(64, 32), dtype=np.uint32),
+              np.where(rng.random((64, 32)) < 0.05,
+                       np.uint32(1) << rng.integers(0, 32, size=(64, 32)).astype(np.uint32),
+                       np.uint32(0)),
+              np.uint32(1) << np.arange(32, dtype=np.uint32)[None, :].repeat(2, 0),
+              np.full((1, 32), 0xFFFFFFFF, np.uint32), np.zeros((1, 32), np.uint32)]
+    for x in blocks:
+        got = _shuffle_transpose(x)
+        assert np.array_equal(got, _ballot_transpose(x))
+        assert np.array_equal(_shuffle_transpose(got), x)  # a transpose twice is the block
+    eye = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    assert np.array_equal(_shuffle_transpose(eye[None])[0], eye)
+
+
 MODEL_SHAPES = [(40, 13, 32), (17, 384, 96), (20, 200, 256), (33, 256, 64), (36, 8, 256)]
 
 
@@ -447,3 +510,46 @@ def test_mxu2_fragment_model_matches_the_twin_and_pallas(rows, wp, K):
                 jnp.asarray(pf), interpret=True,
                 w0=None if w0 is None else jnp.asarray(w0, jnp.int32)))[:rows]
             assert np.array_equal(model, got), w0
+
+
+@pytest.mark.parametrize("rows,wp,K", MODEL_SHAPES)
+def test_mxu4_on_the_strip_kernel_matches_the_twin_and_pallas(rows, wp, K):
+    """The strip kernel under mxu4's rule (word 0 alone of tile 0 and the
+    tiles from w0's on, once tw <= w0) equals update_mxu4_plain, which
+    follows the TPU body's second product, and the Pallas mxu4 kernel in
+    interpret mode, full and at every w0 of the card tests."""
+    rng = np.random.default_rng(rows + wp + K + 1)
+    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
+    sel = rng.integers(0, 2**32, size=(rows, K // 32), dtype=np.uint32)
+    pf = rng.integers(0, 2**32, size=(K, wp), dtype=np.uint32)
+    rows_j = -(-rows // 8) * 8  # the Pallas kernel tiles rows by 8
+    pad = np.zeros((rows_j - rows, wp), np.uint32)
+    for w0 in [None] + sorted({0, 8, 127, 128, 160, 256, wp - 8} & set(range(wp))):
+        model = _mxu2_model(a, sel, pf, w0, "mxu4")
+        twin = torch_to_u32(panel_update.update_mxu4_plain(t32(a), t32(sel), t32(pf), w0))
+        assert np.array_equal(model, twin), w0
+        if w0 in (None, 160, wp - 8):
+            got = np.asarray(pu_jax.panel_update_mxu4(
+                jnp.asarray(np.concatenate([a, pad])),
+                jnp.asarray(np.concatenate([sel, np.zeros((rows_j - rows, K // 32), np.uint32)])),
+                jnp.asarray(pf), interpret=True,
+                w0=None if w0 is None else jnp.asarray(w0, jnp.int32)))[:rows]
+            assert np.array_equal(model, got), w0
+
+
+@pytest.mark.parametrize("wp", [8, 13, 128, 200, 256, 384, 640, 768])
+def test_mxu4_rule_covers_what_the_twin_updates(wp):
+    """mxu4_rule's words are exactly those update_mxu4_plain changes (with an
+    all-ones product every live word flips), at every w0."""
+    rows, K = 16, 32
+    sel = np.full((rows, 1), 1, np.uint32)  # selector bit 0: a ^= pf[0]
+    pf = np.zeros((K, wp), np.uint32)
+    pf[0] = 0xFFFFFFFF
+    a = np.zeros((rows, wp), np.uint32)
+    for w0 in [None] + list(range(0, wp, max(1, wp // 17))):
+        head, lo = _strip_rule(wp, w0, "mxu4")
+        live = np.zeros(wp, bool)
+        live[:head] = True
+        live[lo:] = True
+        twin = torch_to_u32(panel_update.update_mxu4_plain(t32(a), t32(sel), t32(pf), w0))
+        assert np.array_equal(twin[0] != 0, live), w0

@@ -15,8 +15,8 @@ Here:
   and the reference's outputs) and on random ones;
 * the routes: ``scan_route`` and ``scan_batched_route`` give the chained scan
   past what the largest cluster holds, and so, on the same chunks, do the
-  fused phase 1 and the fused update + scan, while the two-pivot scan keeps
-  its one-block kernel there;
+  fused phase 1, the fused update + scan and the two-pivot scan (its chain,
+  ``scan2_chunked``; tests/test_torch_scan2_chunked.py);
 * the constants and C signatures mirrored from ``csrc/``; the wrappers on
   CPU tensors.
 
@@ -227,16 +227,18 @@ def test_the_record_costs_no_rows():
 def test_routes_of_the_very_tall_system():
     """67328 rows at K = 256: two chunks of 33664 rows on 16 blocks (5 rows a
     thread) for the 1-pivot and the batched scan, and for the chained fused
-    phase 1 and fused update + scan; the two-pivot scan keeps its one-block
-    kernel, and every route is the cluster's up to 65536 rows."""
+    phase 1, fused update + scan and two-pivot scan (under the pair's
+    header); every route is the cluster's up to 65536 rows."""
     assert phase1.scan_route(67328, 8) == (
         "scan_chunked", 16, 2104, phase1.scan_smem_bytes(2104, 8, chained=True), 2, 33664, 16)
     for batch in (1, 2, 4, 7, 16):
         route = phase1.scan_batched_route(batch, 67328, 8)
         assert route[:1] + route[4:] == ("scan_batched_chunked", 2, 33664, 16)
         assert route.nblocks == 16  # 8 blocks cannot hold 33664 rows
-    assert phase1.scan2_route(67328, 8).kernel == "scan2_block"
     chained = phase1.scan_route(67328, 8)
+    assert phase1.scan2_route(67328, 8) == chained._replace(
+        kernel="scan2_chunked", smem_bytes=phase1.scan_smem_bytes(2104, 8, pairs=True,
+                                                                  chained=True))
     assert phase1.phase1_fused_route(67328, 8) == chained._replace(kernel="phase1_fused_chunked")
     assert panel_update.update_scan_route(67328, 8) == chained._replace(
         kernel="update_scan_chunked")
