@@ -124,6 +124,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
 13. The update engines pallas, mxu2, mxu4 through solve_mt19937 like the
    engines of phase 9; skip (phase 1 alone: no state comes back) timed warm;
    the portable jnp engines on a small system against the default engine.
+14. Quadratic systems at full width: the NLFSR attack of examples/nlfsr.py
+   (a 128-bit register, 2^14 + 1000 outputs, 128 + 8128 unknowns) for the
+   Galois and the Fibonacci LFSR, each secret from random.Random: the tap
+   streams traced on the host, the annihilator rows built on the card by
+   ops.quad_device.quad_rows, the selected rows gathered there,
+   QuadraticSystem.solve_all_packed (blocked kernels, mode 1: a scan, a
+   rebuild and a full update per panel; the consistency filter on the card
+   when the space has more than 8 dimensions) and solve_one_packed must
+   return the secret; the rows, columns and dimension, and the warm wall,
+   CUDA-event and kernel times of quad_rows, the solve and the filter.
+15. Routing: auto on the card is the per-pivot solver below 1024 columns and
+   the blocked solver from 1024; both backends solve one random consistent
+   system at 256, 512, 1023, 1024 and 2048 columns, warm (best of 3), with
+   their kernel times.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with the per-kernel results; the last line is
@@ -178,6 +192,11 @@ TALL_SAMPLES = 1248  # 39968 rows: above the min-key scan's 2^15
 TALL_ROWS = 40192  # its padded rows
 VERY_TALL_SAMPLES = 2100  # past the largest cluster: the chained kernels
 VERY_TALL_ROWS = 67328  # its padded rows
+NLFSR_WIDTH = 128  # examples/nlfsr.py: the register, its taps, the combiner's taps
+NLFSR_TAPS = 0xD670201BAC7515352A273372B2A95B23
+NLFSR_SELECT = (13, 24, 35, 46, 57)
+NLFSR_STEPS = 2**14 + 1000
+ROUTING_COLS = (256, 512, 1023, 1024, 2048)  # around the reference's _BLOCKED_THRESHOLD
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
@@ -1490,6 +1509,24 @@ def check_subset_launches(what: str) -> dict:
     return got
 
 
+def device_rows(prof) -> list:
+    """(device µs, name, count) of each kernel and copy in a torch.profiler
+    run, largest first.  The CPU-side operators are left out: their device
+    time is that of the kernels they launched, which are rows of their own."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    return sorted(rows, reverse=True)
+
+
 def profile_solve(solve, card: str, what: str, warm_s: float) -> None:
     """Device time by kernel of one warm solve under torch.profiler; the
     idle share is read against the unprofiled warm wall time."""
@@ -1501,18 +1538,11 @@ def profile_solve(solve, card: str, what: str, warm_s: float) -> None:
         solve()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     total = sum(r[0] for r in rows)
-    print(f"profile {what}: wall {1000 * wall:.1f} ms under the profiler, device self "
-          f"time {total / 1000:.1f} ms; against the warm {1000 * warm_s:.1f} ms the device "
-          f"is idle {100 * max(0.0, 1 - total / 1e6 / warm_s):.1f}% ({card})")
+    print(f"profile {what}: wall {1000 * wall:.1f} ms under the profiler, device time "
+          f"(kernels and copies) {total / 1000:.1f} ms; against the warm {1000 * warm_s:.1f} ms "
+          f"the device is idle {100 * max(0.0, 1 - total / 1e6 / warm_s):.1f}% ({card})")
     for dev_us, key, count in rows[:8]:
         print(f"  {dev_us / 1000:9.2f} ms {count:5d}x {key[:90]}")
 
@@ -1781,6 +1811,187 @@ def check_skip_and_jnp(dev, card: str) -> None:
           f"default engine's, no kernel launched; {t:.3f} s ({card})")
 
 
+def device_ms(fn) -> float:
+    """Milliseconds of device time (kernels and copies) in one call of
+    ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in device_rows(prof)) / 1000
+
+
+def event_ms(fn):
+    """(result, wall ms, CUDA-event ms) of one warm call of ``fn``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, 1000 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+
+def nlfsr_attack(dev, lfsr_cls, secret: int) -> dict:
+    """examples/nlfsr.py through the port on ``dev``: the filtered keystream
+    of ``secret``, the three annihilator tap streams traced against a
+    LinearSystem on the host, and ``build()``, which makes the annihilator
+    rows with quad_rows on the system's device and gathers there the rows of
+    the outputs that are 1."""
+    from gf2bv_tpu_torch import BitVec, LinearSystem, QuadraticSystem
+    from gf2bv_tpu_torch.core.lazy import materialize_pending
+    from gf2bv_tpu_torch.ops import quad_device
+
+    width, taps, select, steps = NLFSR_WIDTH, NLFSR_TAPS, NLFSR_SELECT, NLFSR_STEPS
+    reg = lfsr_cls(width, taps, secret)
+    out = []
+    for _ in range(steps):
+        reg()
+        x0, x1, x2, x3, x4 = ((reg.state >> i) & 1 for i in select)
+        out.append((x0 * x1) ^ (x0 * x1 * x3 * x4) ^ x0 ^ x1 ^ x2)
+    out = np.array(out, dtype=bool)
+
+    t0 = time.perf_counter()
+    lin = LinearSystem([width], device=dev)
+    reg = lfsr_cls(width, taps, BitVec.stack(lin.gens()))
+    streams = ([], [], [])
+    for _ in range(steps):
+        reg()
+        for bits, tap in zip(streams, select[:3]):
+            bits.append(reg.state[tap])
+    x0, x1, x2 = (BitVec.stack(bits) for bits in streams)
+    materialize_pending([x0, x1, x2])  # the host trace, outside quad_rows' time
+    trace_s = time.perf_counter() - t0
+
+    qsys = QuadraticSystem([width], device=dev)
+    sel = np.flatnonzero(out)
+    sel = np.concatenate([sel, np.full(-len(sel) % 256, sel[0])])  # duplicates are inert
+    sel_dev = torch.as_tensor(sel, device=dev)
+
+    def build():
+        eqs = quad_device.quad_rows(qsys, pairs=[(x0, x1), (x1, x2)], linear=[x0, x1, x2],
+                                    const=(1 << steps) - 1)
+        return eqs[sel_dev]
+
+    return {"qsys": qsys, "build": build, "equations": int(out.sum()), "trace_s": trace_s}
+
+
+def check_quadratic(dev, card: str) -> dict:
+    """The NLFSR attack of examples/nlfsr.py at full width through the port:
+    the annihilator rows built on the card by quad_rows, the selection
+    gathered there, solve_all_packed (the blocked kernels, mode 1; the
+    consistency filter on the card past 8 dimensions) and solve_one_packed,
+    for both LFSR forms."""
+    from gf2bv_tpu_torch.crypto.lfsr import FibonacciLFSR, GaloisLFSR
+    from gf2bv_tpu_torch.ops import _cuda, enumerate as enum_ops
+
+    launches = {}
+    for k, lfsr_cls in enumerate((GaloisLFSR, FibonacciLFSR)):
+        name = lfsr_cls.__name__
+        secret = random.Random(SEED + 300 + k).getrandbits(NLFSR_WIDTH)
+        attack = nlfsr_attack(dev, lfsr_cls, secret)
+        qsys, build = attack["qsys"], attack["build"]
+
+        _cuda.reset_launches()
+        eqs_sel = build()
+        if eqs_sel.device.type != "cuda" or eqs_sel.dtype != torch.int32:
+            raise AssertionError(f"{name}: quad_rows did not build an int32 matrix on the card")
+        solutions = [s for (s,) in qsys.solve_all_packed(eqs_sel)]
+        torch.cuda.synchronize()
+        panels = -(-(qsys.cols + 1) // K)
+        launches[name] = check_launches(f"NLFSR {name} solve_all_packed", {
+            "scan": panels, "reconstruct": panels, "update_full": panels})
+        if not solutions or any(s != secret for s in solutions):
+            raise AssertionError(f"{name}: solve_all_packed did not recover the secret "
+                                 f"({len(solutions)} solutions)")
+        if qsys.solve_one_packed(eqs_sel) != (secret,):
+            raise AssertionError(f"{name}: solve_one_packed did not recover the secret")
+
+        _, build_wall, build_ev = event_ms(build)
+        build_dev = device_ms(build)
+        if k == 0:  # where quad_rows' time goes, by operator and kernel
+            profile_solve(build, card, f"quad_rows + gather, NLFSR {name}", build_wall / 1000)
+        space, solve_wall, solve_ev = event_ms(lambda: qsys.solve_raw_packed(eqs_sel, 1))
+        solve_dev = device_ms(lambda: qsys.solve_raw_packed(eqs_sel, 1))
+
+        def filt():
+            return list(enum_ops.iter_quad_filtered(space, NLFSR_WIDTH, device=dev))
+
+        kept, filt_wall, filt_ev = event_ms(filt)
+        filt_dev = device_ms(filt)
+        if not kept or any(qsys.convert_sol(s) != (secret,) for s in kept):
+            raise AssertionError(f"{name}: the card's consistency filter kept {len(kept)} points")
+        all_s = timed(lambda: list(qsys.solve_all_packed(eqs_sel)))[1]
+        print(f"NLFSR {name} (WIDTH {NLFSR_WIDTH}, {NLFSR_STEPS} outputs): secret recovered by "
+              f"solve_all_packed ({len(solutions)} solution) and solve_one_packed; "
+              f"{attack['equations']} equations, rows {eqs_sel.shape[0]} x {eqs_sel.shape[1]} "
+              f"words, columns {qsys.cols}, space dimension {space.dimension} "
+              f"({'filtered on the card' if space.dimension > 8 else 'filtered on the host'} in "
+              f"solve_all); launches {launches[name]}; host trace {attack['trace_s']:.2f} s "
+              f"({card})")
+        print(f"  warm: quad_rows + gather wall {build_wall:.3f} ms, events {build_ev:.3f} ms, "
+              f"kernels {build_dev:.3f} ms; solve (mode 1) wall {solve_wall:.3f} ms, events "
+              f"{solve_ev:.3f} ms, kernels {solve_dev:.3f} ms; filter on the card "
+              f"({space.size} points) wall {filt_wall:.3f} ms, events {filt_ev:.3f} ms, "
+              f"kernels {filt_dev:.3f} ms; solve_all_packed {1000 * all_s:.3f} ms ({card})")
+    return launches
+
+
+def check_routing(dev, card: str) -> None:
+    """auto on the card: the per-pivot solver below 1024 columns, the blocked
+    kernels from 1024 (the reference's _BLOCKED_THRESHOLD, not re-derived
+    here); both backends timed on one random consistent system per size."""
+    from gf2bv_tpu_torch.core import packing
+    from gf2bv_tpu_torch.ops import _cuda, solver
+
+    for cols, want in ((4, "jax"), (1023, "jax"), (1024, "blocked"), (4096, "blocked")):
+        if solver._auto_backend(cols, dev) != want:
+            raise AssertionError(f"auto at {cols} columns on the card is not {want}")
+    rng = np.random.default_rng(SEED)
+    for cols in ROUTING_COLS:
+        rows = cols + 64
+        coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
+        secret = rng.integers(0, 2, size=cols).astype(np.uint8)
+        rhs = ((coeff.astype(np.int64) @ secret) % 2).astype(np.uint8)
+        eqs = packing.pack_bits(np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols)
+        want = int(sum(int(b) << i for i, b in enumerate(secret)))
+        line = []
+        for backend in ("jax", "blocked"):
+            def run():
+                return solver.solve(eqs, cols, 0, backend=backend, device=dev)
+
+            _cuda.reset_launches()
+            if run() != want:
+                raise AssertionError(f"backend {backend} at {cols} columns lost the secret")
+            if (backend == "blocked") != bool(_cuda.LAUNCHES["scan"]):
+                raise AssertionError(f"backend {backend} at {cols} columns: launches "
+                                     f"{ {k: v for k, v in _cuda.LAUNCHES.items() if v} }")
+            walls = [event_ms(run)[1] for _ in range(3)]
+            line.append(f"{backend} warm best of 3 {min(walls):.3f} ms, kernels "
+                        f"{device_ms(run):.3f} ms")
+        print(f"routing {cols} columns ({rows} rows, auto = "
+              f"{solver._auto_backend(cols, dev)}): {'; '.join(line)} ({card})")
+
+
+def check_native_build(card: str) -> None:
+    """The host engine's first use, which any host enumeration (solve_all's
+    points) also pays: gcc builds both NSUB variants into build/, as the
+    reference builds them at its first use."""
+    from gf2bv_tpu_torch import _native
+
+    before = set(_native.BUILD_DIR.glob("libgf2native_*.so"))
+    t0 = time.perf_counter()
+    ok = _native.available()
+    build_s = time.perf_counter() - t0
+    new = sorted(p.name for p in set(_native.BUILD_DIR.glob("libgf2native_*.so")) - before)
+    print(f"native host engine: available {ok}, first use {build_s:.2f} s, built "
+          f"{new or 'nothing (cached)'} ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1800,6 +2011,7 @@ def main() -> int:
     so = _cuda.build()
     _cuda.lib()
     print(f"kernels built: {so.name} in {time.perf_counter() - t0:.1f} s")
+    check_native_build(card)
 
     res = check_kernels(dev, card)
     if "--kernels-only" in sys.argv[1:]:  # the comparisons and kernel times alone
@@ -1819,6 +2031,8 @@ def main() -> int:
     for p2 in UPDATE_ENGINES:
         launches[f"update_{p2}"] = multi[f"update_{p2}"]
     check_sweep(dev, card)
+    check_quadratic(dev, card)
+    check_routing(dev, card)
 
     kernels = []
     for name, (key, source, replaces) in KERNELS.items():

@@ -3,19 +3,25 @@
 The port of ``gf2bv_tpu`` (JAX on a TPU) to PyTorch with hand-written
 Hopper (sm_90a) CUDA kernels.  Write an ordinary Python function on symbolic
 bitvectors; asserted-zero bitvectors become a GF(2) system ``Ax = b`` that
-the panel-blocked solver eliminates on the device.  Ported so far: one
-solution (``LinearSystem(sizes, device=...).solve_one``), the affine
-solution space (``solve_raw_space`` / ``solve_all``), pre-packed systems
+the solver eliminates on the device.  Ported so far: one solution
+(``LinearSystem(sizes, device=...).solve_one``), the affine solution space
+(``solve_raw_space`` / ``solve_all``), pre-packed systems
 (``solve_raw_packed``), batches (``solve_one_batch`` / ``solve_all_batch``),
 captured traces (``LinearSystem.capture`` -> :class:`CapturedTrace`, whose
 ``solve_raw_batch`` solves many instances with one elimination), guess
-sweeps (``solve_one_sweep`` / ``solve_all_sweep``) and the device-built
-MT19937 system (``crypto.mt_torch``).
+sweeps (``solve_one_sweep`` / ``solve_all_sweep``), degree-2 systems by
+linearization (:class:`QuadraticSystem`, with the quadratic rows built on
+the device by ``ops.quad_device.quad_rows`` and the consistency filter run
+there by ``ops.enumerate``), the device-built MT19937 system
+(``crypto.mt_torch``) and the backends of the reference: ``blocked`` (the
+Hopper kernels), ``jax`` (the per-pivot solver, below 1024 columns by
+default), ``native`` (the host C engine) and ``oracle`` (numpy).
 
 ``device="cuda"`` (the default) runs the kernels in ``csrc/``, which
 are compiled by nvcc on first use; ``device="cpu"`` runs their plain
-PyTorch twins.  Importing this package imports neither JAX nor the JAX
-package, and never runs nvcc.
+PyTorch twins (or the host C engine, which gcc builds on first use).
+Importing this package imports neither JAX nor the JAX package, and never
+runs nvcc or gcc.
 """
 
 from .core.affine import AffineSpace

@@ -16,7 +16,6 @@ can be pushed to the TPU for large spaces — see ops/enumerate.py).
 
 Port copy of ``gf2bv_tpu/core/affine.py`` (framework-free; kept identical apart from
 this note and the changes listed here, so the differential tests pin it).
-Change: ``enumerate_packed`` has no native C branch; the numpy path runs.
 """
 
 from __future__ import annotations
@@ -98,6 +97,13 @@ class AffineSpace:
 
     def enumerate_packed(self, start: int, count: int, gray: bool) -> np.ndarray:
         """Packed rows for points start..start+count-1 of the enumeration."""
+        if start + count <= (1 << 63):  # native path: uint64 index arithmetic
+            from .. import _native
+
+            if _native.available():
+                return _native.enumerate_native(
+                    self._origin, self._basis, start, count, gray
+                )
         idx = np.arange(start, start + count, dtype=np.uint64)
         if gray:
             idx = idx ^ (idx >> np.uint64(1))

@@ -21,11 +21,10 @@ cached structure is even consulted.  This module removes that re-trace:
 
 Semantics are identical to tracing with literal constants: Params hash like
 literals, so a captured trace shares the device coefficient-matrix cache
-with direct ``solve_one`` calls of the same model.
-
-Not ported: the host ``native`` branches (ROADMAP queue 1 item 5) and
-``mesh=`` (item 11), which raises; the quadratic routes come with
-``QuadraticSystem`` (item 8), which cannot be constructed yet.
+with direct ``solve_one`` calls of the same model.  Under the ``native``
+backend the cached matrix stays on the host and a batch is one elimination
+of the host engine; a quadratic system's one-point solves go through its
+consistency filter.  ``mesh=`` (ROADMAP queue 1 item 11) raises.
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ class CapturedTrace:
             return lazy_solve.solve_lazy(
                 self.system, self.zeros, mode, env=values
             )
-        # other backends: materialize coefficients once and patch the
+        # the oracle backend: materialize coefficients once and patch the
         # affine column per instance
         eqs = self._eqs_with_env(values)
         lit_one = (eqs[:, 0] == 1) & ~eqs[:, 1:].any(axis=1)
@@ -114,6 +113,11 @@ class CapturedTrace:
         return self._solve_internal(values, 1)
 
     def solve_one(self, values: Sequence[int]):
+        # Quadratic systems route through solve_all: a raw mode-0 particular
+        # solution (free vars = 0) can fail the lin/quad consistency filter,
+        # the pitfall QuadraticSystem.solve_one avoids.
+        if getattr(self.system, "_quad_size", None) is not None:
+            return next(self.solve_all(values), None)
         sol = self._solve_internal(values, 0)
         if sol is None:
             return
@@ -139,9 +143,12 @@ class CapturedTrace:
         # keep const-only 0=1 rows: per-candidate dead-row detection then
         # marks every candidate unsatisfiable, as it should
         eqs = eqs[eqs.any(axis=1)]
-        del max_dimension  # read by the quadratic route only (not ported)
-        raws = self.system._sweep_from_eqs(eqs, guesses, candidates, 0)
-        return self.system._convert_sols_batch(raws)
+        sys = self.system
+        if getattr(sys, "_quad_size", None) is not None:
+            spaces = sys._sweep_from_eqs(eqs, guesses, candidates, 1)
+            return sys._first_consistent_per_candidate(spaces, max_dimension)
+        raws = sys._sweep_from_eqs(eqs, guesses, candidates, 0)
+        return sys._convert_sols_batch(raws)
 
     # -- multi-RHS batch: ONE elimination for many instances ---------------
 
@@ -167,17 +174,27 @@ class CapturedTrace:
         cs = lazy_solve.cached_system(self.system, self.zeros)
         exprs = [z._expr for z in self.zeros]
         out = []
-        basis_cache: dict = {}  # the mode-1 basis is chunk-invariant
+        # the mode-1 basis is chunk-invariant; under native it is shared with
+        # the single solves of the same cached structure
+        basis_cache: dict = cs.basis_cache if cs.backend == "native" else {}
         for c0 in range(0, len(values_batch), multi_rhs.MAX_RHS):
             chunk = values_batch[c0 : c0 + multi_rhs.MAX_RHS]
             affs = self._affine_matrix(exprs, cs.widths, chunk)
             # literal-1 early-out per instance: a dropped (zero-coefficient)
             # row whose affine bit is set makes that instance unsatisfiable
             lit_one = (affs & ~cs.kept_mask[None, :]).any(axis=1)
-            res = multi_rhs.solve_multi_rhs(
-                cs.a_dev, self.system._cols, affs[:, cs.kept], mode,
-                basis_cache=basis_cache,
-            )
+            if cs.backend == "native":
+                from .._native import solve_multi_rhs_native
+
+                res = solve_multi_rhs_native(
+                    cs.a_host, self.system._cols, affs[:, cs.kept], mode,
+                    basis_cache=basis_cache,
+                )
+            else:
+                res = multi_rhs.solve_multi_rhs(
+                    cs.a_dev, self.system._cols, affs[:, cs.kept], mode,
+                    basis_cache=basis_cache,
+                )
             out.extend(
                 None if lit else r for lit, r in zip(lit_one, res)
             )
@@ -228,10 +245,18 @@ class CapturedTrace:
         )
 
     def solve_one_batch(self, values_batch, *, max_dimension: int = 16):
-        """Batched solve_one: all raw points converted in one vectorized
-        split."""
-        del max_dimension  # read by the quadratic route only (not ported)
-        return self.system._convert_sols_batch(self.solve_raw_batch(values_batch))
+        """Batched solve_one.  Quadratic systems route each instance's
+        space through the consistency filter (first consistent point);
+        linear systems convert all raw points in one vectorized split."""
+        quad = getattr(self.system, "_quad_size", None) is not None
+        raws = self.solve_raw_batch(values_batch, mode=1 if quad else 0)
+        if not quad:
+            return self.system._convert_sols_batch(raws)
+        return [
+            None if r is None
+            else next(self.system._enumerate_space(r, max_dimension), None)
+            for r in raws
+        ]
 
     # -- pickling (a trace cached on disk) ---------------------------------
 

@@ -28,8 +28,11 @@ models' ``isinstance(x, BitVec)`` linearization branches.
 
 Port copy of ``gf2bv_tpu/core/lazy.py`` (framework-free; kept identical apart from
 this note and the changes listed here, so the differential tests pin it).
-Change: ``_expand_products`` keeps only the numpy path (the device
-expansion belongs to the quadratic slice, ROADMAP queue 1 item 8).
+Change: ``_expand_products`` keeps only the numpy path, and
+``GF2BV_TPU_MULBITS`` is not read.  The reference sends large batches to
+its XLA expansion; its torch form here (``ops/quad_device.mul_bits_batch``)
+ties or loses against numpy on the card's host at 4096-34768 products
+(scripts/time_mul_bits_torch.py).
 """
 
 from __future__ import annotations

@@ -1,20 +1,25 @@
-"""LinearSystem — the trace -> matrix -> solve API.
+"""LinearSystem / QuadraticSystem — the trace -> matrix -> solve API.
 
 Port of ``gf2bv_tpu/core/system.py``.  Tracing and equation assembly are
-the reference's numpy code; solving runs the blocked solver on ``device``
-(CUDA by default; ``device="cpu"`` runs the plain PyTorch twins of the
-kernels).  A CUDA device that is not present raises.
+the reference's numpy code; solving runs on ``device`` through the backend
+that ``ops/solver._resolve_backend`` picks (CUDA by default; ``device="cpu"``
+runs the plain PyTorch twins of the kernels, or the host C engine).  A CUDA
+device that is not present raises.
 
-Ported: ``gens`` (lazy and eager), ``get_eqs_packed``, ``get_eqs``,
-``solve_raw_one``, ``solve_one``, ``solve_raw_space``, ``solve_all`` (a lazy
-generator raising :class:`DimensionTooLargeError` past ``max_dimension``),
-``convert_sol``, ``solve_raw_packed``, ``solve_one_packed``,
-``solve_all_packed``, ``solve_one_batch``, ``solve_all_batch``,
-``evaluate``, ``capture`` (core/capture.py), the guess sweeps
-``solve_one_sweep`` / ``solve_all_sweep`` (every candidate one extra RHS
-column of a single elimination, ops/multi_rhs.py) and the interop exports
-``get_mat_numpy`` / ``get_mat_scipy``.  ``QuadraticSystem`` and every
-``mesh=`` argument raise ``NotImplementedError`` naming their ROADMAP item.
+``LinearSystem``: ``gens`` (lazy and eager), ``get_eqs_packed``,
+``get_eqs``, ``solve_raw_one``, ``solve_one``, ``solve_raw_space``,
+``solve_all`` (a lazy generator raising :class:`DimensionTooLargeError` past
+``max_dimension``), ``convert_sol``, ``solve_raw_packed``,
+``solve_one_packed``, ``solve_all_packed``, ``solve_one_batch``,
+``solve_all_batch``, ``evaluate``, ``capture`` (core/capture.py), the guess
+sweeps ``solve_one_sweep`` / ``solve_all_sweep`` (every candidate one extra
+RHS column of a single elimination, ops/multi_rhs.py, or of the host
+engine's under ``native``) and the exports ``get_mat_numpy`` /
+``get_mat_scipy``.  ``QuadraticSystem``: linearization with n(n-1)/2 extra
+monomial columns, ``mul_bit`` / ``mul_bits`` / ``bit_assert``, and the
+consistency filter (on the system's device past 8 dimensions,
+ops/enumerate.py).  Every ``mesh=`` argument raises ``NotImplementedError``
+(ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -286,7 +291,6 @@ class LinearSystem:
         from .words import u32_to_torch
 
         _no_mesh(mesh)
-        _resolve_backend(self._backend)  # a host backend raises here
         guesses = list(guesses)
         if not guesses:
             raise ValueError("at least one guess expression required")
@@ -362,6 +366,25 @@ class LinearSystem:
                         forced_unsat[bi] = True
                     off += len(nz)
 
+        base_aff = (eqs[:, 0] & np.uint64(1)).astype(np.uint8)
+        rows = eqs.shape[0]
+        out: list = []
+        if _resolve_backend(self._backend, self._cols, self._device) == "native":
+            # the host multi-RHS engine takes the (B, rows) affine bits as-is
+            from .. import _native
+
+            if not _native.available():
+                raise RuntimeError("native backend unavailable (no gcc?)")
+            ncache: dict = {}  # the mode-1 basis is candidate- and chunk-invariant
+            for c0 in range(0, B, multi_rhs.MAX_RHS):
+                nb = min(multi_rhs.MAX_RHS, B - c0)
+                rhs = np.broadcast_to(base_aff, (nb, rows)).copy()
+                if G:
+                    rhs[:, rows - G:] ^= bits[c0 : c0 + nb]
+                out.extend(_native.solve_multi_rhs_native(
+                    eqs, self._cols, rhs, mode, basis_cache=ncache))
+            return [None if bad else r for bad, r in zip(forced_unsat, out)]
+
         # The padded coefficient matrix goes to the device ONCE per
         # structure, not per call: its own affine bit is inert in the
         # multi-RHS elimination (the per-candidate affine columns ride the
@@ -385,8 +408,6 @@ class LinearSystem:
         # per-candidate affine column: the traced affine bits, with the
         # guess rows' constants flipped by the candidate's values, packed
         # directly from (base column, guess bits)
-        base_aff = (eqs[:, 0] & np.uint64(1)).astype(np.uint8)
-        out: list = []
         for c0 in range(0, B, multi_rhs.MAX_RHS):
             nb = min(multi_rhs.MAX_RHS, B - c0)
             packed = multi_rhs._pack_rhs_affine_sweep(
@@ -448,9 +469,351 @@ class LinearSystem:
 
 
 class QuadraticSystem(LinearSystem):
-    """Not ported yet (ROADMAP queue 1 item 8)."""
-
     def __init__(self, sizes, backend: str | None = None, device="cuda"):
-        raise NotImplementedError(
-            "QuadraticSystem is not ported yet: ROADMAP queue 1 item 8"
+        n = sum(sizes)
+        quad_terms = n * (n - 1) // 2
+        super().__init__(list(sizes) + [quad_terms], backend=backend, device=device)
+        self._quad_sizes = list(sizes)
+        self._lin_size = n
+        self._quad_size = quad_terms
+        # lower-triangle (i > j) index pairs in the reference's monomial order
+        # (i outer, j inner — _internal.c:583-599)
+        self._tri_i, self._tri_j = np.tril_indices(n, k=-1)
+
+    def gens(self, *, lazy: bool | None = None):
+        """Lazy by default, like LinearSystem: ``mul_bit``/``bit_assert`` on
+        lazy bits RECORD ``mulq`` nodes, so the reference's own idiom — a
+        Python loop multiplying state bits per output
+        (``reference:examples/nlfsr.py:49-57``) — is evaluated in ONE
+        shared walk at solve time instead of re-walking the trace prefix
+        per produced bit (O(steps^2) in all).  Lazy generators
+        are NARROW (linear columns only); quad columns enter the DAG
+        exclusively through mulq nodes and linear rows are zero-padded on
+        materialization (core/lazy._promote)."""
+        if lazy is None:
+            lazy = os.environ.get("GF2BV_TPU_LAZY", "1") != "0"
+        if not lazy:
+            return self._vars[:-1]
+        if self._lazy_vars is None:
+            from .lazy import LazyBitVec, _digest, _ints
+
+            nb = 1 + self._lin_size
+            sizes_digest = _digest(
+                b"qgens", _ints(*self._quad_sizes, self._nbits)
+            )
+            out = []
+            i = 1
+            for k, size in enumerate(self._quad_sizes):
+                rows = packing.bit_rows(nb, np.arange(i, i + size))
+                out.append(
+                    LazyBitVec.from_eager(
+                        BitVec(rows, nb),
+                        structural_name=_digest(sizes_digest, _ints(k)),
+                    )
+                )
+                i += size
+            self._lazy_vars = tuple(out)
+        return self._lazy_vars
+
+    def __reduce__(self):
+        return (self.__class__, (self._quad_sizes, self._backend, str(self._device)))
+
+    # -- degree-2 ops ----------------------------------------------------------
+
+    def _mul_bit_rows(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Packed product of two affine bit rows; reference semantics
+        (ref :334-338 + _internal.c:538-604): constant & x_i^2=x_i terms from
+        (a & const_lin_mask) & b, cross terms (a_i b_j ^ a_j b_i) x_i x_j."""
+        n = self._lin_size
+        abits = packing.unpack_rows(a[None, :], 1 + n)[0]
+        bbits = packing.unpack_rows(b[None, :], 1 + n)[0]
+        # v = (a & const_lin_mask) & b, i.e. elementwise AND on bits 0..n
+        out = np.zeros(self._nbits, dtype=np.uint8)
+        out[: 1 + n] = abits & bbits
+        al, bl = abits[1:], bbits[1:]
+        cross = (al[self._tri_i] & bl[self._tri_j]) ^ (al[self._tri_j] & bl[self._tri_i])
+        out[1 + n :] = cross
+        return packing.pack_bits(out[None, :], self._nbits)[0]
+
+    def mul_bit(self, a: BitVec, b: BitVec) -> BitVec:
+        if len(a) != 1 or len(b) != 1:
+            raise ValueError("mul_bit operands must be 1-bit BitVecs")
+        from .lazy import Expr, LazyBitVec, _ints
+
+        if isinstance(a, LazyBitVec) or isinstance(b, LazyBitVec):
+            # record instead of materializing: the whole zeros list then
+            # evaluates in one shared walk at solve time (ref idiom
+            # examples/nlfsr.py:49-57 without the O(steps^2) re-walks)
+            expr = Expr(
+                "mulq",
+                (LazyBitVec._as_expr(a), LazyBitVec._as_expr(b)),
+                self,
+                1,
+                self._nbits,
+                _ints(self._lin_size, self._nbits),
+            )
+            return LazyBitVec(expr)
+        row = self._mul_bit_rows(a.rows[0], b.rows[0])
+        return BitVec(row[None, :], self._nbits)
+
+    def _mul_bit_slow(self, a: BitVec, b: BitVec) -> BitVec:
+        """Obviously-correct big-int cross-check for :meth:`mul_bit`, kept
+        in-library like the reference keeps its slow path
+        (``reference:gf2bv/__init__.py:306-332``): per-monomial
+        Python-int arithmetic, no packing tricks shared with the fast
+        path.  ``mul_bit(a, b).rows == _mul_bit_slow(a, b).rows`` always."""
+        n = self._lin_size
+        (am,) = a._bits
+        (bm,) = b._bits
+        mask = (am & ((1 << (1 + n)) - 1)) & bm  # const + x_i^2 = x_i terms
+        mono = 1 + n
+        for i in range(n):
+            ai = (am >> (1 + i)) & 1
+            bi = (bm >> (1 + i)) & 1
+            for j in range(i):
+                aj = (am >> (1 + j)) & 1
+                bj = (bm >> (1 + j)) & 1
+                if (ai & bj) ^ (aj & bi):
+                    mask |= 1 << mono
+                mono += 1
+        return BitVec([mask], self._nbits)
+
+    def lift(self, bv: BitVec) -> BitVec:
+        """Embed a purely-linear BitVec (e.g. traced against a plain
+        ``LinearSystem([n])`` with the same variable layout) into this
+        system's full monomial width by zero-padding the quad columns."""
+        pad = self._nw - bv.rows.shape[1]
+        if pad < 0:
+            raise ValueError("BitVec is wider than this system")
+        if pad == 0:
+            return BitVec(bv.rows, self._nbits)
+        rows = np.pad(bv.rows, ((0, 0), (0, pad)))
+        return BitVec(rows, self._nbits)
+
+    def mul_bits(self, a: BitVec, b: BitVec) -> BitVec:
+        """Vectorized elementwise product of two equal-width BitVecs (new
+        capability: batches what the reference can only do bit-by-bit).
+        Inputs may be narrow (linear-columns-only) rows — e.g. collected
+        from a trace against ``LinearSystem([n])`` — since only the linear
+        monomials participate; the result always has full monomial width."""
+        if len(a) != len(b):
+            raise ValueError("Widths must match")
+        n = self._lin_size
+        abits = packing.unpack_rows(a.rows, 1 + n)
+        bbits = packing.unpack_rows(b.rows, 1 + n)
+        out = np.zeros((len(a), self._nbits), dtype=np.uint8)
+        out[:, : 1 + n] = abits & bbits
+        al, bl = abits[:, 1:], bbits[:, 1:]
+        # cross terms written per monomial row-block: for fixed i the
+        # monomials x_i*x_j (j < i) are contiguous columns, so slice writes
+        # beat the O(rows * n^2 / 2) fancy gathers by ~15x at NLFSR size
+        base = 1 + n
+        for i in range(1, n):
+            out[:, base : base + i] = (al[:, i : i + 1] & bl[:, :i]) ^ (
+                bl[:, i : i + 1] & al[:, :i]
+            )
+            base += i
+        return BitVec(packing.pack_bits(out, self._nbits), self._nbits)
+
+    def _bit_assert_rows(self, a: np.ndarray, v: int) -> list[np.ndarray]:
+        n = self._lin_size
+        assert v in (0, 1), "Invalid bit"
+        abits = packing.unpack_rows(a[None, :], self._nbits)[0]
+        assert abits[1:].any(), "a should not be a constant"
+        assert not abits[1 + n :].any(), "Not a linear term"
+        const = np.zeros_like(a)
+        const[0] = np.uint64(v)
+        zeros = [a ^ const]
+        for i in range(1, 1 + n):
+            brow = packing.bit_rows(self._nbits, np.array([i]))[0]
+            if abits[i] and abits.sum() == 1:  # a == basis bit i
+                continue
+            prod = self._mul_bit_rows(a, brow)
+            zeros.append(prod if v == 0 else prod ^ brow)
+        return zeros
+
+    def bit_assert(self, a: BitVec, v: int) -> list[BitVec]:
+        """Consistency equations pinning bit ``a`` to constant ``v``
+        (ref :345-368): a ^ v plus a*b_i = v*b_i for every linear basis bit.
+        Lazy targets stay lazy: the products are recorded mulq nodes, so a
+        guess sweep (nlfsr_ex) keeps the device-cached solve path."""
+        if len(a) != 1:
+            raise ValueError("bit_assert target must be a 1-bit BitVec")
+        from .lazy import LazyBitVec
+
+        if isinstance(a, LazyBitVec):
+            return self._bit_assert_lazy(a, v)
+        rows = self._bit_assert_rows(a.rows[0], v)
+        return [BitVec(r[None, :], self._nbits) for r in rows]
+
+    def _bit_assert_lazy(self, a, v: int) -> list[BitVec]:
+        from .lazy import affine_many, materialize_many
+
+        n = self._lin_size
+        assert v in (0, 1), "Invalid bit"
+        # the checks need only the COEFFICIENT mask, which is well-defined
+        # even when the trace carries unbound Params (capture idiom)
+        (mat,) = materialize_many([a._expr], strip_consts=True)
+        am = packing.words_to_int(mat[0])
+        assert am >> 1 != 0, "a should not be a constant"
+        assert am >> (1 + n) == 0, "Not a linear term"
+        if a._expr.aff0:
+            aff = 0
+        else:
+            try:
+                aff = affine_many([a._expr])[0]  # no Params: exact
+            except ValueError:
+                # Param-dependent affine: the mask-AND product formula
+                # (reference semantics, _internal.c:538-604) is only sound
+                # for a fixed affine part, so the consistency rows would be
+                # wrong for some bound values.  Refuse loudly.
+                raise ValueError(
+                    "bit_assert target's affine part depends on unbound "
+                    "Params; for captured guess sweeps assert a "
+                    "constant-free bit and put the guess in v (one "
+                    "captured structure per guess value)"
+                ) from None
+        zeros = [a ^ v]
+        for i in range(1, 1 + n):
+            # eager semantics: skip when a's FULL mask equals basis bit i
+            if aff == 0 and am == (1 << i):
+                continue
+            brow = BitVec(
+                packing.bit_rows(1 + n, np.array([i])), 1 + n
+            )
+            prod = self.mul_bit(a, brow)
+            zeros.append(prod if v == 0 else prod ^ brow)
+        return zeros
+
+    # -- solution filtering ------------------------------------------------------
+
+    def _check_lin_match_quad(self, lin: int, quad: int) -> bool:
+        n = self._lin_size
+        lin_bits = packing.mask_bits(n, lin)
+        assert lin >> n == 0, "Invalid linear part"
+        expected = lin_bits[self._tri_i] & lin_bits[self._tri_j]
+        quad_bits = packing.mask_bits(self._quad_size, quad) if self._quad_size else (
+            np.zeros(0, dtype=np.uint8)
         )
+        assert quad >> self._quad_size == 0, "Invalid quadratic part"
+        return bool(np.array_equal(expected, quad_bits))
+
+    def convert_sol(self, s: int) -> Optional[tuple[int, ...]]:
+        lin = s & ((1 << self._lin_size) - 1)
+        s >>= self._lin_size
+        quad = s & ((1 << self._quad_size) - 1)
+        s >>= self._quad_size
+        assert s == 0, "Invalid solution"
+        if self._check_lin_match_quad(lin, quad):
+            return super()._convert_sol(lin)[:-1]
+        return None
+
+    def _enumerate_space(self, space: AffineSpace, max_dimension: int):
+        """Quadratic variant: the consistency filter runs on device over
+        whole enumeration chunks (ops/enumerate.py) for larger spaces
+        instead of per-point in Python.  Shared by solve_all and
+        solve_all_packed."""
+        if space.dimension > max_dimension:
+            raise DimensionTooLargeError(
+                f"solution space has dimension {space.dimension} "
+                f"(2**{space.dimension} points), above the max_dimension="
+                f"{max_dimension} enumeration guard; raise it or pin bits "
+                f"via the attached .space",
+                space=space,
+            )
+        if space.dimension > 8:
+            from ..ops.enumerate import iter_quad_filtered
+
+            points = iter_quad_filtered(space, self._lin_size, device=self._device)
+        else:
+            points = space
+        for s in points:
+            ret = self.convert_sol(s)
+            if ret is not None:
+                yield ret
+
+    def solve_one(self, zeros: Zeros):
+        # A raw one-solution solve might not pass the consistency filter
+        # (ref :395-398): route through solve_all.
+        for sol in self.solve_all(zeros):
+            return sol
+
+    def solve_one_packed(self, eqs):
+        # same consistency-filter routing for pre-packed systems
+        for sol in self.solve_all_packed(eqs):
+            return sol
+
+    def solve_one_batch(self, zeros_batch, mesh=None, *,
+                        max_dimension: int = 16):
+        """Batched one-point solving.  A raw mode-0 particular solution can
+        fail the quadratic consistency filter (the same pitfall solve_one
+        avoids by routing through solve_all), so each instance solves its
+        space and takes the first CONSISTENT point.
+
+        An instance whose solution space exceeds ``max_dimension`` raises
+        DimensionTooLargeError annotated with the instance index (and the
+        usual ``.space``) instead of silently discarding the batch — raise
+        ``max_dimension`` or pin bits via ``.space`` to recover, exactly as
+        with :meth:`solve_all`."""
+        from ..parallel.batch import solve_batch_systems
+
+        spaces = solve_batch_systems(self, zeros_batch, mode=1, mesh=mesh)
+        out = []
+        for i, sp in enumerate(spaces):
+            if sp is None:
+                out.append(None)
+                continue
+            try:
+                out.append(
+                    next(self._enumerate_space(sp, max_dimension), None)
+                )
+            except DimensionTooLargeError as e:
+                raise DimensionTooLargeError(
+                    f"batch instance {i}: {e}", space=e.space
+                ) from None
+        return out
+
+    def solve_one_sweep(self, zeros, guesses, candidates=None, *,
+                        max_dimension: int = 16, mesh=None):
+        """Guess-and-solve sweep (see :meth:`LinearSystem.solve_one_sweep`),
+        consistency-filtered: a raw mode-0 point can violate the monomial
+        consistency relations, so each candidate's solution space enumerates
+        to its first CONSISTENT point — the same routing as solve_one /
+        solve_one_batch.  ``guesses`` may be quadratic expressions (mul_bit
+        products linearize into monomial rows like any other equation).
+
+        Scope note: this pins ``expr ^ v`` only.  ``bit_assert``'s extra
+        consistency products (``a*b_i = v*b_i``) have candidate-DEPENDENT
+        coefficients, so they cannot ride a shared elimination — when the
+        attack needs their rank (e.g. examples/nlfsr_ex.py's 2-bit
+        bruteforce), sweep with the batched per-system solver
+        (parallel.batch.solve_batch_systems) instead."""
+        spaces = self._solve_sweep_raw(zeros, guesses, candidates, 1,
+                                       mesh=mesh)
+        return self._first_consistent_per_candidate(spaces, max_dimension)
+
+    def _first_consistent_per_candidate(self, spaces, max_dimension: int):
+        """Per-candidate first CONSISTENT point, annotating oversized
+        spaces with the candidate index (shared with the captured-trace
+        sweep, core/capture.py)."""
+        out = []
+        for i, sp in enumerate(spaces):
+            if sp is None:
+                out.append(None)
+                continue
+            try:
+                out.append(
+                    next(self._enumerate_space(sp, max_dimension), None)
+                )
+            except DimensionTooLargeError as e:
+                raise DimensionTooLargeError(
+                    f"sweep candidate {i}: {e}", space=e.space
+                ) from None
+        return out
+
+    def evaluate(self, bv: BitVec, sol: tuple[int, ...]) -> int:
+        s = 0
+        for v, sz in zip(reversed(sol), reversed(self._quad_sizes)):
+            s <<= sz
+            s |= v
+        return bv.evaluate(s)

@@ -308,11 +308,15 @@ class _Panels:
 def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
                  trailing: bool = False, *, phase1: str = "pallas_scan",
                  phase2: str = "mxu"):
-    """Blocked RREF of ``a`` (rows, wp) int32, ``wp % (k_panel//32) == 0``.
+    """Blocked RREF of ``a`` (rows, wp) int32.
 
     Returns (rref, pivot_row_of_col (cols,), inconsistent 0-dim bool).  The
-    input is not modified (the elimination runs on a clone).  ``phase1`` /
-    ``phase2`` pick the engines (module docstring).
+    input is not modified (the elimination runs on a copy).  ``phase1`` /
+    ``phase2`` pick the engines (module docstring).  A width that is not a
+    multiple of ``k_panel // 32`` words (a per-pivot cached matrix beside a
+    multi-RHS tile) runs zero-padded to one and comes back at ``wp`` words:
+    zero words stay zero under row operations, and only the reference's
+    ``wp // kw`` panels are scanned.
 
     ``trailing=True`` (mode-0 fast path): only the tiles from the panel's on
     and word 0 stay up to date (``mxu``: panels are grouped by their count
@@ -329,12 +333,12 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
     K = k_panel
     kw = K // 32
     rows, wp = a.shape
-    if wp % kw:
-        raise ValueError(f"wp={wp} is not a multiple of {kw}")
+    pad = -wp % kw
     panels = min(wp // kw, -(-(1 + cols) // (32 * kw)))
-    if p2 == "mxu_la" and not (la_grid(rows, wp)[2] * 32 >= K and wp % 128 == 0):
+    work = torch.nn.functional.pad(a, (0, pad)) if pad else a.clone()
+    if p2 == "mxu_la" and not (la_grid(rows, wp + pad)[2] * 32 >= K and (wp + pad) % 128 == 0):
         p2 = "mxu"  # too few grid steps to host a panel's scan: the reference's gate
-    st = _Panels(a.clone(), cols, K, trailing, p2)
+    st = _Panels(work, cols, K, trailing, p2)
     if p2 == "mxu_la":
         st.lookahead(panels)
     else:
@@ -343,7 +347,8 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
                 st.subset_pass(t)
             else:
                 st.full_pass(t, p1)
-    return st.a, st.pof[:cols], extract_device.inconsistent_device(st.a)
+    rref = st.a[:, :wp].contiguous() if pad else st.a
+    return rref, st.pof[:cols], extract_device.inconsistent_device(rref)
 
 
 def origin_parity_unsat(a: torch.Tensor, origin32: torch.Tensor) -> torch.Tensor:

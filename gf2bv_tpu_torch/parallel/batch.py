@@ -7,9 +7,10 @@ go to the panel-blocked family: mode 0 to ``gauss_batched.solve_chained``,
 mode 1 to ``gauss_batched.solve_batched``, or to a per-system
 ``solve_blocked`` loop past the 2 GiB guard.
 
-Sharding a batch over a device mesh (``mesh=``) is ROADMAP queue 1 item 11
-and raises.  The reference's host-engine loop has no counterpart: no
-backend of the port resolves to a host engine.
+A system whose backend resolves to a host engine (``native``, ``oracle``)
+solves in a per-system loop, as in the reference: there is no launch or
+transfer cost to amortize with a stacked program.  Sharding a batch over a
+device mesh (``mesh=``) is ROADMAP queue 1 item 11 and raises.
 """
 
 from __future__ import annotations
@@ -75,8 +76,18 @@ def solve_batch_systems(system, zeros_batch, mode: int = 0, mesh=None):
     """Batched LinearSystem front end: one entry per zeros list.  Mode 0: a
     raw solution int or None; mode 1: an AffineSpace or None."""
     _mesh_not_ported(mesh)
-    solver._resolve_backend(system._backend)  # the unported backends raise
     cols = system._cols
+    resolved = solver._resolve_backend(system._backend, cols, system._device)
+    if resolved in solver._HOST_BACKENDS:
+        out = []
+        for zeros in zeros_batch:
+            eqs = system.get_eqs_packed(zeros)
+            lit_one = (eqs[:, 0] == 1) & ~eqs[:, 1:].any(axis=1)
+            if lit_one.any():
+                out.append(None)
+                continue
+            out.append(solver.solve(eqs[eqs.any(axis=1)], cols, mode, backend=resolved))
+        return out
     mats, unsat = [], []
     for zeros in zeros_batch:
         eqs = system.get_eqs_packed(zeros)

@@ -220,6 +220,7 @@ def parity(tag: str) -> None:
 
 
 def solve(tag: str) -> None:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gf2bv_tpu_torch.crypto.mt_torch import solve_mt19937
@@ -250,6 +251,8 @@ def solve(tag: str) -> None:
             torch.cuda.synchronize()
         rows = []
         for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue  # a CPU operator: its device time is its kernels' rows
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0)

@@ -211,6 +211,7 @@ def parity(tag: str) -> None:
 
 
 def profiled(what: str, fn, want, tag: str) -> None:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -232,6 +233,8 @@ def profiled(what: str, fn, want, tag: str) -> None:
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue  # a CPU operator: its device time is its kernels' rows
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)

@@ -158,6 +158,7 @@ def tune(tag: str) -> None:
 
 
 def solve(tag: str) -> None:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gf2bv_tpu_torch.crypto.mt_torch import COLS, _state_words, solve_mt19937
@@ -193,6 +194,8 @@ def solve(tag: str) -> None:
             torch.cuda.synchronize()
         rows = []
         for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue  # a CPU operator: its device time is its kernels' rows
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0)

@@ -261,14 +261,18 @@ def test_capture_errors():
 
 
 def test_capture_under_the_per_pivot_backend():
-    """backend="jax" is not eligible for the cached path: instances solve one
-    by one through the materialized coefficients."""
+    """backend="jax" takes the cached path as in the reference: single solves
+    run the per-pivot solver on the cached matrix, a batch the multi-RHS
+    elimination; both give the JAX package's answers."""
     lin = LinearSystem([32, 32], backend="jax", device="cpu")
     tmpl = lin.capture(xs_model)
     states, outs = _xs_instances(10, 2)
-    assert not lazy_solve.eligible(lin, tmpl.zeros)
+    assert lazy_solve.eligible(lin, tmpl.zeros)
     assert tmpl.solve_one(outs[0]) == states[0]
+    assert lazy_solve.cached_system(lin, tmpl.zeros).backend == "jax"
     assert tmpl.solve_one_batch(outs) == states
+    lin_j = gf2bv_tpu.LinearSystem([32, 32], backend="jax")
+    assert lin_j.capture(xs_model).solve_one_batch(outs) == states
 
 
 # -- guess sweeps -------------------------------------------------------------------------

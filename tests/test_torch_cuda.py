@@ -326,6 +326,27 @@ def test_rref_blocked_cuda_matches_cpu(dev, trailing):
     assert bool(u_cuda) == bool(u_cpu)
 
 
+@pytest.mark.parametrize("trailing", [False, True])
+def test_rref_blocked_unaligned_width_cuda(dev, trailing):
+    """A width that is not a multiple of K/32 words (a per-pivot cached
+    matrix beside a 128-word RHS tile) runs padded on the card and comes
+    back at its own width, as on the CPU."""
+    rng = np.random.default_rng(12)
+    cols, rows = 64, 256
+    bits = rng.integers(0, 2, size=(rows, 1 + cols)).astype(np.uint8)
+    raw = packing.to_u32(packing.pack_bits(bits, 1 + cols))
+    rhs = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32)
+    a32 = np.concatenate([raw, rhs], axis=1)
+    assert a32.shape[1] == 132  # 4 words of 65 bits, then the tile: not a multiple of 8
+    got = gauss_blocked.rref_blocked(u32_to_torch(a32, dev), cols, 256, trailing)
+    want = gauss_blocked.rref_blocked(u32_to_torch(a32, "cpu"), cols, 256, trailing)
+    assert got[0].shape == a32.shape
+    assert np.array_equal(torch_to_u32(got[1]), torch_to_u32(want[1]))  # pof
+    if not trailing:
+        assert np.array_equal(torch_to_u32(got[0]), torch_to_u32(want[0]))
+        assert bool(got[2]) == bool(want[2])
+
+
 def test_batch_entry_points_cuda(dev):
     """solve_one_batch / solve_all_batch on the card agree with the CPU."""
     taps, n = (0, 1, 3, 4), 64
@@ -378,6 +399,11 @@ def test_linear_system_solve_one_cuda(dev):
         zeros_of(LinearSystem([64, 64], device="cpu"))
     )
     assert all(lin.evaluate(z, sol) == 0 for z in zeros)
+    # 128 columns: auto took the per-pivot solver; the blocked kernels agree
+    blocked = LinearSystem([64, 64], backend="blocked", device=dev)
+    _cuda.reset_launches()
+    assert blocked.solve_one(zeros_of(blocked)) == sol
+    assert _cuda.LAUNCHES["scan"] >= 1
 
 
 SCAN_SHAPES = [
@@ -1294,3 +1320,146 @@ def test_fused_chunked_kernels_raise_instead_of_falling_back(dev):
                                          a, sel, pf, bT, used, 16, 10**6, 8, None, bad, rows)
     torch.cuda.synchronize()
     assert not any(_cuda.LAUNCHES.values())
+
+
+# -- routing, host backends, quadratic systems --------------------------------------------
+
+
+def _consistent(seed, rows, cols):
+    rng = np.random.default_rng(seed)
+    coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
+    rhs = (coeff.astype(np.int64) @ rng.integers(0, 2, size=cols)) % 2
+    return packing.pack_bits(np.concatenate([rhs[:, None].astype(np.uint8), coeff], axis=1),
+                             1 + cols)
+
+
+@pytest.mark.parametrize("cols,backend", [(1023, "jax"), (1024, "blocked")])
+def test_auto_routing_on_the_card(dev, cols, backend):
+    """auto on a CUDA system: the per-pivot solver (no kernel) below 1024
+    columns, the blocked kernels from 1024; both equal the oracle."""
+    from gf2bv_tpu_torch.ops import solver
+
+    assert solver._resolve_backend(None, cols, dev) == backend
+    eqs = _consistent(cols, cols + 40, cols)
+    _cuda.reset_launches()
+    got = solver.solve(eqs, cols, 0, device=dev)
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["scan"] > 0) == (backend == "blocked")
+    assert got == solver.solve(eqs, cols, 0, backend="oracle", device="cpu") is not None
+
+
+@pytest.mark.parametrize("cols", [1500, 3000, 5000])
+def test_native_host_and_blocked_card_agree(dev, cols):
+    """On a mid-size system the host C engine and the card's blocked kernels
+    give the same point and the same space."""
+    from gf2bv_tpu_torch import _native
+    from gf2bv_tpu_torch.ops import solver
+
+    if not _native.available():
+        pytest.skip("no native engine (gcc missing)")
+    eqs = _consistent(cols + 1, cols - 30, cols)
+    for mode in (0, 1):
+        host = solver.solve(eqs, cols, mode, backend="native", device="cpu")
+        card = solver.solve(eqs, cols, mode, backend="blocked", device=dev)
+        if mode == 0:
+            assert host == card is not None
+        else:
+            assert (host.dimension, host.origin, host.basis) == (
+                card.dimension, card.origin, card.basis)
+
+
+@pytest.mark.parametrize("n,rows", [(24, 300), (128, 3000)])
+def test_quad_rows_cuda(dev, n, rows):
+    """quad_rows on the card equals its CPU result."""
+    from gf2bv_tpu_torch import BitVec, QuadraticSystem
+    from gf2bv_tpu_torch.ops import quad_device
+
+    rng = np.random.default_rng(n + rows)
+
+    def narrow():
+        raw = rng.integers(0, 1 << 63, size=(rows, packing.nwords64(1 + n)), dtype=np.uint64)
+        return BitVec(packing.pack_bits(packing.unpack_rows(raw, 1 + n), 1 + n), 1 + n)
+
+    a, b, c = narrow(), narrow(), narrow()
+    const = int(rng.integers(0, 1 << 62))
+    got = quad_device.quad_rows(QuadraticSystem([n], device=dev), [(a, b), (b, c)], [a, b, c],
+                                const)
+    want = quad_device.quad_rows(QuadraticSystem([n], device="cpu"), [(a, b), (b, c)],
+                                 [a, b, c], const)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dim", [0, 9, 33, 64])
+def test_enumerate_cuda(dev, dim):
+    """enumerate_points and quad_consistency_mask on the card equal the CPU,
+    with the index crossing 2^63."""
+    from gf2bv_tpu_torch.ops import enumerate as enum_torch
+
+    rng = np.random.default_rng(dim)
+    origin = rng.integers(0, 2**32, size=40, dtype=np.uint32)
+    basis = rng.integers(0, 2**32, size=(dim, 40), dtype=np.uint32)
+    for start in (0, (1 << 63) - 100):
+        got = enum_torch.enumerate_points(u32_to_torch(origin, dev), u32_to_torch(basis, dev),
+                                          start, 300, True)
+        want = enum_torch.enumerate_points(u32_to_torch(origin, "cpu"),
+                                           u32_to_torch(basis, "cpu"), start, 300, True)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(enum_torch.quad_consistency_mask(got, 12).cpu(),
+                           enum_torch.quad_consistency_mask(want, 12))
+
+
+@pytest.mark.parametrize("nzeros", [19, 30])
+def test_quadratic_system_cuda(dev, nzeros):
+    """QuadraticSystem at a small width solves the same on the card as on the
+    CPU: the 24-bit NLFSR attack, and a rank-deficient system whose space
+    (dimension 17 or 6) is filtered on the card past 8 dimensions."""
+    from gf2bv_tpu_torch import QuadraticSystem
+    from gf2bv_tpu_torch.crypto.lfsr import GaloisLFSR
+
+    n, mask, select = 24, 0xE10000, (3, 7, 11, 15, 19)
+    init = random.Random(24).getrandbits(n) | 1
+    reg = GaloisLFSR(n, mask, init)
+    out = []
+    for _ in range(1 << 12):
+        reg()
+        x = [(reg.state >> i) & 1 for i in select]
+        out.append((x[0] * x[1]) ^ (x[0] * x[1] * x[3] * x[4]) ^ x[0] ^ x[1] ^ x[2])
+
+    def nlfsr(q):
+        (x,) = q.gens()
+        sym = GaloisLFSR(n, mask, x)
+        zeros = []
+        for o in out:
+            sym()
+            if o:
+                x0, x1, x2 = (sym.state[i] for i in select[:3])
+                zeros.append(q.mul_bit(x0, x1) ^ x0 ^ q.mul_bit(x1, x2) ^ x1 ^ x2 ^ 1)
+        return zeros
+
+    def deficient(q):
+        rng = np.random.default_rng(17)
+        (x,) = q.gens()
+        secret = int(rng.integers(1, 1 << 8))
+        sb = [(secret >> i) & 1 for i in range(8)]
+        mono = sb + [sb[i] & sb[j] for i in range(8) for j in range(i)]
+        parts = [x[i] for i in range(8)] + [q.mul_bit(x[i], x[j]) for i in range(8)
+                                            for j in range(i)]
+        zeros = []
+        while len(zeros) < nzeros:
+            sel = rng.integers(0, 2, size=len(mono))
+            if sel.any():
+                acc = None
+                for s_, p in zip(sel, parts):
+                    if s_:
+                        acc = p if acc is None else acc ^ p
+                zeros.append(acc ^ int(np.dot(sel, mono) % 2))
+        return zeros
+
+    q, q_cpu = QuadraticSystem([n], device=dev), QuadraticSystem([n], device="cpu")
+    got = list(q.solve_all(nlfsr(q), max_dimension=12))
+    assert got == list(q_cpu.solve_all(nlfsr(q_cpu), max_dimension=12)) and (init,) in got
+    assert q.solve_one(nlfsr(q)) == q_cpu.solve_one(nlfsr(q_cpu))
+    q8, q8_cpu = QuadraticSystem([8], device=dev), QuadraticSystem([8], device="cpu")
+    assert list(q8.solve_all(deficient(q8), max_dimension=17)) == list(
+        q8_cpu.solve_all(deficient(q8_cpu), max_dimension=17))

@@ -362,14 +362,15 @@ def test_entry_points_take_engines_from_the_environment(monkeypatch):
     secret = rng.integers(0, 2, size=cols).astype(np.uint8)
     bits[:, 0] = (bits[:, 1:] @ secret) % 2
     eqs = packing.pack_bits(bits, 1 + cols)
-    want = solver.solve(eqs, cols, 0, device="cpu")
+    # below 1024 columns auto takes the per-pivot solver: name the blocked one
+    want = solver.solve(eqs, cols, 0, backend="blocked", device="cpu")
     scan2_calls = _count_calls(monkeypatch, phase1, "scan2")
     monkeypatch.setenv("GF2BV_TPU_PHASE1", "pallas_scan2")
-    assert solver.solve(eqs, cols, 0, device="cpu") == want
+    assert solver.solve(eqs, cols, 0, backend="blocked", device="cpu") == want
     n = len(scan2_calls)
     assert n > 0
     a = t32(packing.to_u32(eqs))
-    assert solver.solve_packed(a, cols, 0, device="cpu") == want
+    assert solver.solve_packed(a, cols, 0, backend="blocked", device="cpu") == want
     assert len(scan2_calls) == 2 * n
     got = gb_torch.solve_blocked(eqs, cols, 0, phase1="pallas_scan", device="cpu")
     assert packing.words_to_int(got) == want
@@ -391,7 +392,8 @@ def test_lazy_cache_keeps_its_engines(monkeypatch):
         sym = model(list(v), **params)
         return [sym() ^ o for o in outs] + [v[0] ^ 0x80000000]
 
-    lin = LinearSystem([32] * 8, device="cpu")
+    # 256 columns: auto would take the per-pivot solver; the engines are the blocked one's
+    lin = LinearSystem([32] * 8, backend="blocked", device="cpu")
     zeros = traced(lin, MersenneTwister)
     lin_j = LinearSystemJax([32] * 8, backend="blocked")
     zeros_j = traced(lin_j, MersenneTwisterJax)

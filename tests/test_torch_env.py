@@ -43,34 +43,36 @@ def test_gens_reads_the_lazy_variable(monkeypatch, value, lazy):
 
 def test_env_backend_override(monkeypatch):
     """GF2BV_TPU_BACKEND takes the place of a missing backend argument, as in
-    the reference (tests/test_backend_config.py): a backend the port has is
-    resolved, one it lacks raises as the argument does, an unknown one is a
-    ValueError in both packages, and an argument wins over the variable."""
+    the reference (tests/test_backend_config.py): every backend is resolved,
+    the host ones too (which used to raise), an unknown one is a ValueError
+    in both packages, and an argument wins over the variable.  Without it,
+    and under "auto", the columns decide as in the reference."""
     monkeypatch.delenv("GF2BV_TPU_BACKEND", raising=False)
-    assert solver._resolve_backend(None) == "blocked"
+    assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096)
+    assert solver._resolve_backend(None, 4) == solver_jax._resolve_backend(None, 4) == "jax"
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "jax")
-    assert solver._resolve_backend(None) == solver_jax._resolve_backend(None, 4096) == "jax"
-    assert solver._resolve_backend("blocked") == "blocked"
+    assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096) == "jax"
+    assert solver._resolve_backend("blocked", 4) == "blocked"
     assert solver_jax._resolve_backend("blocked", 4) == "blocked"
     for name in ("oracle", "native"):
         monkeypatch.setenv("GF2BV_TPU_BACKEND", name)
         assert solver_jax._resolve_backend(None, 4096) == name
-        with pytest.raises(NotImplementedError, match=name) as by_env:
-            solver._resolve_backend(None)
-        with pytest.raises(NotImplementedError) as by_arg:
-            solver._resolve_backend(name)
-        assert str(by_env.value) == str(by_arg.value)
+        assert solver._resolve_backend(None, 4096) == solver._resolve_backend(name, 4) == name
+        assert solver._resolve_backend("blocked", 4) == "blocked"
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "no_such_backend")
-    for resolve in (lambda: solver._resolve_backend(None),
+    for resolve in (lambda: solver._resolve_backend(None, 4096),
                     lambda: solver_jax._resolve_backend(None, 4096)):
         with pytest.raises(ValueError, match="unknown backend 'no_such_backend'"):
             resolve()
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "auto")
-    assert solver._resolve_backend(None) == "blocked"
+    assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096)
+    assert solver._resolve_backend(None, 1024) == "blocked"
+    assert solver._resolve_backend(None, 1023) == "jax"
 
 
 def test_env_backend_reaches_the_solve(monkeypatch):
-    """Under GF2BV_TPU_BACKEND=jax solver.solve runs the per-pivot solver."""
+    """Under GF2BV_TPU_BACKEND=jax, and with no backend named below 1024
+    columns, solver.solve runs the per-pivot solver."""
     from gf2bv_tpu_torch.ops import gauss_jax
 
     rng = np.random.default_rng(5)
@@ -79,15 +81,18 @@ def test_env_backend_reaches_the_solve(monkeypatch):
     bits[:, 0] = (bits[:, 1:] @ rng.integers(0, 2, size=cols)) % 2
     eqs = packing.pack_bits(bits, 1 + cols)
     monkeypatch.delenv("GF2BV_TPU_BACKEND", raising=False)
-    want = solver.solve(eqs, cols, 0, device="cpu")
+    want = solver.solve(eqs, cols, 0, backend="blocked", device="cpu")
     calls = []
     real = gauss_jax.solve_jax
     monkeypatch.setattr(gauss_jax, "solve_jax",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setenv("GF2BV_TPU_BACKEND", "blocked")
     assert solver.solve(eqs, cols, 0, device="cpu") == want and not calls
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "jax")
     assert solver.solve(eqs, cols, 0, device="cpu") == want and calls == [1]
     assert solver.solve(eqs, cols, 0, backend="blocked", device="cpu") == want and calls == [1]
+    monkeypatch.delenv("GF2BV_TPU_BACKEND")
+    assert solver.solve(eqs, cols, 0, device="cpu") == want and calls == [1, 1]  # 40 < 1024
 
 
 _TRACE_CACHE_SCRIPT = textwrap.dedent("""

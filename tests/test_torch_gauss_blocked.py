@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from gf2bv_tpu.core import packing
 from gf2bv_tpu.ops import extract_device as ed_jax
 from gf2bv_tpu.ops import gauss_blocked as gb_jax
+from gf2bv_tpu.ops import solver as solver_jax
 from gf2bv_tpu_torch import torch_to_u32, u32_to_torch
 from gf2bv_tpu_torch.ops import extract_device as ed_torch
 from gf2bv_tpu_torch.ops import gauss_blocked as gb_torch
@@ -68,6 +69,31 @@ def test_rref_blocked_matches_jax(rows, cols, k_panel, dep):
     r_j, p_j, i_j = gb_jax.rref_blocked(jnp.asarray(a32), cols, k_panel, P2, P1, False)
     a_t = t32(a32)
     r_t, p_t, i_t = gb_torch.rref_blocked(a_t, cols, k_panel, False)
+    assert np.array_equal(torch_to_u32(r_t), np.asarray(r_j))
+    assert np.array_equal(p_t.numpy(), np.asarray(p_j))
+    assert bool(i_t) == bool(i_j)
+    assert np.array_equal(torch_to_u32(a_t), a32)  # input not mutated
+
+
+@pytest.mark.parametrize("rows,cols,extra", [(256, 64, 128), (512, 100, 128), (256, 300, 3)])
+def test_rref_blocked_unaligned_width_matches_jax(rows, cols, extra):
+    """A width that is not a multiple of K/32 words (a per-pivot cached
+    matrix, 2 * nwords64(1 + cols) words, beside ``extra`` RHS words) is
+    taken as the reference takes it: padded inside, sliced back."""
+    eqs, _ = _system(rows + cols + extra, rows, cols, dep=3)
+    raw = packing.to_u32(eqs)
+    rng = np.random.default_rng(extra)
+    a32 = np.zeros((rows, raw.shape[1] + extra), np.uint32)
+    a32[: raw.shape[0], : raw.shape[1]] = raw
+    a32[: raw.shape[0], raw.shape[1] :] = rng.integers(0, 2**32, size=(raw.shape[0], extra),
+                                                       dtype=np.uint32)
+    assert a32.shape[1] % 8
+    # the reference's Pallas engines need 128-word widths; its jnp engines,
+    # the ones it picks here, give the same RREF
+    r_j, p_j, i_j = gb_jax.rref_blocked(jnp.asarray(a32), cols, 256, "jnp", "jnp", False)
+    a_t = t32(a32)
+    r_t, p_t, i_t = gb_torch.rref_blocked(a_t, cols, 256, False)
+    assert r_t.shape == a32.shape and r_t.is_contiguous()
     assert np.array_equal(torch_to_u32(r_t), np.asarray(r_j))
     assert np.array_equal(p_t.numpy(), np.asarray(p_j))
     assert bool(i_t) == bool(i_j)
@@ -135,15 +161,20 @@ def test_solve_packed_tensor_and_host_agree():
 
 @pytest.mark.parametrize("backend", ["native", "oracle"])
 def test_unported_backends_raise(backend):
+    """The host backends, which used to raise as not ported, solve as the
+    blocked solver and the reference's same backend do."""
     eqs, _ = _system(6, 40, 30)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        solver.solve(eqs, 30, 0, backend=backend, device="cpu")
+    got = solver.solve(eqs, 30, 0, backend=backend, device="cpu")
+    assert got == solver.solve(eqs, 30, 0, backend="blocked", device="cpu")
+    assert got == solver_jax.solve(eqs, 30, 0, backend=backend) is not None
 
 
 def test_mode1_raises():
-    """Mode 1 runs on the ported backends (tests/test_torch_mode1.py); through
-    an unported backend it raises like mode 0."""
+    """Mode 1 runs on every backend: the host ones, which used to raise,
+    give the blocked solver's space."""
     eqs, _ = _system(6, 40, 30)
-    assert solver.solve(eqs, 30, 1, device="cpu").dimension == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        solver.solve(eqs, 30, 1, backend="native", device="cpu")
+    want = solver.solve(eqs, 30, 1, backend="blocked", device="cpu")
+    assert want.dimension == 0
+    for backend in ("native", "oracle", "jax", None):
+        got = solver.solve(eqs, 30, 1, backend=backend, device="cpu")
+        assert (got.dimension, got.origin) == (want.dimension, want.origin)

@@ -136,7 +136,8 @@ def test_literal_one_is_unsat():
 )
 def test_later_surfaces_raise(name):
     """The surfaces that used to raise as not ported now return the JAX
-    package's answer on a small system; QuadraticSystem still raises."""
+    package's answer on a small system; so does QuadraticSystem, which used
+    to raise on construction."""
     secret = 0xB7
     lin, lin_j = LinearSystem([8], device="cpu"), gf2bv_tpu.LinearSystem([8], backend="blocked")
 
@@ -170,8 +171,15 @@ def test_later_surfaces_raise(name):
             a, a_j = a.toarray(), a_j.toarray()
         assert a.shape == (6, 8) and np.array_equal(a, a_j) and np.array_equal(b, b_j)
         assert np.array_equal((a @ [(secret >> i) & 1 for i in range(8)]) % 2, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuadraticSystem([8], device="cpu")
+    q, q_j = QuadraticSystem([8], device="cpu"), gf2bv_tpu.QuadraticSystem([8])
+
+    def quad_zeros(qs):
+        (y,) = qs.gens()
+        sb = [(secret >> i) & 1 for i in range(8)]
+        return [qs.mul_bit(y[i], y[j]) ^ (sb[i] & sb[j]) for i in range(8) for j in range(i)] + [
+            y ^ secret]
+
+    assert q.solve_one(quad_zeros(q)) == q_j.solve_one(quad_zeros(q_j)) == (secret,)
 
 
 def test_cuda_device_without_cuda_raises():

@@ -25,11 +25,13 @@ SCRIPT = textwrap.dedent(
     state = [0x80000000, 1, 2, 3, 0xDEADBEEF, 5, 6, 0x12345678]
     gen = MersenneTwister(list(state), **params)
     outs = [gen() for _ in range(8)]
-    lin = LinearSystem([32] * 8, device="cpu")
+    lin = LinearSystem([32] * 8, backend="blocked", device="cpu")
     v = lin.gens()
     sym = MersenneTwister(list(v), **params)
     zeros = [sym() ^ o for o in outs] + [v[0] ^ 0x80000000]
     assert lin.solve_one(zeros) == tuple(state), lin.solve_one(zeros)
+    # 256 columns: no backend named takes the per-pivot solver
+    assert LinearSystem([32] * 8, device="cpu").solve_one(zeros) == tuple(state)
     assert list(lin.solve_all(zeros)) == [tuple(state)]
     assert lin.solve_one_batch([zeros, zeros]) == [tuple(state)] * 2
     from gf2bv_tpu_torch.ops import lazy_solve
