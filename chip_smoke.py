@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (gf2bv_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--kernels-only`` stops after phase 3 and prints no result line.)
+(``--kernels-only`` stops after phase 3 and prints no result line;
+``--phases routing,sfmt,incremental,models`` runs the named phases of 15-18
+alone after the build, and prints no result line either.)
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
@@ -134,10 +136,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    when the space has more than 8 dimensions) and solve_one_packed must
    return the secret; the rows, columns and dimension, and the warm wall,
    CUDA-event and kernel times of quad_rows, the solve and the filter.
-15. Routing: auto on the card is the per-pivot solver below 1024 columns and
-   the blocked solver from 1024; both backends solve one random consistent
-   system at 256, 512, 1023, 1024 and 2048 columns, warm (best of 3), with
-   their kernel times.
+15. SFMT19937 recovery at full width (examples/sfmt.py: 2496 low-16 leaks,
+   39936 equations over 19968 unknowns) through LinearSystem.solve_one on the
+   card: the clone replays the leak and predicts the next 1000 draws; host
+   trace, packing, warm wall, CUDA-event and kernel times, launch counts and
+   a profile.
+16. Online MT19937 recovery through IncrementalSolver: a start of 600
+   outputs and the mt[0] equations, adds of 4 outputs (128 rows) to 624, then
+   16, 64 and 1 redundant outputs (the 512- and 2048-row buckets, and 32
+   rows in the 128-row bucket); each add timed
+   (wall, CUDA events, update_full launches) beside a warm from-scratch
+   solve_one of the same rows; the state at the end equals a from-scratch
+   full RREF and solve_one returns the generator's state.
+17. The small models through the public API on the card (auto routing):
+   xoshiro256**, xorshift128+ / V8 Math.random, WELL512, Taus88, LFSR113, a
+   CRC-64 preimage, a GHASH preimage, and PHP mt_rand in both modes at full
+   width (1300 draws, 19968 unknowns); each answer held against the
+   generator's true state or preimage.
+18. Routing: auto on the card is the blocked solver at every size; both
+   backends solve one random consistent system at 16 to 2048 columns, warm
+   (best of 3), with their kernel times; the batch route (parallel.batch,
+   split at _PER_PIVOT_MAX_COLS columns): the batched per-pivot solver
+   against the blocked family, B = 4 and 64, modes 0 and 1.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with the per-kernel results; the last line is
@@ -196,7 +216,14 @@ NLFSR_WIDTH = 128  # examples/nlfsr.py: the register, its taps, the combiner's t
 NLFSR_TAPS = 0xD670201BAC7515352A273372B2A95B23
 NLFSR_SELECT = (13, 24, 35, 46, 57)
 NLFSR_STEPS = 2**14 + 1000
-ROUTING_COLS = (256, 512, 1023, 1024, 2048)  # around the reference's _BLOCKED_THRESHOLD
+ROUTING_COLS = (16, 32, 64, 128, 256, 512, 1023, 1024, 2048)  # the routing sweep's sizes
+ROUTING_BATCHES = (4, 64)  # systems per batch in the sweep of the batch route
+SFMT_SEED = 20260819  # examples/sfmt.py: the victim's seed, burned draws, low-16 leaks
+SFMT_BURN = 3 * 624
+SFMT_LEAKS = 2496
+INC_INIT = 600  # check_incremental: outputs in the start, then adds of 4 outputs to 624
+INC_EXTRA = (16, 64, 1)  # redundant outputs past 624 added at once: the 512-, 2048- and
+# 128-row buckets (the last one 32 rows, a partly filled bucket)
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
@@ -1941,24 +1968,318 @@ def check_quadratic(dev, card: str) -> dict:
     return launches
 
 
-def check_routing(dev, card: str) -> None:
-    """auto on the card: the per-pivot solver below 1024 columns, the blocked
-    kernels from 1024 (the reference's _BLOCKED_THRESHOLD, not re-derived
-    here); both backends timed on one random consistent system per size."""
-    from gf2bv_tpu_torch.core import packing
+def check_sfmt(dev, card: str) -> dict:
+    """examples/sfmt.py at full width through LinearSystem([32]*624).solve_one
+    on the card: SFMT19937 seeded with SFMT_SEED, SFMT_BURN draws burned, the
+    low 16 bits of SFMT_LEAKS draws leaked (39936 equations over 19968
+    unknowns, padded to 40192 rows x 640 words).  The clone must replay the
+    leak and predict the next 1000 draws exactly."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.crypto.sfmt import SFMT19937
+    from gf2bv_tpu_torch.ops import _cuda
+
+    victim = SFMT19937.from_seed(SFMT_SEED)
+    for _ in range(SFMT_BURN):
+        victim()
+    observed = [victim() & 0xFFFF for _ in range(SFMT_LEAKS)]
+
+    t0 = time.perf_counter()
+    lin = LinearSystem([32] * 624, device=dev)
+    sym = SFMT19937(list(lin.gens()), index=624)
+    zeros = [(sym() & 0xFFFF) ^ o for o in observed]
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eqs = lin.get_eqs_packed(zeros)
+    pack_s = time.perf_counter() - t0
+
+    _cuda.reset_launches()
+    state, cold_s = timed(lambda: lin.solve_one(zeros))
+    launches = check_launches("SFMT19937 solve_one", EXPECTED_LAUNCHES)
+    if state is None:
+        raise AssertionError("SFMT19937: solve_one found the system unsatisfiable")
+    clone = SFMT19937(list(state), index=624)
+    if [clone() & 0xFFFF for _ in range(SFMT_LEAKS)] != observed:
+        raise AssertionError("SFMT19937: the clone does not replay the leak")
+    if any(clone() != victim() for _ in range(1000)):
+        raise AssertionError("SFMT19937: the clone does not predict the next 1000 draws")
+    walls = []
+    for _ in range(3):
+        got, wall, ev = event_ms(lambda: lin.solve_one(zeros))
+        if got != state:
+            raise AssertionError("SFMT19937: a warm solve_one changed its answer")
+        walls.append((wall, ev))
+    kern = device_ms(lambda: lin.solve_one(zeros))
+    wall, ev = min(walls)
+    print(f"SFMT19937 (seed {SFMT_SEED}, {SFMT_BURN} burned, {SFMT_LEAKS} low-16 leaks): "
+          f"{eqs.shape[0]} equations x {lin.cols} unknowns; clone replays the leak and "
+          f"predicts the next 1000 draws; launches {launches} ({card})")
+    print(f"  host trace {trace_s:.3f} s, packing (get_eqs_packed) {pack_s:.3f} s, first "
+          f"solve_one (its own packing + upload + solve) {cold_s:.3f} s; warm solve_one best "
+          f"of 3: wall {wall:.3f} ms, events {ev:.3f} ms, kernels {kern:.3f} ms ({card})")
+    profile_solve(lambda: lin.solve_one(zeros), card, "SFMT19937 solve_one", wall / 1000)
+    return launches
+
+
+def check_incremental(dev, card: str) -> dict:
+    """Online MT19937 recovery through IncrementalSolver at the flagship shape:
+    the start holds INC_INIT outputs of random.Random and the mt[0] equations;
+    the other outputs to 624 arrive four at a time (128 rows, the smallest
+    bucket), then INC_EXTRA redundant outputs past 624 in one add each (the
+    512- and 2048-row buckets, then 32 rows in the 128-row bucket).  The state at the end equals a from-scratch
+    rref_blocked(trailing=False) of all rows (the pivot-column set and each
+    pivot column's row), and solve_one returns the generator's state.  Each
+    add is timed (wall, CUDA events) beside a warm from-scratch solve_one of
+    the same rows; the update_full launches of the adds are counted."""
+    from gf2bv_tpu_torch import IncrementalSolver, LinearSystem
+    from gf2bv_tpu_torch.core.words import u32_to_torch
+    from gf2bv_tpu_torch.crypto.mt import MT19937
+    from gf2bv_tpu_torch.ops import _cuda
+    from gf2bv_tpu_torch.ops.gauss_blocked import _pad, rref_blocked
+
+    n_out = 624 + sum(INC_EXTRA)
+    state, outs = mt_outputs(SEED + 400, n_out)
+    lin = LinearSystem([32] * 624, device=dev)
+    mt = lin.gens()
+    rng = MT19937(list(mt))
+    zeros = [rng.getrandbits(32) ^ o for o in outs]
+    msb = [mt[0] ^ 0x80000000]
+
+    _cuda.reset_launches()
+    inc, init_s = timed(lambda: IncrementalSolver(lin, zeros[:INC_INIT] + msb))
+    init_launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    print(f"incremental start: {32 * INC_INIT + 32} rows, rank {inc.rank}, dimension "
+          f"{inc.dimension}, {init_s:.3f} s (trace materialization + upload + full RREF); "
+          f"launches {init_launches} ({card})")
+    adds = [(f"4 outputs ({k}-{k + 4})", zeros[k : k + 4]) for k in range(INC_INIT, 624, 4)]
+    lo = 624
+    for extra in INC_EXTRA:
+        adds.append((f"{extra} redundant outputs ({lo}-{lo + extra})", zeros[lo : lo + extra]))
+        lo += extra
+    _cuda.reset_launches()
+    per_add = []
+    for what, batch in adds:
+        eqs = lin.get_eqs_packed(batch)  # the trace's packing, outside the add's time
+        before = _cuda.LAUNCHES["update_full"]
+        _, wall, ev = event_ms(lambda: inc.add_packed(eqs))
+        per_add.append((what, eqs.shape[0], wall, ev, _cuda.LAUNCHES["update_full"] - before))
+        print(f"  add {what}: {eqs.shape[0]} rows, wall {wall:.3f} ms, events {ev:.3f} ms, "
+              f"update_full launches {per_add[-1][4]}; rank {inc.rank}, dimension "
+              f"{inc.dimension}, unsat {inc.unsat} ({card})")
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if set(launches) != {"update_full"}:
+        raise AssertionError(f"incremental adds launched {launches}, not update_full alone")
+    if inc.unsat or inc.dimension != 0 or inc.solve_one() != state:
+        raise AssertionError("IncrementalSolver did not recover the MT19937 state")
+
+    eqs_all = lin.get_eqs_packed(zeros + msb)
+    rref, pof, bad = rref_blocked(u32_to_torch(_pad(eqs_all, K, word_align=128), dev),
+                                  lin.cols, K, trailing=False)
+    ipof = inc._pof
+    if bool(bad) or not torch.equal(pof >= 0, ipof >= 0):
+        raise AssertionError("incremental: the pivot-column set differs from the fresh RREF")
+    piv = pof >= 0
+    mine = inc._M[ipof.clamp(min=0).long()][piv]
+    fresh = rref[pof.clamp(min=0).long()][piv]
+    width = min(mine.shape[1], fresh.shape[1])
+    if not torch.equal(mine[:, :width], fresh[:, :width]):
+        raise AssertionError("incremental: a pivot column's row differs from the fresh RREF")
+    nonzero = int((inc._M != 0).any(dim=1).sum())
+    if nonzero != inc.rank or inc.rank != int(piv.sum()):
+        raise AssertionError(f"incremental: {nonzero} nonzero rows at rank {inc.rank}")
+
+    lin.solve_one(zeros + msb)  # cold: trace materialization and upload
+    scratch = [event_ms(lambda: lin.solve_one(zeros + msb)) for _ in range(3)]
+    if any(s[0] != state for s in scratch):
+        raise AssertionError("from-scratch solve_one lost the state")
+    _, s_wall, s_ev = min(scratch, key=lambda s: s[1])
+    s_kern = device_ms(lambda: lin.solve_one(zeros + msb))
+    print(f"incremental MT19937: state recovered, the maintained matrix equals the fresh "
+          f"full RREF ({eqs_all.shape[0]} rows, rank {inc.rank}); update_full launches of "
+          f"the adds {launches['update_full']}; a warm from-scratch solve_one of the same "
+          f"rows: wall {s_wall:.3f} ms, events {s_ev:.3f} ms, kernels {s_kern:.3f} ms ({card})")
+    for rows in sorted({r for _, r, *_ in per_add}):
+        walls = [w for _, r, w, _, _ in per_add if r == rows]
+        evs = [e for _, r, _, e, _ in per_add if r == rows]
+        print(f"  bucket of {rows} rows: {len(walls)} adds, wall {min(walls):.3f}-"
+              f"{max(walls):.3f} ms, events {min(evs):.3f}-{max(evs):.3f} ms ({card})")
+    big = max(range(len(adds)), key=lambda i: per_add[i][1])
+    eqs_big = lin.get_eqs_packed(adds[big][1])  # where one more add of the largest bucket goes
+    profile_solve(lambda: inc.add_packed(eqs_big), card,
+                  f"incremental add of {eqs_big.shape[0]} rows", per_add[big][2] / 1000)
+    return launches
+
+
+def check_models(dev, card: str) -> None:
+    """The small models and PHP mt_rand through the public API on the card,
+    auto routing; each answer is held against the generator's true state or
+    preimage."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.crypto.crc import CRC64_XZ
+    from gf2bv_tpu_torch.crypto.gf2m import GHASH
+    from gf2bv_tpu_torch.crypto.php import MT_RAND_MT19937, MT_RAND_PHP, PHPMtRand
+    from gf2bv_tpu_torch.crypto.taus import (
+        LFSR113, LFSR113_PARAMS, TAUS88_PARAMS, Taus88, dont_care_dims,
+    )
+    from gf2bv_tpu_torch.crypto.well import Well512
+    from gf2bv_tpu_torch.crypto.xorshift import V8MathRandom, Xorshift128Plus
+    from gf2bv_tpu_torch.crypto.xoshiro import Xoshiro256starstar
     from gf2bv_tpu_torch.ops import _cuda, solver
 
-    for cols, want in ((4, "jax"), (1023, "jax"), (1024, "blocked"), (4096, "blocked")):
-        if solver._auto_backend(cols, dev) != want:
-            raise AssertionError(f"auto at {cols} columns on the card is not {want}")
+    rnd = random.Random(SEED + 500)
+
+    def report(name, lin, fn, check):
+        _cuda.reset_launches()
+        got, wall, ev = event_ms(fn)
+        if not check(got):
+            raise AssertionError(f"model {name}: wrong answer on the card")
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        warm = min(event_ms(fn)[1] for _ in range(3))
+        print(f"model {name}: {lin.cols} unknowns, auto = "
+              f"{solver._auto_backend(lin.cols, dev)}; answer checked; first call "
+              f"{wall:.3f} ms, warm best of 3 {warm:.3f} ms; launches {launches} ({card})")
+
+    s = [rnd.getrandbits(64) for _ in range(4)]
+    src = Xoshiro256starstar(list(s))
+    outs = [src() for _ in range(10)]
+    lin = LinearSystem([64] * 4, device=dev)
+    sym = Xoshiro256starstar(list(lin.gens()))
+    zeros = [sym.step() ^ Xoshiro256starstar.untemper(o) for o in outs]
+    def xoshiro_ok(sols):
+        replays = [Xoshiro256starstar(list(x)) for x in sols]
+        return tuple(s) in sols and all([r() for _ in range(10)] == outs for r in replays)
+
+    report("xoshiro256** (10 outputs)", lin, lambda: list(lin.solve_all(zeros)), xoshiro_ok)
+
+    s0, s1 = rnd.getrandbits(64), rnd.getrandbits(64)
+    victim = V8MathRandom(s0, s1)
+    observed = [victim.random() for _ in range(5)]
+    lin = LinearSystem([64, 64], device=dev)
+    sym = Xorshift128Plus(*lin.gens())
+    sym_outs = [sym.step() for _ in range(V8MathRandom.CACHE_SIZE)]
+    zeros = [sym_outs[V8MathRandom.CACHE_SIZE - 1 - i][12:] ^ V8MathRandom.mantissa(d)
+             for i, d in enumerate(observed)]
+    future = [victim.random() for _ in range(3)]
+
+    def v8_ok(sol):
+        clone = V8MathRandom(*sol)
+        return sol == (s0, s1) and [clone.random() for _ in range(8)] == observed + future
+
+    report("xorshift128+ / V8 Math.random (5 doubles)", lin, lambda: lin.solve_one(zeros), v8_ok)
+
+    seed = [rnd.getrandbits(32) for _ in range(16)]
+    src = Well512(list(seed))
+    outs = [src() for _ in range(20)]
+    lin = LinearSystem([32] * 16, device=dev)
+    sym = Well512(list(lin.gens()))
+    zeros = [sym() ^ o for o in outs]
+    report("WELL512 (20 outputs)", lin, lambda: lin.solve_one(zeros),
+           lambda sol: sol is not None and list(sol) == seed)
+
+    for cls, mins, params in ((Taus88, (2, 8, 16), TAUS88_PARAMS),
+                              (LFSR113, (2, 8, 16, 128), LFSR113_PARAMS)):
+        secret = [rnd.getrandbits(32) | m for m in mins]
+        victim = cls(list(secret))
+        observed = [victim() for _ in range(6)]
+        future = [victim() for _ in range(16)]
+        lin = LinearSystem([32] * len(mins), device=dev)
+        sym = cls(list(lin.gens()))
+        zeros = [sym() ^ o for o in observed]
+
+        def taus_ok(space, cls=cls, params=params, lin=lin, observed=observed, future=future):
+            if space is None or space.dimension != dont_care_dims(params):
+                return False
+            clone = cls(list(lin.convert_sol(space.origin)))
+            return [clone() for _ in range(22)] == observed + future
+
+        report(f"{cls.__name__} (6 outputs, space of dimension {dont_care_dims(params)})", lin,
+               lambda lin=lin, zeros=zeros: lin.solve_raw_space(zeros), taus_ok)
+
+    secret = rnd.getrandbits(64)
+    target = CRC64_XZ().process(secret, 64)
+    lin = LinearSystem([64], device=dev)
+    (x,) = lin.gens()
+    zeros = [CRC64_XZ().process(x) ^ target]
+    report("CRC-64/XZ preimage", lin, lambda: lin.solve_one(zeros),
+           lambda sol: sol == (secret,))
+
+    h, b0, b1, b2 = (rnd.getrandbits(128) for _ in range(4))
+    g = GHASH(h)
+    target = g.process([b0, b1, b2])
+    lin = LinearSystem([128], device=dev)
+    (x,) = lin.gens()
+    zeros = [g.process([b0, x, b2]) ^ target]
+    report("GHASH preimage", lin, lambda: lin.solve_one(zeros), lambda sol: sol == (b1,))
+
+    for mode in (MT_RAND_MT19937, MT_RAND_PHP):
+        victim = PHPMtRand.from_seed(rnd.getrandbits(32), mode)
+        observed = [victim() for _ in range(1300)]
+        future = [victim() for _ in range(5)] + [victim.mt_rand(1, 6) for _ in range(8)]
+        t0 = time.perf_counter()
+        lin = LinearSystem([32] * 624, device=dev)
+        sym = PHPMtRand(list(lin.gens()), mode)
+        zeros = [sym() ^ o for o in observed]
+        lin.get_eqs_packed(zeros)
+        trace_s = time.perf_counter() - t0
+
+        def php_ok(sol, mode=mode, observed=observed, future=future):
+            if sol is None:
+                return False
+            clone = PHPMtRand(list(sol), mode)
+            return ([clone() for _ in range(1300)] == observed
+                    and [clone() for _ in range(5)] + [clone.mt_rand(1, 6) for _ in range(8)]
+                    == future)
+
+        print(f"model PHP mt_rand mode {mode}: host trace and packing of 1300 draws "
+              f"{trace_s:.3f} s ({card})")
+        report(f"PHP mt_rand mode {mode} (1300 draws)", lin, lambda lin=lin, zeros=zeros:
+               lin.solve_one(zeros), php_ok)
+
+
+def random_system(rng, cols: int, rows: int, coeff=None):
+    """(packed eqs, the secret as an int) of a random consistent system;
+    ``coeff`` (rows, cols) 0/1 may be given to share the coefficients."""
+    from gf2bv_tpu_torch.core import packing
+
+    if coeff is None:
+        coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
+    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
+    rhs = ((coeff.astype(np.int32) @ secret.astype(np.int32)) % 2).astype(np.uint8)
+    eqs = packing.pack_bits(np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols)
+    return eqs, int(sum(int(b) << i for i, b in enumerate(secret)))
+
+
+@contextlib.contextmanager
+def batch_route(limit: int):
+    """The batch route forced: the blocked family from ``limit`` columns
+    (0: always; 1 << 30: never)."""
+    from gf2bv_tpu_torch.parallel import batch as pbatch
+
+    old = pbatch._PER_PIVOT_MAX_COLS
+    pbatch._PER_PIVOT_MAX_COLS = limit
+    try:
+        yield
+    finally:
+        pbatch._PER_PIVOT_MAX_COLS = old
+
+
+def check_routing(dev, card: str) -> None:
+    """auto on the card: the blocked kernels at every size; both backends
+    timed warm (best of 3) on one random consistent system per size, with
+    their kernel times.  Then the batch route (parallel.batch.solve_batch,
+    split at _PER_PIVOT_MAX_COLS columns): the batched per-pivot solver
+    against the blocked family (mode 0 solve_chained, mode 1 solve_batched)
+    on B systems that share their coefficients, warm best of 3."""
+    from gf2bv_tpu_torch.core import packing
+    from gf2bv_tpu_torch.ops import _cuda, solver
+    from gf2bv_tpu_torch.parallel import batch as pbatch
+
+    for cols in (1, 16, 1023, 1024, 4096):
+        if solver._auto_backend(cols, dev) != "blocked":
+            raise AssertionError(f"auto at {cols} columns on the card is not blocked")
     rng = np.random.default_rng(SEED)
     for cols in ROUTING_COLS:
         rows = cols + 64
-        coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
-        secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-        rhs = ((coeff.astype(np.int64) @ secret) % 2).astype(np.uint8)
-        eqs = packing.pack_bits(np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols)
-        want = int(sum(int(b) << i for i, b in enumerate(secret)))
+        eqs, want = random_system(rng, cols, rows)
         line = []
         for backend in ("jax", "blocked"):
             def run():
@@ -1975,6 +2296,27 @@ def check_routing(dev, card: str) -> None:
                         f"{device_ms(run):.3f} ms")
         print(f"routing {cols} columns ({rows} rows, auto = "
               f"{solver._auto_backend(cols, dev)}): {'; '.join(line)} ({card})")
+        coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
+        for nb in ROUTING_BATCHES:
+            systems = [random_system(rng, cols, rows, coeff) for _ in range(nb)]
+            mats, secrets = [m for m, _ in systems], [s for _, s in systems]
+            for mode in (0, 1):
+                line = []
+                for route, limit in (("per-pivot", 1 << 30), ("blocked", 0)):
+                    def run():
+                        with batch_route(limit):
+                            return pbatch.solve_batch(mats, cols, mode, device=dev)
+
+                    got = run()
+                    origins = [packing.words_to_int(r if mode == 0 else r[0]) for r in got]
+                    if origins != secrets or (mode == 1 and any(len(r[1]) for r in got)):
+                        raise AssertionError(f"batch route {route} at {cols} columns, B={nb}, "
+                                             f"mode {mode} lost a secret")
+                    walls = [event_ms(run)[1] for _ in range(3)]
+                    line.append(f"{route} {min(walls):.3f} ms")
+                auto = "blocked" if cols >= pbatch._PER_PIVOT_MAX_COLS else "per-pivot"
+                print(f"routing batch B={nb} mode {mode}, {cols} columns (auto = {auto}): "
+                      f"warm best of 3 {'; '.join(line)} ({card})")
 
 
 def check_native_build(card: str) -> None:
@@ -2013,8 +2355,15 @@ def main() -> int:
     print(f"kernels built: {so.name} in {time.perf_counter() - t0:.1f} s")
     check_native_build(card)
 
+    args = sys.argv[1:]
+    if "--phases" in args:  # the named phases alone, after the build: no result line
+        phases = {"routing": check_routing, "sfmt": check_sfmt,
+                  "incremental": check_incremental, "models": check_models}
+        for name in args[args.index("--phases") + 1].split(","):
+            phases[name](dev, card)
+        return 0
     res = check_kernels(dev, card)
-    if "--kernels-only" in sys.argv[1:]:  # the comparisons and kernel times alone
+    if "--kernels-only" in args:  # the comparisons and kernel times alone
         return 0
     launches, single_s = check_main_path(dev, card)
     check_mode1(dev, card)
@@ -2032,6 +2381,9 @@ def main() -> int:
         launches[f"update_{p2}"] = multi[f"update_{p2}"]
     check_sweep(dev, card)
     check_quadratic(dev, card)
+    check_sfmt(dev, card)
+    check_incremental(dev, card)
+    check_models(dev, card)
     check_routing(dev, card)
 
     kernels = []

@@ -13,9 +13,14 @@ sweeps (``solve_one_sweep`` / ``solve_all_sweep``), degree-2 systems by
 linearization (:class:`QuadraticSystem`, with the quadratic rows built on
 the device by ``ops.quad_device.quad_rows`` and the consistency filter run
 there by ``ops.enumerate``), the device-built MT19937 system
-(``crypto.mt_torch``) and the backends of the reference: ``blocked`` (the
-Hopper kernels), ``jax`` (the per-pivot solver, below 1024 columns by
-default), ``native`` (the host C engine) and ``oracle`` (numpy).
+(``crypto.mt_torch``), online solving over a device-resident RREF
+(:class:`IncrementalSolver`), the reference's model library (``crypto/``:
+MT19937, SFMT, PHP ``mt_rand``, LFSRs, Berlekamp-Massey, xorshift / V8
+``Math.random``, xoshiro, WELL, Tausworthe, CRC, GF(2^m) / GHASH), the
+low-level :func:`m4ri_solve`, the Sage, numpy and scipy exports, trace
+serialization and the matrix PNG (``utils/``), and the backends of the
+reference: ``blocked`` (the Hopper kernels), ``jax`` (the per-pivot solver),
+``native`` (the host C engine) and ``oracle`` (numpy).
 
 ``device="cuda"`` (the default) runs the kernels in ``csrc/``, which
 are compiled by nvcc on first use; ``device="cpu"`` runs their plain
@@ -34,17 +39,32 @@ from .core.system import (
     Zeros,
 )
 from .core.words import torch_to_u32, u32_to_torch
+from .ops.incremental import IncrementalSolver
 
 __version__ = "0.1.0"
+
+
+def m4ri_solve(equations, cols: int, mode: int, *, device="cuda"):
+    """Low-level compat shim for the reference's native entry point:
+    equations are big-int masks (bit 0 = const, bits 1..cols = variables);
+    mode 0 returns one solution int (or None), mode 1 the AffineSpace (or
+    None).  Solved on ``device``, the card by default."""
+    from .core import packing
+    from .ops import solver
+
+    eqs = packing.ints_to_rows(list(equations), 1 + cols)
+    return solver.solve(eqs, cols, mode, device=device)
 
 __all__ = [
     "AffineSpace",
     "BitVec",
     "CapturedTrace",
     "DimensionTooLargeError",
+    "IncrementalSolver",
     "LinearSystem",
     "QuadraticSystem",
     "Zeros",
+    "m4ri_solve",
     "torch_to_u32",
     "u32_to_torch",
 ]

@@ -467,6 +467,25 @@ class LinearSystem:
         a, b = self.get_mat_numpy(zeros)
         return sp.csr_matrix(a), b
 
+    def get_sage_mat(self, zeros: Zeros, *, _sage=None):
+        """Sage interop kept by name: ``(matrix(GF(2), A), vector(GF(2), b))``
+        built from :meth:`get_mat_numpy`.
+
+        ``_sage`` injects the module providing ``GF/matrix/vector`` (a
+        testing hook, so this path runs without a Sage install); it defaults
+        to ``sage.all``, which raises the usual ImportError when absent."""
+        if _sage is None:
+            import sage.all as _sage  # type: ignore
+
+        a, b = self.get_mat_numpy(zeros)
+        return _sage.matrix(_sage.GF(2), a), _sage.vector(_sage.GF(2), b)
+
+    def get_sage_mat_slow(self, zeros: Zeros, *, tqdm=lambda x, desc: x, _sage=None):
+        """The reference's slow path by name: the packed build makes it
+        :meth:`get_sage_mat`; the tqdm hook is accepted for the signature."""
+        del tqdm
+        return self.get_sage_mat(zeros, _sage=_sage)
+
 
 class QuadraticSystem(LinearSystem):
     def __init__(self, sizes, backend: str | None = None, device="cuda"):

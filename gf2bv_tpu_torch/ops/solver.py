@@ -13,12 +13,14 @@ Backends:
 * ``native`` — the host C engine (``_native``), built by gcc at first use;
 * ``oracle`` — the slow host numpy reference (ops/gauss_ref.py).
 
-``None`` and ``"auto"`` resolve as in the reference: ``blocked`` from
-``_BLOCKED_THRESHOLD`` columns up, ``jax`` below.  In place of the
-reference's probe of the JAX platform, the system's own device decides the
-host preference: on ``device="cpu"`` auto picks ``native`` when the C engine
-builds and ``GF2BV_TPU_CPU_NATIVE`` is not ``"0"``.  ``GF2BV_TPU_BACKEND``
-names the backend when no argument does.  Unknown names raise.
+``None`` and ``"auto"`` resolve by device and size.  On the card auto is
+``blocked`` at every size: chip_smoke.py's routing sweep found the blocked
+kernels faster than the per-pivot loop from 16 columns up (PERF.md §6).  On
+the CPU it resolves as in the reference: ``blocked`` from
+``_BLOCKED_THRESHOLD`` columns up, ``jax`` below, and in place of the
+reference's probe of the JAX platform ``native`` when the C engine builds and
+``GF2BV_TPU_CPU_NATIVE`` is not ``"0"``.  ``GF2BV_TPU_BACKEND`` names the
+backend when no argument does.  Unknown names raise.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ from ..core.words import resolve_device, torch_to_u32
 from . import gauss_blocked, gauss_jax
 
 # Column count from which the panel-blocked solver replaces the per-pivot
-# loop.  The reference measured it on the TPU; a TPU value kept for parity,
-# to be re-derived on the H100 (ROADMAP R6).
+# loop on the CPU: the reference's value, kept for parity.
 _BLOCKED_THRESHOLD = 1024
 
 _BACKENDS = ("jax", "blocked", "native", "oracle")
@@ -56,6 +57,8 @@ def _resolve_backend(backend: str | None, cols: int, device="cuda") -> str:
     """The backend that solves a system of ``cols`` columns on ``device``."""
     b = backend or os.environ.get("GF2BV_TPU_BACKEND")
     if not b or b == "auto":
+        if torch.device(device).type == "cuda":
+            return "blocked"
         if _cpu_prefers_native(device):
             return "native"
         return "blocked" if cols >= _BLOCKED_THRESHOLD else "jax"

@@ -80,12 +80,15 @@ def cpu_native(monkeypatch):
 @pytest.mark.parametrize("cols", [4, 1023, 1024, 4096])
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_auto_backend_table(monkeypatch, cols, device):
-    """auto splits at _BLOCKED_THRESHOLD = 1024 as the reference does; with
-    GF2BV_TPU_CPU_NATIVE=0 the device does not matter."""
+    """auto on a CPU system (GF2BV_TPU_CPU_NATIVE=0) splits at
+    _BLOCKED_THRESHOLD = 1024 as the reference does; on the card it takes
+    the blocked kernels at every size (from the card's routing sweep)."""
     monkeypatch.delenv("GF2BV_TPU_BACKEND", raising=False)
-    want = "blocked" if cols >= 1024 else "jax"
+    ref = "blocked" if cols >= 1024 else "jax"
+    want = "blocked" if device == "cuda" else ref
     assert solver._BLOCKED_THRESHOLD == solver_jax._BLOCKED_THRESHOLD == 1024
-    assert solver._auto_backend(cols, device) == solver_jax._auto_backend(cols) == want
+    assert solver._auto_backend(cols, device) == want
+    assert solver_jax._auto_backend(cols) == ref
     assert solver._resolve_backend("auto", cols, device) == want
     assert solver._resolve_backend(None, cols, device) == want
 
@@ -127,7 +130,7 @@ def test_cpu_system_prefers_native(cpu_native, monkeypatch):
         assert solver._resolve_backend(None, cols, "cpu") == "native"
         assert solver_jax._resolve_backend(None, cols) == "native"
     assert solver._resolve_backend("auto", 50, "cpu") == "native"
-    assert solver._resolve_backend(None, 50, "cuda") == "jax"
+    assert solver._resolve_backend(None, 50, "cuda") == "blocked"
     assert solver._resolve_backend(None, 50_000, "cuda") == "blocked"
     assert solver._resolve_backend("jax", 50, "cpu") == "jax"
     assert solver._resolve_backend("blocked", 50, "cpu") == "blocked"

@@ -399,10 +399,14 @@ def test_linear_system_solve_one_cuda(dev):
         zeros_of(LinearSystem([64, 64], device="cpu"))
     )
     assert all(lin.evaluate(z, sol) == 0 for z in zeros)
-    # 128 columns: auto took the per-pivot solver; the blocked kernels agree
-    blocked = LinearSystem([64, 64], backend="blocked", device=dev)
+    # 128 columns: auto takes the blocked kernels on the card; the per-pivot
+    # solver agrees and launches none
+    per_pivot = LinearSystem([64, 64], backend="jax", device=dev)
     _cuda.reset_launches()
-    assert blocked.solve_one(zeros_of(blocked)) == sol
+    assert per_pivot.solve_one(zeros_of(per_pivot)) == sol
+    assert not _cuda.LAUNCHES["scan"]
+    _cuda.reset_launches()
+    assert lin.solve_one(zeros) == sol
     assert _cuda.LAUNCHES["scan"] >= 1
 
 
@@ -1333,18 +1337,18 @@ def _consistent(seed, rows, cols):
                              1 + cols)
 
 
-@pytest.mark.parametrize("cols,backend", [(1023, "jax"), (1024, "blocked")])
-def test_auto_routing_on_the_card(dev, cols, backend):
-    """auto on a CUDA system: the per-pivot solver (no kernel) below 1024
-    columns, the blocked kernels from 1024; both equal the oracle."""
+@pytest.mark.parametrize("cols", [16, 100, 1023, 1024])
+def test_auto_routing_on_the_card(dev, cols):
+    """auto on a CUDA system: the blocked kernels at every size; the answer
+    equals the oracle's."""
     from gf2bv_tpu_torch.ops import solver
 
-    assert solver._resolve_backend(None, cols, dev) == backend
+    assert solver._resolve_backend(None, cols, dev) == "blocked"
     eqs = _consistent(cols, cols + 40, cols)
     _cuda.reset_launches()
     got = solver.solve(eqs, cols, 0, device=dev)
     torch.cuda.synchronize()
-    assert (_cuda.LAUNCHES["scan"] > 0) == (backend == "blocked")
+    assert _cuda.LAUNCHES["scan"] > 0
     assert got == solver.solve(eqs, cols, 0, backend="oracle", device="cpu") is not None
 
 
@@ -1463,3 +1467,93 @@ def test_quadratic_system_cuda(dev, nzeros):
     q8, q8_cpu = QuadraticSystem([8], device=dev), QuadraticSystem([8], device="cpu")
     assert list(q8.solve_all(deficient(q8), max_dimension=17)) == list(
         q8_cpu.solve_all(deficient(q8_cpu), max_dimension=17))
+
+
+# -- the incremental solver and m4ri_solve -------------------------------------------------
+
+
+def _inc_state(inc):
+    return {"M": torch_to_u32(inc._M), "pof": inc._pof.cpu().numpy(),
+            "pcol": inc._pcol.cpu().numpy(), "nrows": inc._nrows, "rank": inc.rank,
+            "unsat": inc.unsat}
+
+
+def _same_inc_state(a, b):
+    sa, sb = _inc_state(a), _inc_state(b)
+    for key in ("nrows", "rank", "unsat"):
+        assert sa[key] == sb[key], key
+    for key in ("M", "pof", "pcol"):
+        assert sa[key].shape == sb[key].shape and np.array_equal(sa[key], sb[key]), key
+
+
+def _mt_incremental_eqs(n_out):
+    """Packed equations of n_out MT19937 outputs and the mt[0] row block."""
+    from gf2bv_tpu_torch.crypto.mt import MT19937
+
+    rand = random.Random(1414)
+    state = tuple(rand.getstate()[1][:-1])
+    outs = [rand.getrandbits(32) for _ in range(n_out)]
+    lin = LinearSystem([32] * 624, device="cpu")
+    mt = lin.gens()
+    rng = MT19937(list(mt))
+    eqs = lin.get_eqs_packed([rng.getrandbits(32) ^ o for o in outs])
+    return state, lin, eqs, lin.get_eqs_packed([mt[0] ^ 0x80000000])
+
+
+@pytest.mark.parametrize("shape", ["1000 columns", "19968 columns"])
+def test_incremental_cuda_matches_cpu(dev, shape):
+    """The same starts and adds on the card and on the CPU: the whole state
+    (M, pof, pcol, nrows, rank, unsat) equal bit for bit after every add, in
+    the 128-, 512- and 2048-row buckets; the card's adds launch update_full
+    alone; the answer is the generator's state."""
+    from gf2bv_tpu_torch import IncrementalSolver
+
+    if shape == "1000 columns":
+        cols = 1000
+        eqs = _consistent(5, 1400, cols)
+        start, adds = eqs[:900], [eqs[900:1000], eqs[1000:1400], np.concatenate([eqs] * 2)]
+        want = None
+    else:
+        state, lin, eqs, msb = _mt_incremental_eqs(624 + 64)
+        cols = lin.cols
+        start = np.concatenate([eqs[: 32 * 600], msb])
+        adds = [eqs[32 * k : 32 * (k + 4)] for k in range(600, 624, 4)]
+        adds += [eqs[32 * 624 : 32 * 640], eqs[32 * 624 :]]
+        want = state
+    card = IncrementalSolver.from_packed(start, cols, device=dev)
+    host = IncrementalSolver.from_packed(start, cols, device="cpu")
+    _same_inc_state(card, host)
+    for rows in adds:
+        _cuda.reset_launches()
+        card.add_packed(rows)
+        torch.cuda.synchronize()
+        assert set(k for k, v in _cuda.LAUNCHES.items() if v) == {"update_full"}
+        host.add_packed(rows)
+        _same_inc_state(card, host)
+    assert card.solve_raw_one() == host.solve_raw_one()
+    if want is not None:
+        assert card.dimension == 0 and lin.convert_sol(card.solve_raw_one()) == want
+    else:
+        from gf2bv_tpu_torch.ops import solver
+
+        assert card.solve_raw_one() == solver.solve(eqs, cols, 0, backend="oracle", device="cpu")
+
+
+@pytest.mark.parametrize("cols", [40, 300, 1500])
+def test_m4ri_solve_on_the_card(dev, cols):
+    """m4ri_solve on its default device (the card) against the oracle, modes
+    0 and 1."""
+    from gf2bv_tpu_torch import m4ri_solve
+    from gf2bv_tpu_torch.ops import solver
+
+    rng = random.Random(cols)
+    masks = [rng.getrandbits(cols + 1) for _ in range(cols - 5)]
+    secret = rng.getrandbits(cols)
+    masks = [(m & ~1) | (bin((m >> 1) & secret).count("1") & 1) for m in masks]
+    eqs = packing.ints_to_rows(masks, 1 + cols)
+    assert m4ri_solve(masks, cols, 0) == solver.solve(eqs, cols, 0, backend="oracle",
+                                                      device="cpu")
+    sp = m4ri_solve(masks, cols, 1)
+    ref = solver.solve(eqs, cols, 1, backend="oracle", device="cpu")
+    assert (sp.dimension, sp.origin, sorted(sp.basis)) == (
+        ref.dimension, ref.origin, sorted(ref.basis))

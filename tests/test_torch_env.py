@@ -46,10 +46,11 @@ def test_env_backend_override(monkeypatch):
     the reference (tests/test_backend_config.py): every backend is resolved,
     the host ones too (which used to raise), an unknown one is a ValueError
     in both packages, and an argument wins over the variable.  Without it,
-    and under "auto", the columns decide as in the reference."""
+    and under "auto", the columns decide as in the reference (on a CPU
+    system; the card takes the blocked kernels at every size)."""
     monkeypatch.delenv("GF2BV_TPU_BACKEND", raising=False)
     assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096)
-    assert solver._resolve_backend(None, 4) == solver_jax._resolve_backend(None, 4) == "jax"
+    assert solver._resolve_backend(None, 4, "cpu") == solver_jax._resolve_backend(None, 4) == "jax"
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "jax")
     assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096) == "jax"
     assert solver._resolve_backend("blocked", 4) == "blocked"
@@ -66,8 +67,8 @@ def test_env_backend_override(monkeypatch):
             resolve()
     monkeypatch.setenv("GF2BV_TPU_BACKEND", "auto")
     assert solver._resolve_backend(None, 4096) == solver_jax._resolve_backend(None, 4096)
-    assert solver._resolve_backend(None, 1024) == "blocked"
-    assert solver._resolve_backend(None, 1023) == "jax"
+    assert solver._resolve_backend(None, 1024, "cpu") == "blocked"
+    assert solver._resolve_backend(None, 1023, "cpu") == "jax"
 
 
 def test_env_backend_reaches_the_solve(monkeypatch):

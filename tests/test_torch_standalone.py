@@ -43,6 +43,18 @@ SCRIPT = textwrap.dedent(
     import gf2bv_tpu_torch.ops.multi_rhs
     import gf2bv_tpu_torch.ops.launch_floor
     import gf2bv_tpu_torch.core.capture
+    from gf2bv_tpu_torch.crypto import (
+        bm, crc, gf2m, php, sfmt, taus, well, xorshift, xoshiro,
+    )
+    from gf2bv_tpu_torch.utils import matviz, serialization
+    from gf2bv_tpu_torch import IncrementalSolver, m4ri_solve
+
+    inc = IncrementalSolver(lin, zeros[:4])
+    inc.add(zeros[4:])
+    assert inc.solve_one() == tuple(state) and inc.dimension == 0
+    assert m4ri_solve([0b010 ^ 1, 0b100], 2, 0, device="cpu") == 1
+    assert crc.CRC32().process(int.from_bytes(b"123456789", "little"), 72) == 0xCBF43926
+    assert matviz.system_matrix_png(lin, zeros)[1:4] == b"PNG"
 
     def model(ws, p):
         g = MersenneTwister(list(ws), **params)
