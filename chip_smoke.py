@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--kernels-only`` stops after phase 3 and prints no result line;
-``--phases routing,sfmt,incremental,models`` runs the named phases of 15-18
-alone after the build, and prints no result line either.)
+``--phases routing,sfmt,incremental,models,sharded`` runs the named phases of
+15-19 alone after the build, and prints no result line either.)
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
@@ -158,6 +158,22 @@ alone after the build, and prints no result line either.)
    (best of 3), with their kernel times; the batch route (parallel.batch,
    split at _PER_PIVOT_MAX_COLS columns): the batched per-pivot solver
    against the blocked family, B = 4 and 64, modes 0 and 1.
+19. The sharded solvers (parallel/) on meshes of 4 shards on cuda:0 (one
+   card: the times are the algorithms' overhead, not scaling), each beside
+   the one-device solve of the same run (warm wall and CUDA-event ms): the
+   flagship through the tournament (parallel.solve_sharded) in mode 0 (the
+   state; 79 x 5 scans, 79 rebuilds, 79 x 4 trailing updates; 79 gathers, 1
+   psum, 1 pmax) and mode 1 (dimension 0, the one-device origin; full
+   updates), again through torch.distributed on NCCL as a world of one;
+   CapturedTrace.solve_raw_batch of 256 instances over a (4, 1) mesh (all
+   recovered, a flipped bit None for its instance only, no collective); the
+   4096-candidate sweep over the same mesh (one solves); the per-pivot and
+   blocked row-sharded solves at 48 and 1024 columns on 2 and 4 shards (a
+   pmin and a psum per column); dryrun_multichip(4, device="cuda"); entry()
+   on the card against its CPU result; the phase report and a
+   torch.profiler trace of a flagship solver.solve.  The launches of rows 1,
+   2, 4 and 9 on these paths are each asserted >= 1 and printed in the
+   kernel line as "sharded_launches".
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with the per-kernel results; the last line is
@@ -224,6 +240,9 @@ SFMT_LEAKS = 2496
 INC_INIT = 600  # check_incremental: outputs in the start, then adds of 4 outputs to 624
 INC_EXTRA = (16, 64, 1)  # redundant outputs past 624 added at once: the 512-, 2048- and
 # 128-row buckets (the last one 32 rows, a partly filled bucket)
+SHARDS = 4  # shards of the sharded phase's meshes, all on the one card
+SHARDED_SMALL_COLS = (48, 1024)  # the per-pivot row-sharded solves: the dryrun's size, a mid size
+SHARDED_KERNELS = ("scan", "reconstruct", "update_full", "update_trailing")  # rows 1, 2, 4, 9
 KERNELS = {
     # name: (wrapper launch-count key, source, TPU kernel it replaces)
     "scan": ("scan", "gf2bv_tpu_torch/csrc/scan.cu",
@@ -2319,6 +2338,231 @@ def check_routing(dev, card: str) -> None:
                       f"warm best of 3 {'; '.join(line)} ({card})")
 
 
+def best_of(fn, n: int = 3):
+    """(result, best warm wall ms, CUDA-event ms of that call) over ``n`` calls."""
+    runs = [event_ms(fn) for _ in range(n)]
+    out, wall, ev = min(runs, key=lambda r: r[1])
+    return out, wall, ev
+
+
+def check_sharded(dev, card: str) -> dict:
+    """The sharded solvers (parallel/) on meshes of SHARDS shards, all on the
+    one card: the tournament at full width (the flagship MT19937 in modes 0
+    and 1, and through an NCCL world of one), mesh-sharded multi-RHS at
+    B = NB_MULTI, the sweep over the batch axis, the per-pivot and blocked
+    row-sharded solves at the dryrun's size and a mid size, the dryrun, the
+    entry step and the phase report; each against the one-device solve of
+    the same run.  Returns the launches of rows 1, 2, 4 and 9 on these
+    paths, each counted from 0 just before its path and read just after."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.core import packing
+    from gf2bv_tpu_torch.core.words import torch_to_u32
+    from gf2bv_tpu_torch.crypto.mt import MT19937
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.entry import dryrun_multichip, entry
+    from gf2bv_tpu_torch.ops import _cuda, gauss_blocked, solver
+    from gf2bv_tpu_torch.parallel import collectives, distributed, solve_sharded
+    from gf2bv_tpu_torch.parallel import mesh as meshlib
+    from gf2bv_tpu_torch.parallel.rowshard import solve_rowsharded
+    from gf2bv_tpu_torch.parallel.rowshard_blocked import solve_rowsharded_blocked
+    from gf2bv_tpu_torch.utils import profiling
+
+    rows_mesh = meshlib.make_mesh(batch=1, rows=SHARDS, devices=[dev] * SHARDS)
+    batch_mesh = meshlib.make_mesh(batch=SHARDS, rows=1, devices=[dev] * SHARDS)
+    print(f"sharded: rows mesh {rows_mesh}; batch mesh {batch_mesh}; {SHARDS} shards on "
+          f"one card: the times measure the algorithms' overhead, not scaling ({card})")
+    counts = {k: 0 for k in SHARDED_KERNELS}
+
+    def counted(what: str, fn, want_launches=None, want_rounds=None):
+        _cuda.reset_launches()
+        collectives.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        rounds = dict(collectives.COUNTS)
+        for k in SHARDED_KERNELS:
+            counts[k] += _cuda.LAUNCHES[k]
+        print(f"{what}: launches {got}; collective rounds {rounds}")
+        if want_launches is not None and got != want_launches:
+            raise AssertionError(f"{what}: launches {got}, expected {want_launches}")
+        if want_rounds is not None and rounds != want_rounds:
+            raise AssertionError(f"{what}: rounds {rounds}, expected {want_rounds}")
+        return out
+
+    def compare(what: str, sharded_fn, single_fn, n: int = 3) -> None:
+        _, wall, ev = best_of(sharded_fn, n)
+        _, wall1, ev1 = best_of(single_fn, n)
+        print(f"{what}: warm best of {n} {wall:.2f} ms (CUDA events {ev:.2f} ms); one device "
+              f"{wall1:.2f} ms ({ev1:.2f} ms) ({card})")
+
+    # -- the tournament at full width: the flagship MT19937 ---------------------
+    state, outs = mt_outputs(SEED)
+    eqs = packing.from_u32(torch_to_u32(flagship_system(dev, outs)))
+    want = state_int(state)
+    panels = -(-(1 + COLS) // K)
+    tour_rounds = {"pmin": 0, "psum": 1, "pmax": 1, "all_gather": panels, "readout": 0}
+    got = counted("tournament mode 0, flagship", lambda: solve_sharded(eqs, COLS, 0, rows_mesh),
+                  {"scan": (SHARDS + 1) * panels, "reconstruct": panels,
+                   "update_trailing": SHARDS * panels}, tour_rounds)
+    if got is None or packing.words_to_int(got) != want:
+        raise AssertionError("the sharded tournament did not recover the MT19937 state")
+    space = counted("tournament mode 1, flagship", lambda: solve_sharded(eqs, COLS, 1, rows_mesh),
+                    {"scan": (SHARDS + 1) * panels, "reconstruct": panels,
+                     "update_full": SHARDS * panels},
+                    dict(tour_rounds, psum=0, pmax=0))
+    single = gauss_blocked.solve_blocked(eqs, COLS, 1, device=dev)
+    if (space[1].shape[0] != 0 or not np.array_equal(space[0], single[0])
+            or single[1].shape[0] != 0 or packing.words_to_int(space[0]) != want):
+        raise AssertionError("the sharded mode-1 space is not the one-device space")
+    print(f"tournament: state recovered (mode 0); mode 1 dimension 0, origin = the one-device "
+          f"solve's ({card})")
+    compare("tournament mode 0 (flagship)", lambda: solve_sharded(eqs, COLS, 0, rows_mesh),
+            lambda: gauss_blocked.solve_blocked(eqs, COLS, 0, device=dev))
+    compare("tournament mode 1 (flagship)", lambda: solve_sharded(eqs, COLS, 1, rows_mesh),
+            lambda: gauss_blocked.solve_blocked(eqs, COLS, 1, device=dev), 2)
+    for what, fn in (("tournament mode 0, 4 shards", lambda: solve_sharded(eqs, COLS, 0, rows_mesh)),
+                     ("solve_blocked mode 0, one device",
+                      lambda: gauss_blocked.solve_blocked(eqs, COLS, 0, device=dev))):
+        profile_solve(fn, card, what, best_of(fn)[1] / 1000)
+
+    # -- mesh-sharded multi-RHS and the sweep over the batch axis -----------------
+    lin = LinearSystem([32] * 624, device=dev)
+
+    def model(ws, p):
+        rng = MT19937(list(ws))
+        return [rng.getrandbits(32) ^ p[k] for k in range(624)] + [ws[0] ^ 0x80000000]
+
+    tmpl = lin.capture(model)
+    pairs = [mt_outputs(91_000 + k) for k in range(NB_MULTI)]
+    states = [s for s, _ in pairs]
+    batch = [o for _, o in pairs]
+    if tmpl.solve_one(batch[0]) != states[0]:
+        raise AssertionError("captured-trace solve_one did not recover the state")
+    per_shard = {"scan": SHARDS * panels, "reconstruct": SHARDS * panels,
+                 "update_full": SHARDS * panels}
+    no_rounds = {k: 0 for k in collectives.COUNTS}
+    raws = counted(f"sharded multi-RHS B={NB_MULTI}",
+                   lambda: tmpl.solve_raw_batch(batch, 0, mesh=batch_mesh), per_shard, no_rounds)
+    if lin._convert_sols_batch(raws) != states:
+        raise AssertionError("sharded multi-RHS did not recover every state")
+    bad = [list(o) for o in batch]
+    bad[5][0] ^= 1
+    sols = lin._convert_sols_batch(tmpl.solve_raw_batch(bad, 0, mesh=batch_mesh))
+    if sols[5] is not None or sols[:5] + sols[6:] != states[:5] + states[6:]:
+        raise AssertionError("sharded multi-RHS: a flipped bit must unsat its instance only")
+    print(f"sharded multi-RHS B={NB_MULTI} over {SHARDS} shards: all states recovered, "
+          f"flipped instance None ({card})")
+    compare(f"sharded multi-RHS B={NB_MULTI}",
+            lambda: tmpl.solve_raw_batch(batch, 0, mesh=batch_mesh),
+            lambda: tmpl.solve_raw_batch(batch, 0))
+
+    lin_s = LinearSystem([32] * 624, device=dev)
+    mt = lin_s.gens()
+    gen = MT19937(list(mt))
+    zeros = [gen.getrandbits(32) ^ o for o in outs] + [mt[0] ^ 0x80000000]
+    guesses = [mt[1][i] for i in range(SWEEP_BITS)]
+    k_true = state[1] & ((1 << SWEEP_BITS) - 1)
+    sols = counted(f"sharded sweep of {1 << SWEEP_BITS}",
+                   lambda: lin_s.solve_one_sweep(zeros, guesses, mesh=batch_mesh),
+                   per_shard, no_rounds)
+    if sols[k_true] != state or sum(s is not None for s in sols) != 1:
+        raise AssertionError("the sharded sweep must solve exactly the true candidate")
+    print(f"sharded sweep: {1 << SWEEP_BITS} candidates, 1 solves (the true state) ({card})")
+    compare(f"sharded sweep of {1 << SWEEP_BITS}",
+            lambda: lin_s.solve_one_sweep(zeros, guesses, mesh=batch_mesh),
+            lambda: lin_s.solve_one_sweep(zeros, guesses), 2)
+
+    # -- the per-pivot and blocked row-sharded solves: the dryrun's size, a mid size
+    rng = np.random.default_rng(SEED)
+    for cols in SHARDED_SMALL_COLS:
+        eqs_s, secret = random_system(rng, cols, cols + 64)
+        one = solver.solve(eqs_s, cols, 0, backend="blocked", device=dev)
+        if one != secret:
+            raise AssertionError(f"one-device solve at {cols} columns is wrong")
+        for n in (2, SHARDS):
+            mesh = meshlib.make_mesh(batch=1, rows=n, devices=[dev] * n)
+            for name, fn in (("rowshard", solve_rowsharded),
+                             ("rowshard_blocked", solve_rowsharded_blocked)):
+                got = counted(f"{name} {cols} columns on {n} shards",
+                              lambda: fn(eqs_s, cols, 0, mesh),
+                              want_rounds={"pmin": cols, "psum": cols, "pmax": 0,
+                                           "all_gather": 0, "readout": 0})
+                if got is None or packing.words_to_int(got) != secret:
+                    raise AssertionError(f"{name} at {cols} columns on {n} shards is wrong")
+                compare(f"{name} {cols} columns on {n} shards", lambda: fn(eqs_s, cols, 0, mesh),
+                        lambda: solver.solve(eqs_s, cols, 0, backend="blocked", device=dev), 1)
+
+    # -- the entry points ------------------------------------------------------------
+    _, s = timed(lambda: counted(f"dryrun_multichip({SHARDS}, cuda)",
+                                 lambda: dryrun_multichip(SHARDS, device=dev)))
+    print(f"dryrun_multichip({SHARDS}, device='cuda'): passed in {s:.2f} s ({card})")
+
+    init = Path(__file__).resolve().parent / "build" / f"nccl_init_{os.getpid()}"
+    init.parent.mkdir(exist_ok=True)
+    init.unlink(missing_ok=True)
+    distributed.initialize(f"file://{init}", 1, 0, device=dev)
+    try:
+        import torch.distributed as dist
+
+        nccl_mesh = meshlib.make_mesh(batch=1, rows=SHARDS, devices=[dev] * SHARDS)
+        got = counted(f"tournament mode 0 through {dist.get_backend()}, a world of one",
+                      lambda: solve_sharded(eqs, COLS, 0, nccl_mesh), want_rounds=tour_rounds)
+        if got is None or packing.words_to_int(got) != want:
+            raise AssertionError("the tournament through NCCL did not recover the state")
+        compare(f"tournament mode 0 through {dist.get_backend()}",
+                lambda: solve_sharded(eqs, COLS, 0, nccl_mesh),
+                lambda: gauss_blocked.solve_blocked(eqs, COLS, 0, device=dev))
+        fn = lambda: solve_sharded(eqs, COLS, 0, nccl_mesh)  # noqa: E731
+        profile_solve(fn, card, f"tournament mode 0 through {dist.get_backend()}",
+                      best_of(fn)[1] / 1000)
+    finally:
+        distributed.shutdown()
+        init.unlink(missing_ok=True)
+
+    fn, args = entry(device=dev)
+    origin, unsat = fn(*args)
+    fn_c, args_c = entry(device="cpu")
+    origin_c, unsat_c = fn_c(*args_c)
+    if bool(unsat) or bool(unsat_c) or not np.array_equal(torch_to_u32(origin),
+                                                          torch_to_u32(origin_c)):
+        raise AssertionError("entry() on the card differs from its CPU result")
+    _, wall, ev = best_of(lambda: fn(*args))
+    print(f"entry(): the card's origin = the CPU's; warm step {wall:.2f} ms (CUDA events "
+          f"{ev:.2f} ms) ({card})")
+
+    profiling.reset()
+    if solver.solve(eqs, COLS, 0, device=dev) != want:
+        raise AssertionError("solver.solve lost the flagship state")
+    report = profiling.phase_report()
+    if set(report) != {"solve[blocked]", "pad", "h2d", "rref+origin"}:
+        raise AssertionError(f"phase_report {report}")
+    print("phase_report after a flagship solver.solve: " + ", ".join(
+        f"{k} {1000 * v['total_s']:.2f} ms x{v['count']}" for k, v in report.items())
+        + f" ({card})")
+    trace_dir = Path(__file__).resolve().parent / "build" / f"trace_{os.getpid()}"
+    with profiling.device_trace(str(trace_dir)):
+        solver.solve(eqs, COLS, 0, device=dev)
+    (trace,) = trace_dir.iterdir()
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and "scan_cluster_kernel" in e.get("name", "")]
+    # the profiler may drop a record (78 of 79 scans in some profiles), so one
+    # scan may be missing, but the trace must cover the solve
+    if len(ours) < panels - 1:
+        raise AssertionError(f"device_trace recorded {len(ours)} of the solve's {panels} "
+                             "cluster scans")
+    print(f"device_trace: {trace.name}, {trace.stat().st_size} bytes, {len(ours)} of the "
+          f"solve's {panels} cluster scans in it ({card})")
+    trace.unlink()
+    trace_dir.rmdir()
+
+    for k, v in counts.items():
+        if v < 1:
+            raise AssertionError(f"kernel {k} was launched no time on the sharded paths")
+    print(f"sharded paths: launches of rows 1, 2, 4, 9 {counts} ({card})")
+    return counts
+
+
 def check_native_build(card: str) -> None:
     """The host engine's first use, which any host enumeration (solve_all's
     points) also pays: gcc builds both NSUB variants into build/, as the
@@ -2358,7 +2602,8 @@ def main() -> int:
     args = sys.argv[1:]
     if "--phases" in args:  # the named phases alone, after the build: no result line
         phases = {"routing": check_routing, "sfmt": check_sfmt,
-                  "incremental": check_incremental, "models": check_models}
+                  "incremental": check_incremental, "models": check_models,
+                  "sharded": check_sharded}
         for name in args[args.index("--phases") + 1].split(","):
             phases[name](dev, card)
         return 0
@@ -2385,6 +2630,7 @@ def main() -> int:
     check_incremental(dev, card)
     check_models(dev, card)
     check_routing(dev, card)
+    sharded = check_sharded(dev, card)
 
     kernels = []
     for name, (key, source, replaces) in KERNELS.items():
@@ -2397,6 +2643,8 @@ def main() -> int:
             "bound_ms": BOUNDS[name][0], "bound_by": BOUNDS[name][1],
             "library_ms": LIBRARY_MS.get(name),
         })
+        if key in sharded:  # the sharded paths' own count (check_sharded)
+            kernels[-1]["sharded_launches"] = sharded[key]
     # the probe's ms is a graph replay's; its launches are the wrapper's calls in the
     # launch-floor measurement (Python-launched chain, capture pass, warm-ups)
     assert kernels[-1]["name"] == "launch_probe"

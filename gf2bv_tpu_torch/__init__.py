@@ -18,9 +18,14 @@ there by ``ops.enumerate``), the device-built MT19937 system
 MT19937, SFMT, PHP ``mt_rand``, LFSRs, Berlekamp-Massey, xorshift / V8
 ``Math.random``, xoshiro, WELL, Tausworthe, CRC, GF(2^m) / GHASH), the
 low-level :func:`m4ri_solve`, the Sage, numpy and scipy exports, trace
-serialization and the matrix PNG (``utils/``), and the backends of the
+serialization and the matrix PNG (``utils/``), the backends of the
 reference: ``blocked`` (the Hopper kernels), ``jax`` (the per-pivot solver),
-``native`` (the host C engine) and ``oracle`` (numpy).
+``native`` (the host C engine) and ``oracle`` (numpy), the sharded solvers
+on a device mesh (``parallel/``: row-sharded eliminations, mesh-sharded
+multi-RHS, ``mesh=`` on the batches and sweeps, one process per GPU through
+``torch.distributed``), the phase timers and ``torch.profiler`` traces
+(``utils/profiling.py``, ``utils/timing.py``) and the entry points
+(``entry.py``).
 
 ``device="cuda"`` (the default) runs the kernels in ``csrc/``, which
 are compiled by nvcc on first use; ``device="cpu"`` runs their plain

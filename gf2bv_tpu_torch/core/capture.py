@@ -24,7 +24,8 @@ literals, so a captured trace shares the device coefficient-matrix cache
 with direct ``solve_one`` calls of the same model.  Under the ``native``
 backend the cached matrix stays on the host and a batch is one elimination
 of the host engine; a quadratic system's one-point solves go through its
-consistency filter.  ``mesh=`` (ROADMAP queue 1 item 11) raises.
+consistency filter.  ``solve_raw_batch(..., mesh=)`` splits the instances
+over the mesh's batch axis (parallel/multi_rhs_sharded.py).
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ import numpy as np
 from . import lazy, packing
 from .affine import AffineSpace
 from .lazy import LazyBitVec, ParamSpace
-from .system import _no_mesh
 
 
 class CapturedTrace:
@@ -160,11 +160,11 @@ class CapturedTrace:
         Returns one entry per instance: raw int / AffineSpace (mode 1
         shares a single basis) / None.
 
-        ``mesh`` (instances sharded over devices) is not ported and must be
-        None."""
+        ``mesh``: shard instances over the mesh's batch axis with the
+        coefficient matrix replicated (parallel/multi_rhs_sharded.py: zero
+        collectives; per-chunk capacity becomes n_shards * 32768)."""
         from ..ops import lazy_solve, multi_rhs
 
-        _no_mesh(mesh)
         values_batch = [self._check(v) for v in values_batch]
         if not values_batch:
             return []
@@ -177,13 +177,37 @@ class CapturedTrace:
         # the mode-1 basis is chunk-invariant; under native it is shared with
         # the single solves of the same cached structure
         basis_cache: dict = cs.basis_cache if cs.backend == "native" else {}
-        for c0 in range(0, len(values_batch), multi_rhs.MAX_RHS):
-            chunk = values_batch[c0 : c0 + multi_rhs.MAX_RHS]
+        chunk_cap = multi_rhs.MAX_RHS
+        if mesh is not None and cs.backend == "native":
+            import warnings
+
+            warnings.warn(
+                "solve_raw_batch: this system resolved to the native host "
+                "backend, so the mesh is not used (instances run on the "
+                "host multi-RHS engine); set GF2BV_TPU_CPU_NATIVE=0 or "
+                "pass backend='blocked' to shard over devices",
+                stacklevel=2,
+            )
+        sharded = mesh is not None and cs.backend != "native"
+        if sharded:
+            from ..parallel.multi_rhs_sharded import (
+                shard_capacity,
+                solve_multi_rhs_sharded,
+            )
+
+            mesh, _, chunk_cap = shard_capacity(mesh)  # validates the mesh shape
+        for c0 in range(0, len(values_batch), chunk_cap):
+            chunk = values_batch[c0 : c0 + chunk_cap]
             affs = self._affine_matrix(exprs, cs.widths, chunk)
             # literal-1 early-out per instance: a dropped (zero-coefficient)
             # row whose affine bit is set makes that instance unsatisfiable
             lit_one = (affs & ~cs.kept_mask[None, :]).any(axis=1)
-            if cs.backend == "native":
+            if sharded:
+                res = solve_multi_rhs_sharded(
+                    cs.a_dev, self.system._cols, affs[:, cs.kept], mode, mesh=mesh,
+                    basis_cache=basis_cache,
+                )
+            elif cs.backend == "native":
                 from .._native import solve_multi_rhs_native
 
                 res = solve_multi_rhs_native(

@@ -18,8 +18,8 @@ engine's under ``native``) and the exports ``get_mat_numpy`` /
 ``get_mat_scipy``.  ``QuadraticSystem``: linearization with n(n-1)/2 extra
 monomial columns, ``mul_bit`` / ``mul_bits`` / ``bit_assert``, and the
 consistency filter (on the system's device past 8 dimensions,
-ops/enumerate.py).  Every ``mesh=`` argument raises ``NotImplementedError``
-(ROADMAP queue 1 item 11).
+ops/enumerate.py).  ``mesh=`` (parallel/mesh.py) splits the batches over
+the mesh's batch axis and the sweeps' candidates over its shards.
 """
 
 from __future__ import annotations
@@ -49,13 +49,6 @@ class DimensionTooLargeError(Exception):
     def __init__(self, message: str, space: AffineSpace):
         super().__init__(message)
         self.space = space
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP queue 1 item 11 (sharded solvers)"
-        )
 
 
 class LinearSystem:
@@ -244,7 +237,8 @@ class LinearSystem:
 
     def solve_one_batch(self, zeros_batch, mesh=None):
         """Solve many independent zero-lists; one solution tuple or None per
-        list.  ``mesh`` (sharding) is not ported and must be None."""
+        list.  ``mesh``: split the systems over its batch axis
+        (parallel/batch.py)."""
         from ..parallel.batch import solve_batch_systems
 
         raws = solve_batch_systems(self, zeros_batch, mode=0, mesh=mesh)
@@ -290,7 +284,6 @@ class LinearSystem:
         from .lazy import materialize_pending, pad_mats_to_words
         from .words import u32_to_torch
 
-        _no_mesh(mesh)
         guesses = list(guesses)
         if not guesses:
             raise ValueError("at least one guess expression required")
@@ -369,7 +362,23 @@ class LinearSystem:
         base_aff = (eqs[:, 0] & np.uint64(1)).astype(np.uint8)
         rows = eqs.shape[0]
         out: list = []
-        if _resolve_backend(self._backend, self._cols, self._device) == "native":
+        native = _resolve_backend(self._backend, self._cols, self._device) == "native"
+        if mesh is not None and native:
+            import warnings
+
+            warnings.warn(
+                "solve_one_sweep: this system resolved to the native host "
+                "backend, so the mesh is not used (candidates run on the "
+                "host multi-RHS engine); set GF2BV_TPU_CPU_NATIVE=0 or "
+                "pass backend='blocked' to shard over devices",
+                stacklevel=4,
+            )
+        n_shards = 1
+        if mesh is not None and not native:
+            from ..parallel.multi_rhs_sharded import shard_capacity
+
+            mesh, n_shards, _ = shard_capacity(mesh)
+        if native:
             # the host multi-RHS engine takes the (B, rows) affine bits as-is
             from .. import _native
 
@@ -408,8 +417,30 @@ class LinearSystem:
         # per-candidate affine column: the traced affine bits, with the
         # guess rows' constants flipped by the candidate's values, packed
         # directly from (base column, guess bits)
-        for c0 in range(0, B, multi_rhs.MAX_RHS):
-            nb = min(multi_rhs.MAX_RHS, B - c0)
+        for c0 in range(0, B, multi_rhs.MAX_RHS * n_shards):
+            nb = min(multi_rhs.MAX_RHS * n_shards, B - c0)
+            if n_shards > 1:
+                # candidates split over the mesh's batch axis: one
+                # direct-packed block per shard, the matrix replicated; the
+                # block layout is owned by pack_shard_blocks
+                from ..parallel.multi_rhs_sharded import (
+                    pack_shard_blocks,
+                    solve_multi_rhs_sharded,
+                )
+
+                packed, _ = pack_shard_blocks(
+                    bits[c0 : c0 + nb], nb, n_shards, a_dev.shape[0],
+                    lambda sl, rp, bw: multi_rhs._pack_rhs_affine_sweep(
+                        base_aff, sl, rp, bw
+                    ),
+                )
+                out.extend(
+                    solve_multi_rhs_sharded(
+                        a_dev, self._cols, None, mode, mesh=mesh,
+                        basis_cache=bcache, rhs_packed=packed, nb=nb,
+                    )
+                )
+                continue
             packed = multi_rhs._pack_rhs_affine_sweep(
                 base_aff, bits[c0 : c0 + nb], a_dev.shape[0], multi_rhs._bw_for(nb)
             )
@@ -435,8 +466,9 @@ class LinearSystem:
         ``k >> sum(live_widths[:i])`` (first guess in the low bits).
 
         Returns a list aligned with the candidates: a solution tuple, or
-        None where that assignment is unsatisfiable.  ``mesh`` (candidates
-        sharded over devices) is not ported and must be None."""
+        None where that assignment is unsatisfiable.  ``mesh``: split the
+        candidates over the shards of its batch axis, the matrix replicated
+        (parallel/multi_rhs_sharded.py)."""
         raws = self._solve_sweep_raw(zeros, guesses, candidates, 0, mesh=mesh)
         return self._convert_sols_batch(raws)
 

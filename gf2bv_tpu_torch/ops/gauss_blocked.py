@@ -114,22 +114,31 @@ def _pick_engines(wp: int) -> tuple[str, str]:
     )
 
 
-def selector_from_prow(b_orig: torch.Tensor, prow: torch.Tensor) -> torch.Tensor:
+def selector_from_prow(b_orig: torch.Tensor, prow: torch.Tensor,
+                       owned: torch.Tensor | None = None,
+                       local_idx: torch.Tensor | None = None) -> torch.Tensor:
     """Phase-2 selector: the saved slice masked to pivot columns, with the
     diagonal flipped on each pivot's own row.  b_orig (rows, kw); prow (K,)
-    (-1 = free column).  Writes for free columns go to an extra dump row,
-    so duplicate scatter indices only ever write the same value."""
+    (-1 = free column).  For the row-sharded solvers ``owned`` (K,) bool
+    marks the pivots whose rows live in this shard and ``local_idx`` (K,)
+    maps them to local rows: the pivot-column mask still comes from every
+    pivot, but only owned pivots flip a diagonal bit.  Default: the single
+    shard (every pivot owned, global == local).  Writes for free columns and
+    unowned pivots go to an extra dump row, so duplicate scatter indices only
+    ever write the same value."""
     rows, kw = b_orig.shape
     K = prow.shape[0]
     dev = b_orig.device
     bit_ids = torch.arange(K, dtype=I32, device=dev)
     piv = prow >= 0
-    bitval = torch.where(piv, bit_i32(bit_ids & 31), 0)
-    pm = or_fold(bitval.view(kw, 32), dim=1)  # pivot-column mask per word
+    if owned is None:
+        owned, local_idx = piv, prow
+    pm = or_fold(torch.where(piv, bit_i32(bit_ids & 31), 0).view(kw, 32), dim=1)
     s_ext = torch.cat(
         [b_orig & pm[None, :], torch.zeros((1, kw), dtype=I32, device=dev)]
     )
-    prow_safe = torch.where(piv, prow, rows).long()
+    bitval = torch.where(owned, bit_i32(bit_ids & 31), 0)
+    prow_safe = torch.where(owned, local_idx, rows).long()
     wordidx = (bit_ids >> 5).long()
     s_ext[prow_safe, wordidx] = s_ext[prow_safe, wordidx] ^ bitval
     return s_ext[:rows]
@@ -399,20 +408,38 @@ def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANE
     trailing solver and its parity check, returning the packed origin
     (W64,) uint64; mode 1: the full RREF, returning (origin, basis (dim, W64)
     uint64); None when unsatisfiable.  Engines left None come from
-    :func:`_pick_engines`."""
+    :func:`_pick_engines`.  The phases ``rref+origin`` or ``rref`` and
+    ``extract`` are recorded by ``utils.profiling``, as in the reference's
+    ``solve_blocked``."""
+    from ..utils import profiling
+
     auto1, auto2 = _pick_engines(a.shape[1])
     engines = dict(phase1=phase1 or auto1, phase2=phase2 or auto2)
     if mode == 0:
-        origin32, unsat = rref_origin_blocked(a, cols, k_panel, **engines)
-        if bool(unsat):
+        with profiling.phase("rref+origin"):
+            origin32, unsat = rref_origin_blocked(a, cols, k_panel, **engines)
+            origin32, unsat = torch_to_u32(origin32), bool(unsat)
+        if unsat:
             return None
-        return packing.from_u32(torch_to_u32(origin32)[None, :])[0]
-    rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False, **engines)
-    return extract_device.finalize(rref32, pof, inconsistent, cols, mode)
+        return packing.from_u32(origin32[None, :])[0]
+    with profiling.phase("rref"):
+        rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False, **engines)
+    with profiling.phase("extract"):
+        return extract_device.finalize(rref32, pof, inconsistent, cols, mode)
 
 
 def solve_blocked(eqs: np.ndarray, cols: int, mode: int, k_panel: int = K_PANEL,
                   phase2: str | None = None, phase1: str | None = None, device="cuda"):
-    """Solve packed (rows, W64) uint64 rows; results as :func:`solve_on_device`."""
-    a = u32_to_torch(_pad(eqs, k_panel, word_align=128), resolve_device(device))
+    """Solve packed (rows, W64) uint64 rows; results as :func:`solve_on_device`.
+    Records the phases ``pad`` and ``h2d`` before it, as the reference does;
+    ``h2d`` waits for the copy on a CUDA device."""
+    from ..utils import profiling
+
+    dev = resolve_device(device)
+    with profiling.phase("pad"):
+        a32 = _pad(eqs, k_panel, word_align=128)
+    with profiling.phase("h2d"):
+        a = u32_to_torch(a32, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return solve_on_device(a, cols, mode, k_panel, phase2, phase1)

@@ -86,7 +86,11 @@ def _result(raw, cols: int, mode: int):
 def solve(eqs: np.ndarray, cols: int, mode: int, backend: str | None = None,
           device="cuda"):
     """eqs: packed (rows, W64) uint64 over 1+cols bits (bit 0 = const)."""
-    return _solve(eqs, cols, mode, _resolve_backend(backend, cols, device), device)
+    from ..utils import profiling
+
+    backend = _resolve_backend(backend, cols, device)
+    with profiling.phase(f"solve[{backend}]"):
+        return _solve(eqs, cols, mode, backend, device)
 
 
 def solve_packed(eqs, cols: int, mode: int, backend: str | None = None,

@@ -268,10 +268,12 @@ def test_solve_batch_narrow_matches_jax(mode):
 
 
 def test_solve_batch_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    """A mesh that is not a parallel.mesh.Mesh raises; batches over real
+    meshes are tests/test_torch_multi_rhs_sharded.py's."""
+    with pytest.raises(TypeError, match="Mesh"):
         pbatch.solve_batch([np.zeros((1, 2), np.uint64)], 8, 0, mesh=object(), device="cpu")
     lin = LinearSystem([8], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         lin.solve_one_batch([[]], mesh=object())
 
 

@@ -1557,3 +1557,125 @@ def test_m4ri_solve_on_the_card(dev, cols):
     ref = solver.solve(eqs, cols, 1, backend="oracle", device="cpu")
     assert (sp.dimension, sp.origin, sorted(sp.basis)) == (
         ref.dimension, ref.origin, sorted(ref.basis))
+
+
+# -- the sharded solvers on shards of one card (parallel/) ------------------
+
+
+def _sharded_system(seed, rows, cols, deficit=0):
+    rng = np.random.default_rng(seed)
+    coeff = rng.integers(0, 2, size=(rows, cols), dtype=np.uint8)
+    if deficit:
+        coeff[rows - deficit:] = coeff[:deficit]
+    rhs = (coeff.astype(np.int64) @ rng.integers(0, 2, size=cols)) % 2
+    return packing.pack_bits(np.concatenate([rhs[:, None].astype(np.uint8), coeff], axis=1),
+                             1 + cols)
+
+
+@pytest.mark.parametrize("shards,k_panel", [(4, 256), (2, 64), (8, 128)])
+def test_tournament_on_card_shards_matches_cpu_shards(dev, shards, k_panel):
+    """The tournament on shards of cuda:0 (the scan, rebuild and update
+    kernels) against the same mesh of CPU shards (their twins): mode 1's RREF
+    and pivot map, the fused tail's origin and verdict, the same rounds."""
+    from gf2bv_tpu_torch.parallel import collectives, mesh as meshlib
+    from gf2bv_tpu_torch.parallel.rowshard_tournament import rref_rowsharded_tournament
+
+    cols = 700
+    a32 = packing.pad2d(packing.to_u32(_sharded_system(shards, 900, cols, deficit=9)),
+                        row_align=256 * shards, word_align=128)
+    on_card = meshlib.make_mesh(batch=1, rows=shards, devices=[dev] * shards)
+    on_cpu = meshlib.make_mesh(batch=1, rows=shards, devices=["cpu"] * shards)
+    for fused in (False, True):
+        collectives.reset_counts()
+        _cuda.reset_launches()
+        got = rref_rowsharded_tournament(a32, cols, on_card, k_panel, "mxu", fused_origin=fused)
+        rounds = dict(collectives.COUNTS)
+        panels = -(-(1 + cols) // k_panel)
+        update = "update_trailing" if fused else "update_full"
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+            "scan": (shards + 1) * panels, "reconstruct": panels, update: shards * panels}
+        want = rref_rowsharded_tournament(a32, cols, on_cpu, k_panel, "jnp", fused_origin=fused)
+        assert dict(collectives.COUNTS) == {k: 2 * v for k, v in rounds.items()}
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_blocked_and_per_pivot_on_card_shards(dev, shards):
+    from gf2bv_tpu_torch.ops import solver
+    from gf2bv_tpu_torch.parallel import mesh as meshlib
+    from gf2bv_tpu_torch.parallel.rowshard import solve_rowsharded
+    from gf2bv_tpu_torch.parallel.rowshard_blocked import solve_rowsharded_blocked
+
+    cols = 300
+    eqs = _sharded_system(10 + shards, 360, cols, deficit=5)
+    mesh = meshlib.make_mesh(batch=1, rows=shards, devices=[dev] * shards)
+    want = solver.solve(eqs, cols, 1, backend="oracle")
+    for solve in (solve_rowsharded, solve_rowsharded_blocked):
+        _cuda.reset_launches()
+        origin, basis = solve(eqs, cols, 1, mesh)
+        if solve is solve_rowsharded_blocked:  # on the card: the table kernel
+            assert _cuda.LAUNCHES["update_full"] == shards * 2
+        assert packing.words_to_int(origin) == want.origin
+        assert packing.rows_to_ints(basis) == list(want.basis)
+
+
+def test_multi_rhs_sharded_on_card_shards(dev):
+    from gf2bv_tpu_torch.parallel import collectives, mesh as meshlib
+    from gf2bv_tpu_torch.parallel.multi_rhs_sharded import solve_multi_rhs_sharded
+
+    cols = 300
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2, size=(340, 1 + cols), dtype=np.uint8)
+    bits[-3:] = bits[:3]
+    a32 = gauss_blocked._pad(packing.pack_bits(bits, 1 + cols), 256, word_align=128)
+    rhs = np.stack([(bits[:, 1:] @ rng.integers(0, 2, size=cols)) % 2 for _ in range(41)])
+    rhs = rhs.astype(np.uint8)
+    rhs[3, -1] ^= 1  # an unsatisfiable instance
+    for mode in (0, 1):
+        collectives.reset_counts()
+        _cuda.reset_launches()
+        got = solve_multi_rhs_sharded(a32, cols, rhs, mode,
+                                      mesh=meshlib.make_mesh(batch=4, devices=[dev] * 4))
+        assert all(v == 0 for v in collectives.COUNTS.values())
+        assert _cuda.LAUNCHES["scan"] == 4 * 2 and _cuda.LAUNCHES["update_full"] == 4 * 2
+        want = solve_multi_rhs_sharded(a32, cols, rhs, mode,
+                                       mesh=meshlib.make_mesh(batch=4, devices=["cpu"] * 4))
+        assert got[3] is None and sum(g is None for g in got) == 1
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert (g == w) if mode == 0 else (
+                    np.array_equal(g.origin, w.origin) and np.array_equal(g.basis, w.basis))
+
+
+def test_nccl_world_of_one_takes_its_card_from_the_rank(dev, monkeypatch):
+    """``initialize()`` with the world in ``env://`` variables, as torchrun
+    sets them, and no ``process_id``: the card is chosen from the rank that
+    the group gives, and a shutdown leaves no group behind."""
+    import socket
+
+    from gf2bv_tpu_torch.parallel import collectives, distributed, mesh as meshlib
+    from gf2bv_tpu_torch.parallel.rowshard_tournament import solve_rowsharded_tournament
+
+    for k in ("GF2BV_TPU_COORD", "GF2BV_TPU_NPROC", "GF2BV_TPU_PROC_ID"):
+        monkeypatch.delenv(k, raising=False)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    cols = 300
+    eqs = _sharded_system(21, 360, cols)
+    want = solve_rowsharded_tournament(  # CPU shards, before the NCCL group
+        eqs, cols, 0, meshlib.make_mesh(batch=1, rows=2, devices=["cpu", "cpu"]))
+    distributed.initialize()
+    try:
+        assert distributed.local_devices() == [torch.device("cuda", 0)]
+        assert torch.cuda.current_device() == 0 and distributed.world_size() == 1
+        mesh = meshlib.make_mesh(batch=1, rows=2, devices=[dev, dev])
+        assert np.array_equal(solve_rowsharded_tournament(eqs, cols, 0, mesh), want)
+    finally:
+        distributed.shutdown()
+    assert not collectives._GROUPS and distributed.rank_and_world() == (0, 1)

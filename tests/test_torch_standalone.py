@@ -68,6 +68,25 @@ SCRIPT = textwrap.dedent(
         got = gf2bv_tpu_torch.ops.multi_rhs.solve_multi_rhs(
             lazy_a, lin.cols, rhs, 0, phase2=p2, device="cpu")
         assert got == [sum(w << (32 * i) for i, w in enumerate(state))], p2
+    from gf2bv_tpu_torch.parallel import (
+        collectives, distributed, mesh, multi_rhs_sharded, rowshard, rowshard_blocked,
+        rowshard_tournament, solve_sharded,
+    )
+    from gf2bv_tpu_torch.utils import profiling, timing
+    from gf2bv_tpu_torch.entry import dryrun_multichip, entry
+
+    m = mesh.make_mesh(batch=1, rows=2, devices=["cpu"] * 2)
+    from gf2bv_tpu_torch.core import packing
+    assert packing.words_to_int(solve_sharded(lin.get_eqs_packed(zeros), lin.cols, 0, m,
+                                              k_panel=64)) == \
+        sum(w << (32 * i) for i, w in enumerate(state))
+    assert tmpl.solve_raw_batch([outs, outs], 0, mesh=mesh.make_mesh(
+        batch=2, devices=["cpu"] * 2)) == [sum(w << (32 * i) for i, w in enumerate(state))] * 2
+    with profiling.device_trace():
+        profiling.phase_report()
+    dryrun_multichip(4, device="cpu")
+    fn, args = entry(device="cpu")
+    assert not bool(fn(*args)[1])
     assert "jax" not in sys.modules
     assert not any(m == "gf2bv_tpu" or m.startswith("gf2bv_tpu.") for m in sys.modules)
     assert _cuda._lib is None
