@@ -1574,21 +1574,37 @@ def device_rows(prof) -> list:
 
 
 def profile_solve(solve, card: str, what: str, warm_s: float) -> None:
-    """Device time by kernel of one warm solve under torch.profiler; the
-    idle share is read against the unprofiled warm wall time."""
+    """Device time by kernel of one warm solve under torch.profiler.  The
+    idle share is read from the same profile: the union of the device's
+    intervals against the profiled stretch (first event to last); the warm
+    unprofiled wall is printed beside it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     rows = device_rows(prof)
     total = sum(r[0] for r in rows)
-    print(f"profile {what}: wall {1000 * wall:.1f} ms under the profiler, device time "
-          f"(kernels and copies) {total / 1000:.1f} ms; against the warm {1000 * warm_s:.1f} ms "
-          f"the device is idle {100 * max(0.0, 1 - total / 1e6 / warm_s):.1f}% ({card})")
+    events = prof.profiler.kineto_results.events()
+    host_names = {ev.name() for ev in events if ev.device_type() != DeviceType.CUDA}
+    busy, at = 0, None
+    for s, e in sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns()) for ev in events
+                       if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()
+                       and ev.name() not in host_names):
+        if at is None or s > at:
+            busy += e - s
+            at = e
+        elif e > at:
+            busy += e - at
+            at = e
+    wall = (max(ev.start_ns() + ev.duration_ns() for ev in events)
+            - min(ev.start_ns() for ev in events)) / 1e9
+    print(f"profile {what}: device time (kernels and copies) {total / 1000:.1f} ms; busy "
+          f"{busy / 1e6:.1f} ms of the profiled {1000 * wall:.1f} ms, idle "
+          f"{100 * (1 - busy / 1e9 / wall):.1f}%; warm unprofiled wall {1000 * warm_s:.1f} ms "
+          f"({card})")
     for dev_us, key, count in rows[:8]:
         print(f"  {dev_us / 1000:9.2f} ms {count:5d}x {key[:90]}")
 

@@ -34,6 +34,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from . import lazy, packing
 from .affine import AffineSpace
 from .lazy import LazyBitVec, ParamSpace
@@ -71,22 +72,23 @@ class CapturedTrace:
     def _solve_internal(self, values: Sequence[int], mode: int):
         from ..ops import lazy_solve, solver
 
-        values = self._check(values)
-        if lazy_solve.eligible(self.system, self.zeros):
-            return lazy_solve.solve_lazy(
-                self.system, self.zeros, mode, env=values
+        with profiling.span("capture.solve"):
+            values = self._check(values)
+            if lazy_solve.eligible(self.system, self.zeros):
+                return lazy_solve.solve_lazy(
+                    self.system, self.zeros, mode, env=values
+                )
+            # the oracle backend: materialize coefficients once and patch the
+            # affine column per instance
+            eqs = self._eqs_with_env(values)
+            lit_one = (eqs[:, 0] == 1) & ~eqs[:, 1:].any(axis=1)
+            if lit_one.any():
+                return None
+            eqs = eqs[eqs.any(axis=1)]
+            return solver.solve(
+                eqs, self.system._cols, mode, backend=self.system._backend,
+                device=self.system._device,
             )
-        # the oracle backend: materialize coefficients once and patch the
-        # affine column per instance
-        eqs = self._eqs_with_env(values)
-        lit_one = (eqs[:, 0] == 1) & ~eqs[:, 1:].any(axis=1)
-        if lit_one.any():
-            return None
-        eqs = eqs[eqs.any(axis=1)]
-        return solver.solve(
-            eqs, self.system._cols, mode, backend=self.system._backend,
-            device=self.system._device,
-        )
 
     def _eqs_with_env(self, values) -> np.ndarray:
         exprs = [z._expr for z in self.zeros]

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 I32 = torch.int32
 
 
@@ -34,10 +36,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``; a copy to a CUDA device counts one
+    ``h2d_copies`` (utils/profiling.count)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        profiling.count("h2d_copies")
+    return t.to(dev)
+
+
 def u32_to_torch(a: np.ndarray, device) -> torch.Tensor:
     """numpy uint32 array -> int32 tensor with the same bits on ``device``."""
     arr = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+    return to_device(torch.from_numpy(arr.copy()), resolve_device(device))
 
 
 def torch_to_u32(t: torch.Tensor) -> np.ndarray:

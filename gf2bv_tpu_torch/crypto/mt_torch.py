@@ -21,8 +21,9 @@ import torch
 
 from ..core import packing
 from ..core.affine import AffineSpace
-from ..core.words import I32, bit_i32, resolve_device, torch_to_u32, u32_to_torch
+from ..core.words import I32, bit_i32, resolve_device, to_device, torch_to_u32, u32_to_torch
 from ..ops import gauss_blocked
+from ..utils import profiling
 
 # MT19937 parameters (as in crypto/mt.py)
 W, N, M, R = 32, 624, 397, 31
@@ -37,7 +38,7 @@ _NBITS = 1 + COLS
 
 
 def _bits32(mask: int, device) -> torch.Tensor:
-    return torch.tensor([(mask >> i) & 1 for i in range(32)], dtype=I32, device=device)
+    return to_device(torch.tensor([(mask >> i) & 1 for i in range(32)], dtype=I32), device)
 
 
 def _wp(pad_words: int = 128) -> int:
@@ -100,8 +101,8 @@ def mt19937_system_device(outs: torch.Tensor, bs: int, samples: int) -> torch.Te
 
     def twist_chunk(st, lo, hi):
         c = hi - lo
-        idx1 = torch.from_numpy(np.arange(lo + 1, hi + 1) % N).to(dev)
-        idxm = torch.from_numpy((np.arange(lo, hi) + M) % N).to(dev)
+        idx1 = to_device(torch.from_numpy(np.arange(lo + 1, hi + 1) % N), dev)
+        idxm = to_device(torch.from_numpy((np.arange(lo, hi) + M) % N), dev)
         y = (st[lo:hi] * umsk) ^ (st[idx1] * lmsk)  # (c, W, wp)
         y_shr = torch.cat([y[:, 1:, :], torch.zeros((c, 1, wp), dtype=I32, device=dev)], dim=1)
         sel = y[:, 0:1, :] * a_bits
@@ -122,11 +123,11 @@ def mt19937_system_device(outs: torch.Tensor, bs: int, samples: int) -> torch.Te
     j = b // 32
     t = b % 32
     nb = np.where(j < wpc - 1, 32, bs - 32 * (wpc - 1))
-    flat_row = torch.from_numpy((c * wpc + j) * 32 + (32 - nb) + t).to(dev)
+    flat_row = to_device(torch.from_numpy((c * wpc + j) * 32 + (32 - nb) + t), dev)
     eqs = tempered.reshape(total_words * 32, wp)[flat_row]
     # XOR the observed constant into the affine column (packed bit 0)
-    obs = outs[torch.from_numpy(c).to(dev), torch.from_numpy(j).to(dev)]
-    eqs[:, 0] ^= (obs >> torch.from_numpy(t).to(dev).to(I32)) & 1
+    obs = outs[to_device(torch.from_numpy(c), dev), to_device(torch.from_numpy(j), dev)]
+    eqs[:, 0] ^= (obs >> to_device(torch.from_numpy(t), dev).to(I32)) & 1
 
     # known-MSB equations: mt[0] ^ 0x80000000
     msb_pos = 1 + torch.arange(W, dtype=torch.int64, device=dev)
@@ -163,19 +164,20 @@ def solve_mt19937_batch(outs_batch, bs: int = 32, device="cuda"):
     if not 1 <= bs <= 32:
         raise ValueError("solve_mt19937_batch takes 1 <= bs <= 32; loop solve_mt19937 instead")
     dev = resolve_device(device)
-    outs_b = u32_to_torch(np.asarray(outs_batch, dtype=np.uint32), dev)
-    phase1, phase2 = gauss_blocked._pick_engines(_wp())
-    origins, unsats = [], []
-    for outs in outs_b:
-        origin32, unsat = gauss_blocked.rref_origin_blocked(
-            _padded_system(outs, bs, outs_b.shape[1]), COLS, gauss_blocked.K_PANEL,
-            phase1=phase1, phase2=phase2,
-        )
-        origins.append(origin32)
-        unsats.append(unsat)
-    origins_h = packing.from_u32(torch_to_u32(torch.stack(origins)))
-    unsats_h = torch.stack(unsats).cpu().numpy()
-    return [None if u else _state_words(o) for o, u in zip(origins_h, unsats_h)]
+    with profiling.span("mt.solve"):
+        outs_b = u32_to_torch(np.asarray(outs_batch, dtype=np.uint32), dev)
+        phase1, phase2 = gauss_blocked._pick_engines(_wp())
+        origins, unsats = [], []
+        for outs in outs_b:
+            origin32, unsat = gauss_blocked.rref_origin_blocked(
+                _padded_system(outs, bs, outs_b.shape[1]), COLS, gauss_blocked.K_PANEL,
+                phase1=phase1, phase2=phase2,
+            )
+            origins.append(origin32)
+            unsats.append(unsat)
+        origins_h = packing.from_u32(torch_to_u32(torch.stack(origins)))
+        unsats_h = torch.stack(unsats).cpu().numpy()
+        return [None if u else _state_words(o) for o, u in zip(origins_h, unsats_h)]
 
 
 def solve_mt19937(outs, bs: int = 32, samples: int | None = None, mode: int = 0,
@@ -187,13 +189,15 @@ def solve_mt19937(outs, bs: int = 32, samples: int | None = None, mode: int = 0,
     if samples is None:
         samples = len(outs)
     wpc = -(-bs // 32)
-    arr = np.zeros((len(outs), wpc), np.uint32)
-    for i, v in enumerate(outs):
-        for jw in range(wpc):
-            arr[i, jw] = (int(v) >> (32 * jw)) & 0xFFFFFFFF
-    # engines from gauss_blocked._pick_engines, read per call
-    raw = gauss_blocked.solve_on_device(_padded_system(u32_to_torch(arr, dev), bs, samples),
-                                        COLS, mode)
-    if raw is None:
-        return None
-    return AffineSpace(raw[0], raw[1], COLS) if mode == 1 else _state_words(raw)
+    with profiling.span("mt.solve"):
+        with profiling.span("mt.build"):
+            arr = np.zeros((len(outs), wpc), np.uint32)
+            for i, v in enumerate(outs):
+                for jw in range(wpc):
+                    arr[i, jw] = (int(v) >> (32 * jw)) & 0xFFFFFFFF
+            a = _padded_system(u32_to_torch(arr, dev), bs, samples)
+        # engines from gauss_blocked._pick_engines, read per call
+        raw = gauss_blocked.solve_on_device(a, COLS, mode)
+        if raw is None:
+            return None
+        return AffineSpace(raw[0], raw[1], COLS) if mode == 1 else _state_words(raw)

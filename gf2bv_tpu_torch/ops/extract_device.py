@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import packing
-from ..core.words import I32, bit_i32, or_fold, srl, torch_to_u32
+from ..core.words import I32, bit_i32, or_fold, srl, to_device, torch_to_u32
 
 _BUCKETS = (16, 64, 256, 1024, 4096, 16384, 65536, 2**18, 2**20)
 _PCHUNK = 4096  # pivots per basis chunk
@@ -136,8 +136,8 @@ def _basis_host_orchestrated(rref32: torch.Tensor, pof_h: np.ndarray, cols: int)
     fcol[:dim] = np.nonzero(~pivot_mask)[0].astype(np.int32) + 1
     dev = rref32.device
     basis32 = _basis_device(
-        rref32, torch.from_numpy(prow).to(dev), torch.from_numpy(pcol).to(dev),
-        torch.from_numpy(fcol).to(dev), cols,
+        rref32, to_device(torch.from_numpy(prow), dev), to_device(torch.from_numpy(pcol), dev),
+        to_device(torch.from_numpy(fcol), dev), cols,
     )[:dim]
     return packing.from_u32(torch_to_u32(basis32))
 

@@ -46,14 +46,14 @@ from ..core.words import (
     I32, bit_i32, or_fold, parity32, resolve_device, srl, torch_to_u32,
     u32_to_torch, xor_fold,
 )
+from ..utils import profiling
 from . import extract_device
 from .panel_update import (
     SEG_TILE, la_grid, rank_k_xor_, update_full, update_mxu2, update_mxu4, update_pallas,
     update_scan, update_seg, update_trailing,
 )
 from .phase1 import (
-    SUBSET_ROWS, _bitval, phase1_panel, phase1_panel_split, phase1_scan_subset, reconstruct,
-    scan,
+    SUBSET_ROWS, _bitval, phase1_panel, phase1_scan_subset, rebuild_pivots, reconstruct, scan,
 )
 
 K_PANEL = 256  # panel width in bits
@@ -227,21 +227,28 @@ class _Panels:
             apply_rank_k_update(a, s, pf, self.phase2, w0 if self.trailing else None)
 
     def full_pass(self, t: int, phase1: str) -> None:
-        """One panel over all rows (the reference's _panel_kernel_full)."""
+        """One panel over all rows (the reference's _panel_kernel_full).
+        Spans ``panel.scan``, ``panel.rebuild`` (the split engines; ``jnp``
+        and ``pallas`` rebuild inside the scan's span) and ``panel.update``."""
         K, kw = self.K, self.kw
         w0 = t * kw
-        b_orig = self.a[:, w0 : w0 + kw].clone()  # saved before the update
-        bT = b_orig.T.contiguous()
-        if phase1 == "jnp":
-            pf, prow, self.used = phase1_panel_jnp(self.a, b_orig, self.used, w0, K, self.cols)
-        elif phase1 == "pallas":
-            pf, prow, self.used = phase1_panel(self.a, bT, self.used, w0, K, self.cols)
-        else:
-            pf, prow, self.used = phase1_panel_split(
-                self.a, bT, self.used, w0, K, self.cols, _SCAN_VARIANT[phase1]
-            )
-        self.record(prow, w0)
-        self.update(selector_from_prow(b_orig, prow), pf, w0)
+        with profiling.span("panel.scan"):
+            b_orig = self.a[:, w0 : w0 + kw].clone()  # saved before the update
+            bT = b_orig.T.contiguous()
+            if phase1 == "jnp":
+                pf, prow, self.used = phase1_panel_jnp(self.a, b_orig, self.used, w0, K,
+                                                       self.cols)
+            elif phase1 == "pallas":
+                pf, prow, self.used = phase1_panel(self.a, bT, self.used, w0, K, self.cols)
+            else:
+                prow, self.used, cT = scan(bT, self.used, w0, K, self.cols,
+                                           _SCAN_VARIANT[phase1])
+        if phase1 not in ("jnp", "pallas"):
+            with profiling.span("panel.rebuild"):
+                pf = rebuild_pivots(self.a, prow, cT, w0)
+        with profiling.span("panel.update"):
+            self.record(prow, w0)
+            self.update(selector_from_prow(b_orig, prow), pf, w0)
 
     def subset_pass(self, t: int) -> None:
         """The reference's _panel_kernel_subset: scan only the first
@@ -253,27 +260,30 @@ class _Panels:
         K, kw, rows, S = self.K, self.kw, self.rows, SUBSET_ROWS
         dev = self.a.device
         w0 = t * kw
-        b_orig = self.a[:, w0 : w0 + kw].clone()
-        unused = (self.used[0] == 0).to(I32)
-        slot = torch.cumsum(unused, 0, dtype=I32) - 1
-        take = (unused == 1) & (slot < S)
-        row_ids = torch.arange(rows, dtype=I32, device=dev)
-        subset_ext = torch.zeros((S + 1,), dtype=I32, device=dev)  # + dump slot
-        subset_ext[torch.where(take, slot, S).long()] = row_ids
-        subset_idx = subset_ext[:S]
-        n_sub = torch.clamp(slot[-1] + 1, max=S)
-        bT_c = b_orig[subset_idx.long()].T.contiguous()  # (kw, S)
-        used_in = (torch.arange(S, device=dev) >= n_sub).to(I32)[None, :]
-        prow_l, cT_c = phase1_scan_subset(bT_c, used_in, w0, K, self.cols)
-        pl_safe = prow_l.clamp(min=0).long()
-        prow = torch.where(prow_l >= 0, subset_idx[pl_safe], -1)
-        coeff = cT_c[:, pl_safe].T.contiguous()
-        pf = reconstruct(self.a[prow.clamp(min=0).long()], coeff, prow, w0)
-        used_ext = torch.cat([self.used[0], torch.zeros(1, dtype=I32, device=dev)])
-        used_ext[torch.where(prow >= 0, prow, rows).long()] = 1
-        self.used = used_ext[None, :rows].contiguous()
-        self.record(prow, w0)
-        self.update(selector_from_prow(b_orig, prow), pf, w0)
+        with profiling.span("panel.scan"):
+            b_orig = self.a[:, w0 : w0 + kw].clone()
+            unused = (self.used[0] == 0).to(I32)
+            slot = torch.cumsum(unused, 0, dtype=I32) - 1
+            take = (unused == 1) & (slot < S)
+            row_ids = torch.arange(rows, dtype=I32, device=dev)
+            subset_ext = torch.zeros((S + 1,), dtype=I32, device=dev)  # + dump slot
+            subset_ext[torch.where(take, slot, S).long()] = row_ids
+            subset_idx = subset_ext[:S]
+            n_sub = torch.clamp(slot[-1] + 1, max=S)
+            bT_c = b_orig[subset_idx.long()].T.contiguous()  # (kw, S)
+            used_in = (torch.arange(S, device=dev) >= n_sub).to(I32)[None, :]
+            prow_l, cT_c = phase1_scan_subset(bT_c, used_in, w0, K, self.cols)
+        with profiling.span("panel.rebuild"):
+            pl_safe = prow_l.clamp(min=0).long()
+            prow = torch.where(prow_l >= 0, subset_idx[pl_safe], -1)
+            coeff = cT_c[:, pl_safe].T.contiguous()
+            pf = reconstruct(self.a[prow.clamp(min=0).long()], coeff, prow, w0)
+        with profiling.span("panel.update"):
+            used_ext = torch.cat([self.used[0], torch.zeros(1, dtype=I32, device=dev)])
+            used_ext[torch.where(prow >= 0, prow, rows).long()] = 1
+            self.used = used_ext[None, :rows].contiguous()
+            self.record(prow, w0)
+            self.update(selector_from_prow(b_orig, prow), pf, w0)
 
         # deficit check: a column left free with a live bit in an unused row
         gbit = 32 * w0 + self.bit_ids
@@ -293,24 +303,27 @@ class _Panels:
         The scans are the 1-pivot scan whatever the phase-1 engine."""
         K, kw, wp = self.K, self.kw, self.wp
         a = self.a
-        prow, used, cT = scan(a[:, :kw].T.contiguous(), self.used, 0, K, self.cols)
+        with profiling.span("panel.scan"):
+            prow, used, cT = scan(a[:, :kw].T.contiguous(), self.used, 0, K, self.cols)
         for t in range(panels):
             w0 = t * kw
-            ps = prow.clamp(min=0).long()
-            pf = reconstruct(a[ps], cT[:, ps].T.contiguous(), prow, w0)
-            s = selector_from_prow(a[:, w0 : w0 + kw], prow)
-            self.record(prow, w0)
-            # the next panel's slice; past the last panel the reference's
-            # dynamic_slice clamps its start, and the scan at w0n finds every
-            # column invalid (32*w0n > cols), so any slice does
-            w0n = w0 + kw
-            lo = min(w0n, wp - kw)
-            slice_n = a[:, lo : lo + kw].contiguous()
-            update_full(slice_n, s, pf[:, lo : lo + kw].contiguous())
-            _, prow, cT, used = update_scan(
-                a, s, pf, slice_n.T.contiguous(), used, w0n, self.cols,
-                w0 if self.trailing else None,
-            )
+            with profiling.span("panel"):
+                with profiling.span("panel.rebuild"):
+                    pf = rebuild_pivots(a, prow, cT, w0)
+                with profiling.span("panel.update"):  # and the next panel's scan
+                    s = selector_from_prow(a[:, w0 : w0 + kw], prow)
+                    self.record(prow, w0)
+                    # the next panel's slice; past the last panel the reference's
+                    # dynamic_slice clamps its start, and the scan at w0n finds
+                    # every column invalid (32*w0n > cols), so any slice does
+                    w0n = w0 + kw
+                    lo = min(w0n, wp - kw)
+                    slice_n = a[:, lo : lo + kw].contiguous()
+                    update_full(slice_n, s, pf[:, lo : lo + kw].contiguous())
+                    _, prow, cT, used = update_scan(
+                        a, s, pf, slice_n.T.contiguous(), used, w0n, self.cols,
+                        w0 if self.trailing else None,
+                    )
         self.used = used
 
 
@@ -352,10 +365,11 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
         st.lookahead(panels)
     else:
         for t in range(panels):
-            if p1 == "pallas_sub":
-                st.subset_pass(t)
-            else:
-                st.full_pass(t, p1)
+            with profiling.span("panel"):
+                if p1 == "pallas_sub":
+                    st.subset_pass(t)
+                else:
+                    st.full_pass(t, p1)
     rref = st.a[:, :wp].contiguous() if pad else st.a
     return rref, st.pof[:cols], extract_device.inconsistent_device(rref)
 
@@ -411,8 +425,6 @@ def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANE
     :func:`_pick_engines`.  The phases ``rref+origin`` or ``rref`` and
     ``extract`` are recorded by ``utils.profiling``, as in the reference's
     ``solve_blocked``."""
-    from ..utils import profiling
-
     auto1, auto2 = _pick_engines(a.shape[1])
     engines = dict(phase1=phase1 or auto1, phase2=phase2 or auto2)
     if mode == 0:
@@ -433,8 +445,6 @@ def solve_blocked(eqs: np.ndarray, cols: int, mode: int, k_panel: int = K_PANEL,
     """Solve packed (rows, W64) uint64 rows; results as :func:`solve_on_device`.
     Records the phases ``pad`` and ``h2d`` before it, as the reference does;
     ``h2d`` waits for the copy on a CUDA device."""
-    from ..utils import profiling
-
     dev = resolve_device(device)
     with profiling.phase("pad"):
         a32 = _pad(eqs, k_panel, word_align=128)

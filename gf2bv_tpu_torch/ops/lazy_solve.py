@@ -33,7 +33,8 @@ import torch
 
 from ..core import lazy, packing
 from ..core.lazy import LazyBitVec
-from ..core.words import I32, u32_to_torch
+from ..core.words import I32, to_device, u32_to_torch
+from ..utils import profiling
 from . import gauss_jax, solver
 from .gauss_blocked import K_PANEL, _pad, _pick_engines, solve_on_device
 
@@ -131,9 +132,16 @@ def solve_lazy(system, zeros, mode: int, env=None):
     exprs = [z._expr for z in zeros]
     cs = cached_system(system, zeros)
 
-    aff = _affine_vector(exprs, cs.widths, env)
-    if np.any(aff & ~cs.kept_mask):  # a dropped row reduced to the literal 1
-        return None
+    with profiling.span("lazy.bind"):
+        aff = _affine_vector(exprs, cs.widths, env)
+        if np.any(aff & ~cs.kept_mask):  # a dropped row reduced to the literal 1
+            return None
+        if cs.backend != "native":
+            delta = (aff[cs.kept] ^ cs.struct_aff[cs.kept]).astype(np.int32)
+            delta_dev = torch.zeros(cs.rows_padded, dtype=I32, device=cs.a_dev.device)
+            delta_dev[: delta.shape[0]] = to_device(torch.from_numpy(delta), cs.a_dev.device)
+            a = cs.a_dev.clone()
+            a[:, 0] ^= delta_dev
 
     if cs.backend == "native":
         from .._native import solve_native
@@ -141,12 +149,6 @@ def solve_lazy(system, zeros, mode: int, env=None):
         raw = solve_native(cs.a_host, cols, mode, aff_bits=aff[cs.kept],
                            basis_cache=cs.basis_cache)
         return solver._result(raw, cols, mode)
-
-    delta = (aff[cs.kept] ^ cs.struct_aff[cs.kept]).astype(np.int32)
-    delta_dev = torch.zeros(cs.rows_padded, dtype=I32, device=cs.a_dev.device)
-    delta_dev[: delta.shape[0]] = torch.from_numpy(delta).to(cs.a_dev.device)
-    a = cs.a_dev.clone()
-    a[:, 0] ^= delta_dev
     if cs.backend == "jax":
         raw = gauss_jax.solve_on_device(a, cols, mode)
     else:

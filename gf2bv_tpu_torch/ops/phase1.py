@@ -1327,11 +1327,15 @@ def phase1_panel_split(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     (kw, rows); used (1, rows).  Returns (pf (K, wp), prow (K,), used'
     (1, rows))."""
     prow, used_o, cT = scan(bT, used, w0, K, cols, variant)
+    return rebuild_pivots(a, prow, cT, w0), prow, used_o
+
+
+def rebuild_pivots(a: torch.Tensor, prow: torch.Tensor, cT: torch.Tensor,
+                   w0: int) -> torch.Tensor:
+    """The split phase 1 after its scan: gather the pivot rows (K, wp) and
+    their coefficient words (K, kw) and rebuild them (:func:`reconstruct`)."""
     prow_safe = prow.clamp(min=0).long()
-    arows = a[prow_safe]  # (K, wp)
-    coeff = cT[:, prow_safe].T.contiguous()  # (K, kw)
-    pf = reconstruct(arows, coeff, prow, w0)
-    return pf, prow, used_o
+    return reconstruct(a[prow_safe], cT[:, prow_safe].T.contiguous(), prow, w0)
 
 
 def phase1_scan_subset(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):

@@ -1679,3 +1679,73 @@ def test_nccl_world_of_one_takes_its_card_from_the_rank(dev, monkeypatch):
     finally:
         distributed.shutdown()
     assert not collectives._GROUPS and distributed.rank_and_world() == (0, 1)
+
+
+# -- spans and counters (utils/profiling) on the card ---------------------------------
+
+
+def _mt_request(samples):
+    from gf2bv_tpu_torch.crypto.mt_torch import solve_mt19937
+
+    rng = random.Random(samples)
+    state = list(rng.getstate()[1][:624])
+    outs = [rng.getrandbits(32) for _ in range(samples)]
+    return lambda: solve_mt19937(outs, 32, samples=samples, device="cuda"), state
+
+
+def _sfmt_request():
+    from gf2bv_tpu_torch.crypto.sfmt import SFMT19937
+
+    victim = SFMT19937.from_seed(1234)
+    for _ in range(3 * 624):
+        victim()
+    observed = [victim() & 0xFFFF for _ in range(2496)]
+
+    def model(words, p):
+        sym = SFMT19937(list(words), index=624)
+        return [(sym() & 0xFFFF) ^ p[k] for k in range(2496)]
+
+    tmpl = LinearSystem([32] * 624, device="cuda").capture(model)
+    return lambda: tmpl.solve_one(observed)
+
+
+@pytest.mark.parametrize("request_of", ["mt624", "mt2100", "sfmt2496"])
+def test_h2d_copies_match_the_trace_and_launches_do_not_move(dev, request_of):
+    """A request of each benchmark cell under the profiler: the program's
+    ``h2d_copies`` over the request's span records equal the trace's
+    ``Memcpy HtoD`` device rows, one root span holds the request, and the
+    kernel launches are those of the same request untraced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gf2bv_tpu_torch.utils import profiling
+
+    if request_of == "sfmt2496":
+        solve, state, root = _sfmt_request(), None, "capture.solve"
+    else:
+        (solve, state), root = _mt_request(int(request_of[2:])), "mt.solve"
+    first = solve()  # warm: kernels built, the model's matrix cached
+    assert first is not None and (state is None or list(first) == state)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    assert solve() == first
+    torch.cuda.synchronize()
+    untraced = dict(_cuda.LAUNCHES)
+    profiling.reset()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert solve() == first
+        torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == untraced
+    recs = profiling.spans()
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in roots] == [root]
+    assert {r["request"] for r in recs} == {roots[0]["id"]}
+    copies = sum(r["counters"].get("h2d_copies", 0) for r in recs)
+    htod = sum(1 for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA and ev.name().startswith("Memcpy HtoD"))
+    print(f"{request_of}: h2d_copies {copies}, Memcpy HtoD rows {htod}, "
+          f"launches {sum(untraced.values())}")
+    assert copies == htod > 0
+    assert ("mt.build" if root == "mt.solve" else "lazy.bind") in {r["name"] for r in recs}
+    assert sum(r["name"] == "panel" for r in recs) == 79
