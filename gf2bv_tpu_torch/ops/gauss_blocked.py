@@ -32,11 +32,18 @@ A name with the ``_interpret`` suffix means the same engine.  A CUDA tensor
 runs the engine's Hopper kernels, a CPU tensor their plain twins; nothing
 else chooses between them.  The RREF is unique and every engine keeps the
 pivot rule, so results are bit for bit those of the JAX package.
+
+The mode-0 elimination (:func:`rref_origin_blocked`) of a system shape met
+before on the card is replayed from a CUDA graph of the same body, kept
+per shape (at most :data:`GRAPH_KEYS`).
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -47,7 +54,7 @@ from ..core.words import (
     u32_to_torch, xor_fold,
 )
 from ..utils import profiling
-from . import extract_device
+from . import _cuda, extract_device
 from .panel_update import (
     SEG_TILE, la_grid, rank_k_xor_, update_full, update_mxu2, update_mxu4, update_pallas,
     update_scan, update_seg, update_trailing,
@@ -388,13 +395,155 @@ def origin_parity_unsat(a: torch.Tensor, origin32: torch.Tensor) -> torch.Tensor
     return (parity32(row_words) == 1).any()
 
 
-def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
-                        phase1: str = "pallas_scan", phase2: str = "mxu"):
-    """Trailing-mode RREF + mode-0 extraction.  Returns (origin32 (Wsol32,)
-    int32, unsat 0-dim bool); the verdict checks the origin against ``a``."""
+def _rref_origin_eager(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
+                       phase1: str = "pallas_scan", phase2: str = "mxu"):
+    """The body of :func:`rref_origin_blocked`, run call by call: every
+    panel's PyTorch calls and launches from Python."""
     rref32, pof, _ = rref_blocked(a, cols, k_panel, True, phase1=phase1, phase2=phase2)
     origin32 = extract_device.origin_device(rref32, pof, cols)
     return origin32, origin_parity_unsat(a, origin32)
+
+
+# -- the mode-0 elimination replayed from a CUDA graph -------------------------------
+
+GRAPH_KEYS = 4  # system shapes whose graphs are kept; the least recently used goes
+_SEEN_KEYS = 256  # shapes remembered as called once
+# phase-1 engines that read back to the host inside the loop: never captured
+_READS_BACK = ("pallas_sub", "jnp")
+
+
+class _RrefGraph:
+    """One system shape's mode-0 elimination captured as a CUDA graph: the
+    static input the caller's matrix is copied into, the graph (its private
+    pool holds the working copy and every intermediate), the outputs it
+    writes, and the launches of the port's kernels it makes per replay."""
+
+    def __init__(self):
+        self.lock = threading.Lock()  # capture and replays, one at a time
+        self.graph = self.done = None
+        self.static = self.origin = self.unsat = None
+        self.launches: dict[str, int] = {}
+
+    def _capture(self, a: torch.Tensor, body) -> None:
+        """Capture ``body`` on a static input of ``a``'s shape.  The launches
+        the wrappers count while capturing are taken back: a capture runs
+        nothing."""
+        self.static = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+        before = dict(_cuda.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: other threads' CUDA calls stay legal while this one captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.origin, self.unsat = body(self.static)
+        finally:
+            self.launches = {k: n - before[k] for k, n in _cuda.LAUNCHES.items()
+                             if n != before[k]}
+            for k, n in self.launches.items():
+                _cuda.LAUNCHES[k] -= n
+        self.graph = graph
+        profiling.count("rref_graph_captures")
+
+    def run(self, a: torch.Tensor, body):
+        """``body(a)`` by a replay (captured on the first run), on the
+        current stream; the outputs are cloned out of the graph's pool."""
+        with self.lock:
+            if self.graph is None:
+                self._capture(a, body)
+                self.done = torch.cuda.Event()
+            # the previous replay's readers, on whatever stream, go first
+            torch.cuda.current_stream().wait_event(self.done)
+            self.static.copy_(a)
+            self.graph.replay()
+            for k, n in self.launches.items():
+                _cuda.LAUNCHES[k] += n
+            profiling.count("rref_graph_replays")
+            out = self.origin.clone(), self.unsat.clone()
+            self.done.record()
+            return out
+
+
+_graphs: OrderedDict = OrderedDict()  # key -> _RrefGraph, least recently used first
+_seen: OrderedDict = OrderedDict()  # keys called once, eager
+_graphs_lock = threading.Lock()
+
+
+def _graph_key(a: torch.Tensor, cols: int, k_panel: int, phase1: str, phase2: str):
+    """The cache key of a mode-0 elimination that a CUDA graph can replay:
+    ``(device, rows, wp, cols, k_panel, phase1, phase2)``; None where it
+    cannot: a CPU tensor, a phase-1 engine that reads back inside the loop,
+    or a matrix off the current device (the eager body raises there).  A
+    key is recorded only after an eager call succeeded, so a matrix the
+    kernels refuse never reaches a capture."""
+    p1, p2 = engine(phase1, "phase1"), engine(phase2, "phase2")
+    if (a.device.type != "cuda" or p1 in _READS_BACK
+            or a.device.index != torch.cuda.current_device()):
+        return None
+    return (a.device, *a.shape, cols, k_panel, p1, p2)
+
+
+def _graph_for(key) -> _RrefGraph | None:
+    """The graph entry of ``key`` (made, not yet captured, on the key's
+    second call, evicting the least recently used past :data:`GRAPH_KEYS`);
+    None while the key has not been called."""
+    with _graphs_lock:
+        entry = _graphs.get(key)
+        if entry is not None:
+            _graphs.move_to_end(key)
+        elif key in _seen:
+            del _seen[key]
+            entry = _graphs[key] = _RrefGraph()
+            if len(_graphs) > GRAPH_KEYS:
+                _graphs.popitem(last=False)
+        return entry
+
+
+def _record_seen(key) -> None:
+    with _graphs_lock:
+        _seen[key] = None
+        if len(_seen) > _SEEN_KEYS:
+            _seen.popitem(last=False)
+
+
+def _drop_graph(key, entry: _RrefGraph) -> None:
+    with _graphs_lock:
+        if _graphs.get(key) is entry:
+            del _graphs[key]
+
+
+def clear_graphs() -> None:
+    """Forget every captured elimination and every shape seen."""
+    with _graphs_lock:
+        _graphs.clear()
+        _seen.clear()
+
+
+def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
+                        phase1: str = "pallas_scan", phase2: str = "mxu"):
+    """Trailing-mode RREF + mode-0 extraction.  Returns (origin32 (Wsol32,)
+    int32, unsat 0-dim bool); the verdict checks the origin against ``a``.
+
+    On the card, a system shape met before (:func:`_graph_key`) is solved by
+    replaying a CUDA graph of the same body: the same kernels in the same
+    order on the same bytes, one launch from the host instead of ~5000
+    PyTorch calls.  Its first call runs eager and records the shape; the
+    second captures.  CPU tensors and the engines that read back inside the
+    loop always run eager.  Counters: ``rref_calls``, ``rref_graph_replays``,
+    ``rref_graph_captures``."""
+    profiling.count("rref_calls")
+    body = functools.partial(_rref_origin_eager, cols=cols, k_panel=k_panel,
+                             phase1=phase1, phase2=phase2)
+    key = _graph_key(a, cols, k_panel, phase1, phase2)
+    entry = None if key is None else _graph_for(key)
+    if entry is None:
+        out = body(a)
+        if key is not None:
+            _record_seen(key)
+        return out
+    try:
+        return entry.run(a, body)
+    except BaseException:
+        _drop_graph(key, entry)
+        raise
 
 
 def _pad(eqs: np.ndarray, k_panel: int, word_align: int = 1) -> np.ndarray:
