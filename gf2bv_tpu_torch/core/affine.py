@@ -16,6 +16,8 @@ can be pushed to the TPU for large spaces — see ops/enumerate.py).
 
 Port copy of ``gf2bv_tpu/core/affine.py`` (framework-free; kept identical apart from
 this note and the changes listed here, so the differential tests pin it).
+Changed: a batch of fewer than ``_NATIVE_MIN_WORDS`` output words is
+enumerated in numpy, not on the host C engine.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ import numpy as np
 from . import packing
 
 _ENUM_CHUNK = 4096
+# Batches of fewer output words than this run in numpy, not on the host C
+# engine: waking its OpenMP team took 3-48 ms on busy 8-core hosts, where
+# the few points a quadratic solve filters take microseconds.
+_NATIVE_MIN_WORDS = 1 << 18
 
 
 def combine_batch(
@@ -97,7 +103,8 @@ class AffineSpace:
 
     def enumerate_packed(self, start: int, count: int, gray: bool) -> np.ndarray:
         """Packed rows for points start..start+count-1 of the enumeration."""
-        if start + count <= (1 << 63):  # native path: uint64 index arithmetic
+        big = count * self._origin.shape[0] >= _NATIVE_MIN_WORDS
+        if big and start + count <= (1 << 63):  # native path: uint64 index arithmetic
             from .. import _native
 
             if _native.available():

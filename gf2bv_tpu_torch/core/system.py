@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from . import packing
 from .affine import AffineSpace
 from .bitvec import BitVec
@@ -763,7 +764,7 @@ class QuadraticSystem(LinearSystem):
         """Quadratic variant: the consistency filter runs on device over
         whole enumeration chunks (ops/enumerate.py) for larger spaces
         instead of per-point in Python.  Shared by solve_all and
-        solve_all_packed."""
+        solve_all_packed.  Span ``quad.filter``, one a point taken."""
         if space.dimension > max_dimension:
             raise DimensionTooLargeError(
                 f"solution space has dimension {space.dimension} "
@@ -777,9 +778,14 @@ class QuadraticSystem(LinearSystem):
 
             points = iter_quad_filtered(space, self._lin_size, device=self._device)
         else:
-            points = space
-        for s in points:
-            ret = self.convert_sol(s)
+            points = iter(space)
+        while True:
+            # a span may not stay open across a yield
+            with profiling.span("quad.filter"):
+                s = next(points, None)
+                ret = None if s is None else self.convert_sol(s)
+            if s is None:
+                return
             if ret is not None:
                 yield ret
 
@@ -793,6 +799,17 @@ class QuadraticSystem(LinearSystem):
         # same consistency-filter routing for pre-packed systems
         for sol in self.solve_all_packed(eqs):
             return sol
+
+    def select_rows(self, eqs):
+        """A template of systems whose rows are picked per request from the
+        device-resident rows ``eqs`` ((rows, W32) int32, e.g. from
+        ``ops/quad_device.quad_rows``): an
+        :class:`~gf2bv_tpu_torch.ops.quad_device.RowSelection`, whose
+        ``solve_one(keep)`` solves the rows a host mask keeps and returns
+        the first consistent point, as :meth:`solve_one_packed` does."""
+        from ..ops.quad_device import RowSelection
+
+        return RowSelection(self, eqs)
 
     def solve_one_batch(self, zeros_batch, mesh=None, *,
                         max_dimension: int = 16):

@@ -33,9 +33,10 @@ runs the engine's Hopper kernels, a CPU tensor their plain twins; nothing
 else chooses between them.  The RREF is unique and every engine keeps the
 pivot rule, so results are bit for bit those of the JAX package.
 
-The mode-0 elimination (:func:`rref_origin_blocked`) of a system shape met
-before on the card is replayed from a CUDA graph of the same body, kept
-per shape (at most :data:`GRAPH_KEYS`).
+The mode-0 elimination (:func:`rref_origin_blocked`) and the full RREF of
+mode 1 (:func:`rref_full_blocked`) of a system shape met before on the card
+are replayed from a CUDA graph of the same body, kept per body and shape
+(at most :data:`GRAPH_KEYS`).
 """
 
 from __future__ import annotations
@@ -404,24 +405,29 @@ def _rref_origin_eager(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
     return origin32, origin_parity_unsat(a, origin32)
 
 
-# -- the mode-0 elimination replayed from a CUDA graph -------------------------------
+# -- the eliminations replayed from a CUDA graph -------------------------------------
 
-GRAPH_KEYS = 4  # system shapes whose graphs are kept; the least recently used goes
-_SEEN_KEYS = 256  # shapes remembered as called once
+GRAPH_KEYS = 4  # (body, system shape) keys whose graphs are kept; the least recently used goes
+_SEEN_KEYS = 256  # keys remembered as called once
 # phase-1 engines that read back to the host inside the loop: never captured
 _READS_BACK = ("pallas_sub", "jnp")
 
 
 class _RrefGraph:
-    """One system shape's mode-0 elimination captured as a CUDA graph: the
-    static input the caller's matrix is copied into, the graph (its private
-    pool holds the working copy and every intermediate), the outputs it
-    writes, and the launches of the port's kernels it makes per replay."""
+    """One body's elimination of one system shape captured as a CUDA graph:
+    the static input the caller's matrix is copied into, the graph (its
+    private pool holds the working copy and every intermediate), the outputs
+    it writes, and the launches of the port's kernels it makes per replay.
+    ``kind``, the prefix of its counters, names the body: ``"rref"`` the
+    mode-0 elimination with its origin (:func:`rref_origin_blocked`),
+    ``"rref_full"`` the full RREF of mode 1 (:func:`rref_full_blocked`)."""
 
-    def __init__(self):
+    def __init__(self, kind: str):
+        self.kind = kind
         self.lock = threading.Lock()  # capture and replays, one at a time
         self.graph = self.done = None
-        self.static = self.origin = self.unsat = None
+        self.static = None
+        self.outputs: tuple = ()
         self.launches: dict[str, int] = {}
 
     def _capture(self, a: torch.Tensor, body) -> None:
@@ -434,16 +440,16 @@ class _RrefGraph:
         try:
             # thread_local: other threads' CUDA calls stay legal while this one captures
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.origin, self.unsat = body(self.static)
+                self.outputs = tuple(body(self.static))
         finally:
             self.launches = {k: n - before[k] for k, n in _cuda.LAUNCHES.items()
                              if n != before[k]}
             for k, n in self.launches.items():
                 _cuda.LAUNCHES[k] -= n
         self.graph = graph
-        profiling.count("rref_graph_captures")
+        profiling.count(f"{self.kind}_graph_captures")
 
-    def run(self, a: torch.Tensor, body):
+    def run(self, a: torch.Tensor, body) -> tuple:
         """``body(a)`` by a replay (captured on the first run), on the
         current stream; the outputs are cloned out of the graph's pool."""
         with self.lock:
@@ -456,8 +462,8 @@ class _RrefGraph:
             self.graph.replay()
             for k, n in self.launches.items():
                 _cuda.LAUNCHES[k] += n
-            profiling.count("rref_graph_replays")
-            out = self.origin.clone(), self.unsat.clone()
+            profiling.count(f"{self.kind}_graph_replays")
+            out = tuple(t.clone() for t in self.outputs)
             self.done.record()
             return out
 
@@ -467,18 +473,20 @@ _seen: OrderedDict = OrderedDict()  # keys called once, eager
 _graphs_lock = threading.Lock()
 
 
-def _graph_key(a: torch.Tensor, cols: int, k_panel: int, phase1: str, phase2: str):
-    """The cache key of a mode-0 elimination that a CUDA graph can replay:
-    ``(device, rows, wp, cols, k_panel, phase1, phase2)``; None where it
-    cannot: a CPU tensor, a phase-1 engine that reads back inside the loop,
-    or a matrix off the current device (the eager body raises there).  A
-    key is recorded only after an eager call succeeded, so a matrix the
-    kernels refuse never reaches a capture."""
+def _graph_key(a: torch.Tensor, cols: int, k_panel: int, phase1: str, phase2: str,
+               kind: str = "rref"):
+    """The cache key of an elimination that a CUDA graph can replay:
+    ``(device, rows, wp, cols, k_panel, phase1, phase2, kind)``, ``kind`` the
+    body (:class:`_RrefGraph`); None where it cannot: a CPU tensor, a phase-1
+    engine that reads back inside the loop, or a matrix off the current
+    device (the eager body raises there).  A key is recorded only after an
+    eager call succeeded, so a matrix the kernels refuse never reaches a
+    capture."""
     p1, p2 = engine(phase1, "phase1"), engine(phase2, "phase2")
     if (a.device.type != "cuda" or p1 in _READS_BACK
             or a.device.index != torch.cuda.current_device()):
         return None
-    return (a.device, *a.shape, cols, k_panel, p1, p2)
+    return (a.device, *a.shape, cols, k_panel, p1, p2, kind)
 
 
 def _graph_for(key) -> _RrefGraph | None:
@@ -491,7 +499,7 @@ def _graph_for(key) -> _RrefGraph | None:
             _graphs.move_to_end(key)
         elif key in _seen:
             del _seen[key]
-            entry = _graphs[key] = _RrefGraph()
+            entry = _graphs[key] = _RrefGraph(key[-1])
             if len(_graphs) > GRAPH_KEYS:
                 _graphs.popitem(last=False)
         return entry
@@ -517,6 +525,25 @@ def clear_graphs() -> None:
         _seen.clear()
 
 
+def _replayed(kind: str, body, a: torch.Tensor, cols: int, k_panel: int, phase1: str,
+              phase2: str) -> tuple:
+    """``body(a)``, by a replay of its graph where :func:`_graph_key` gives a
+    key that has been called before, else eager.  Counts ``<kind>_calls``."""
+    profiling.count(f"{kind}_calls")
+    key = _graph_key(a, cols, k_panel, phase1, phase2, kind)
+    entry = None if key is None else _graph_for(key)
+    if entry is None:
+        out = body(a)
+        if key is not None:
+            _record_seen(key)
+        return out
+    try:
+        return entry.run(a, body)
+    except BaseException:
+        _drop_graph(key, entry)
+        raise
+
+
 def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
                         phase1: str = "pallas_scan", phase2: str = "mxu"):
     """Trailing-mode RREF + mode-0 extraction.  Returns (origin32 (Wsol32,)
@@ -529,21 +556,21 @@ def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
     second captures.  CPU tensors and the engines that read back inside the
     loop always run eager.  Counters: ``rref_calls``, ``rref_graph_replays``,
     ``rref_graph_captures``."""
-    profiling.count("rref_calls")
     body = functools.partial(_rref_origin_eager, cols=cols, k_panel=k_panel,
                              phase1=phase1, phase2=phase2)
-    key = _graph_key(a, cols, k_panel, phase1, phase2)
-    entry = None if key is None else _graph_for(key)
-    if entry is None:
-        out = body(a)
-        if key is not None:
-            _record_seen(key)
-        return out
-    try:
-        return entry.run(a, body)
-    except BaseException:
-        _drop_graph(key, entry)
-        raise
+    return _replayed("rref", body, a, cols, k_panel, phase1, phase2)
+
+
+def rref_full_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
+                      phase1: str = "pallas_scan", phase2: str = "mxu"):
+    """The full RREF of mode 1: ``rref_blocked(a, cols, k_panel, False,
+    ...)``, returning (rref, pivot_row_of_col, inconsistent).  Replayed from
+    a CUDA graph under the gate of :func:`rref_origin_blocked`, in a cache
+    entry of its own.  Counters: ``rref_full_calls``,
+    ``rref_full_graph_replays``, ``rref_full_graph_captures``."""
+    body = functools.partial(rref_blocked, cols=cols, k_panel=k_panel, trailing=False,
+                             phase1=phase1, phase2=phase2)
+    return _replayed("rref_full", body, a, cols, k_panel, phase1, phase2)
 
 
 def _pad(eqs: np.ndarray, k_panel: int, word_align: int = 1) -> np.ndarray:
@@ -568,12 +595,13 @@ def _pad_device(a32: torch.Tensor, k_panel: int, word_align: int = 1) -> torch.T
 def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANEL,
                     phase2: str | None = None, phase1: str | None = None):
     """Solve a padded (rows, wp) int32 matrix where it lies.  Mode 0: the
-    trailing solver and its parity check, returning the packed origin
-    (W64,) uint64; mode 1: the full RREF, returning (origin, basis (dim, W64)
-    uint64); None when unsatisfiable.  Engines left None come from
-    :func:`_pick_engines`.  The phases ``rref+origin`` or ``rref`` and
-    ``extract`` are recorded by ``utils.profiling``, as in the reference's
-    ``solve_blocked``."""
+    trailing solver and its parity check (:func:`rref_origin_blocked`),
+    returning the packed origin (W64,) uint64; mode 1: the full RREF
+    (:func:`rref_full_blocked`; the extraction after it reads back, eager),
+    returning (origin, basis (dim, W64) uint64); None when unsatisfiable.
+    Engines left None come from :func:`_pick_engines`.  The phases
+    ``rref+origin`` or ``rref`` and ``extract`` are recorded by
+    ``utils.profiling``, as in the reference's ``solve_blocked``."""
     auto1, auto2 = _pick_engines(a.shape[1])
     engines = dict(phase1=phase1 or auto1, phase2=phase2 or auto2)
     if mode == 0:
@@ -584,7 +612,7 @@ def solve_on_device(a: torch.Tensor, cols: int, mode: int, k_panel: int = K_PANE
             return None
         return packing.from_u32(origin32[None, :])[0]
     with profiling.phase("rref"):
-        rref32, pof, inconsistent = rref_blocked(a, cols, k_panel, False, **engines)
+        rref32, pof, inconsistent = rref_full_blocked(a, cols, k_panel, **engines)
     with profiling.phase("extract"):
         return extract_device.finalize(rref32, pof, inconsistent, cols, mode)
 

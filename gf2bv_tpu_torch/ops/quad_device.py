@@ -19,6 +19,11 @@ bit-plane intermediates are uint8, one byte per product a_i b_j and row (at
 the NLFSR's 17384 rows and n = 128, 285 MB each); the monomials are packed
 eight bits to a byte with no signed arithmetic and viewed as int32 words.
 
+:class:`RowSelection` (``QuadraticSystem.select_rows``) keeps such rows on
+the device as a template of systems whose rows are picked per request: an
+annihilator attack keeps the rows of the keystream's ones, a different
+subset for every victim, and a request uploads only the kept indices.
+
 :func:`mul_bits_batch` is the same expansion for a batch of products on the
 host, as in the reference: its rows feed numpy assembly, so it runs
 vectorized torch on the CPU in chunks of rows.  The reference's lazy trace
@@ -33,7 +38,8 @@ import torch
 
 from ..core import packing
 from ..core.bitvec import BitVec
-from ..core.words import u32_to_torch
+from ..core.words import to_device, u32_to_torch
+from ..utils import profiling
 
 _BYTE_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 _HOST_CHUNK_BYTES = 1 << 26  # bound on one host chunk's (rows, n, n) bit plane
@@ -130,6 +136,62 @@ def quad_rows(system, pairs, linear=(), const=0) -> torch.Tensor:
     pa = [u32_to_torch(_narrow32(a, wn32, rows), dev) for a, _ in pairs]
     pb = [u32_to_torch(_narrow32(b, wn32, rows), dev) for _, b in pairs]
     return _expand(pa, pb, _unpack(u32_to_torch(lc, dev), 1 + n), n, nw32)
+
+
+class RowSelection:
+    """Systems whose rows are picked per request from one device-resident
+    matrix ``eqs`` ((rows, W32) int32, e.g. from :func:`quad_rows`) of
+    ``system``.
+
+    A request passes a host boolean mask over the rows.  :meth:`select`
+    uploads the kept indices once and gathers the kept rows on the device,
+    padded to the solver's row bucket with copies of the first kept row: a
+    duplicate row is inert under RREF, and the solver then meets one shape
+    per bucket (the CUDA graphs of ``gauss_blocked`` replay it).  Where the
+    system solves on the blocked backend the template is padded once to the
+    word alignment that ``solver.solve_packed`` pads to, so a request's
+    gather is the whole padded matrix."""
+
+    def __init__(self, system, eqs: torch.Tensor):
+        from . import gauss_blocked, solver
+
+        if not isinstance(eqs, torch.Tensor) or eqs.dtype != torch.int32 or eqs.dim() != 2:
+            raise TypeError("eqs must be a (rows, W32) int32 tensor")
+        self.system = system
+        self.rows = eqs.shape[0]
+        self.bucket = gauss_blocked._ROW_BUCKET
+        if solver._resolve_backend(system._backend, system._cols, eqs.device) == "blocked":
+            eqs = gauss_blocked._pad_device(eqs, gauss_blocked.K_PANEL, 128)
+        self.eqs = eqs
+
+    def select(self, keep) -> torch.Tensor:
+        """The rows ``keep`` ((rows,) bool, on the host) marks, gathered on
+        the device and padded to a multiple of the row bucket.  Span
+        ``quad.select``."""
+        with profiling.span("quad.select"):
+            keep = np.asarray(keep, dtype=bool)
+            if keep.shape != (self.rows,):
+                raise ValueError(f"keep must be a ({self.rows},) mask, got {keep.shape}")
+            sel = np.flatnonzero(keep)
+            if not sel.size:
+                raise ValueError("keep selects no row")
+            idx = np.full(-(-sel.size // self.bucket) * self.bucket, sel[0], dtype=np.int64)
+            idx[: sel.size] = sel
+            return self.eqs.index_select(0, to_device(torch.from_numpy(idx), self.eqs.device))
+
+    def space(self, keep):
+        """The affine solution space of the kept rows (mode 1), or None when
+        they are unsatisfiable."""
+        return self.system.solve_raw_packed(self.select(keep), 1)
+
+    def solve_one(self, keep, *, max_dimension: int = 16):
+        """The first point of the kept rows' space that passes the system's
+        consistency filter (as ``solve_one_packed``), or None.  A space past
+        ``max_dimension`` raises ``DimensionTooLargeError``."""
+        space = self.space(keep)
+        if space is None:
+            return None
+        return next(self.system._enumerate_space(space, max_dimension), None)
 
 
 def mul_bits_batch(system, a_rows: np.ndarray, b_rows: np.ndarray) -> np.ndarray:

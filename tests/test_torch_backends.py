@@ -31,6 +31,7 @@ from gf2bv_tpu.ops import gauss_ref as gauss_ref_jax
 from gf2bv_tpu.ops import solver as solver_jax
 from gf2bv_tpu_torch import LinearSystem, u32_to_torch
 from gf2bv_tpu_torch import _native
+from gf2bv_tpu_torch.core import affine as affine_torch
 from gf2bv_tpu_torch.core import packing
 from gf2bv_tpu_torch.core.affine import AffineSpace
 from gf2bv_tpu_torch.ops import extract, gauss_blocked, gauss_jax, gauss_ref, lazy_solve, solver
@@ -420,17 +421,24 @@ def test_native_sweep(candidates):
 
 
 @pytest.mark.parametrize("dim,start,count", [(0, 0, 1), (7, 0, 128), (20, 1000, 300),
-                                             (40, (1 << 38) + 5, 64)])
+                                             (40, (1 << 38) + 5, 64),
+                                             (18, 77, 1 << 17), (40, (1 << 38) + 5, 1 << 17)])
 def test_enumerate_packed_native_branch(monkeypatch, dim, start, count):
-    """AffineSpace.enumerate_packed takes the C engine when it builds; its
-    points are the numpy path's and the reference's."""
+    """AffineSpace.enumerate_packed takes the C engine when it builds and the
+    batch holds ``_NATIVE_MIN_WORDS`` output words or more; its points are
+    the numpy path's and the reference's."""
     rng = np.random.default_rng(dim)
     cols = 77
     origin = packing.int_to_words(int(rng.integers(0, 1 << 62)), cols)
     basis = (packing.ints_to_rows([int(rng.integers(1, 1 << 62)) << 10 for _ in range(dim)], cols)
              if dim else np.zeros((0, packing.nwords64(cols)), np.uint64))
     sp, sp_j = AffineSpace(origin, basis, cols), AffineSpaceJax(origin, basis, cols)
+    calls = []
+    real = _native.enumerate_native
+    monkeypatch.setattr(_native, "enumerate_native", lambda *a: calls.append(a) or real(*a))
     got = sp.enumerate_packed(start, count, True)
+    big = count * packing.nwords64(cols) >= affine_torch._NATIVE_MIN_WORDS
+    assert len(calls) == int(big and _native.available())
     assert np.array_equal(got, sp_j.enumerate_packed(start, count, True))
     monkeypatch.setattr(_native, "available", lambda: False)
     assert np.array_equal(got, sp.enumerate_packed(start, count, True))

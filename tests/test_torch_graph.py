@@ -1,5 +1,6 @@
-"""The mode-0 elimination replayed from a CUDA graph
-(``gauss_blocked.rref_origin_blocked``): the routing on the CPU, and on the
+"""The eliminations replayed from a CUDA graph: mode 0's
+(``gauss_blocked.rref_origin_blocked``) and mode 1's full RREF
+(``gauss_blocked.rref_full_blocked``).  The routing on the CPU, and on the
 card the replay against the eager body, results held across replays, the
 launch accounting, and what the profiler sees.
 
@@ -27,6 +28,7 @@ from gf2bv_tpu_torch.utils import profiling
 torch.set_num_threads(2)
 
 COUNTERS = ("rref_calls", "rref_graph_replays", "rref_graph_captures")
+FULL_COUNTERS = ("rref_full_calls", "rref_full_graph_replays", "rref_full_graph_captures")
 
 
 @pytest.fixture(autouse=True)
@@ -36,9 +38,9 @@ def _no_graphs():
     gauss_blocked.clear_graphs()
 
 
-def _counted(fn):
-    """``fn()`` under a profiler; (its result, the three counters summed
-    over the span log)."""
+def _counted(fn, counters=COUNTERS):
+    """``fn()`` under a profiler; (its result, the ``counters`` summed over
+    the span log)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
@@ -48,7 +50,7 @@ def _counted(fn):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     recs = profiling.spans()
-    return out, {c: sum(r["counters"].get(c, 0) for r in recs) for c in COUNTERS}
+    return out, {c: sum(r["counters"].get(c, 0) for r in recs) for c in counters}
 
 
 # -- the routing, on the CPU -----------------------------------------------------------
@@ -80,9 +82,29 @@ def test_the_gate_keys_a_cuda_matrix_by_shape_and_engines(monkeypatch, p1, p2):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     key = gauss_blocked._graph_key(_stand_in(), 19968, 256, p1, p2)
     base = lambda name: name.removesuffix("_interpret")  # noqa: E731
-    assert key == (torch.device("cuda:0"), 20224, 640, 19968, 256, base(p1), base(p2))
+    assert key == (torch.device("cuda:0"), 20224, 640, 19968, 256, base(p1), base(p2), "rref")
     other = gauss_blocked._graph_key(_stand_in(shape=(67328, 640)), 19968, 256, p1, p2)
     assert other != key
+
+
+@pytest.mark.parametrize("case,a,p1", [
+    ("cpu tensor", _stand_in("cpu", (8960, 384)), "pallas_scan"),
+    ("pallas_sub", _stand_in(shape=(8960, 384)), "pallas_sub"),
+    ("jnp", _stand_in(shape=(8960, 384)), "jnp"),
+])
+def test_mode1_keys_by_the_same_gate_apart_from_mode0(monkeypatch, case, a, p1):
+    """The full RREF's key is mode 0's with its own kind, and a matrix the
+    gate sends to the eager body in mode 0 goes there in mode 1 too."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert gauss_blocked._graph_key(a, 8256, 256, p1, "mxu", "rref_full") is None, case
+    a = _stand_in(shape=(8960, 384))
+    full = gauss_blocked._graph_key(a, 8256, 256, "pallas_scan", "mxu", "rref_full")
+    zero = gauss_blocked._graph_key(a, 8256, 256, "pallas_scan", "mxu")
+    assert full[:-1] == zero[:-1] and (zero[-1], full[-1]) == ("rref", "rref_full")
+    for key in (zero, full):
+        gauss_blocked._record_seen(key)
+    entries = [gauss_blocked._graph_for(key) for key in (zero, full)]
+    assert entries[0] is not entries[1] and [e.kind for e in entries] == ["rref", "rref_full"]
 
 
 def test_the_gate_refuses_an_unknown_engine_as_the_body_does(monkeypatch):
@@ -351,8 +373,8 @@ def test_the_profiler_sees_every_kernel_of_a_replay(dev):
 
 @pytest.mark.cuda
 def test_paths_that_never_capture(dev):
-    """A shape's first call, mode 1, ``pallas_sub`` and ``jnp`` capture no
-    graph."""
+    """A shape's first call, ``pallas_sub`` and ``jnp`` capture no graph;
+    mode 1 leaves mode 0's counters alone."""
     from gf2bv_tpu_torch.crypto import mt_torch
 
     a, state = _mt_matrix(61, 624, dev)
@@ -364,6 +386,7 @@ def test_paths_that_never_capture(dev):
     for _ in range(3):
         _, counts = _counted(lambda: mt_torch.solve_mt19937(outs, 32, mode=1))
         assert counts["rref_calls"] == 0
+    gauss_blocked.clear_graphs()
     for p1, (seed, rows, cols) in (("pallas_sub", (1, 700, 600)), ("jnp", (2, 300, 200))):
         _, a32 = _system(seed, rows, cols)
         m = u32_to_torch(a32, dev)
@@ -407,3 +430,150 @@ def test_threads_on_their_own_streams_share_one_graph(dev):
     for k, origin, bad in got:
         assert torch.equal(origin, want[k]) and not bad
     assert len(gauss_blocked._graphs) == 1
+
+
+# -- mode 1 on the card: the NLFSR annihilator system ------------------------------------
+
+NLFSR_TAPS = 0xD670201BAC7515352A273372B2A95B23
+NLFSR_SELECT = (13, 24, 35, 46, 57)
+NLFSR_STEPS = 2**14 + 1000
+NLFSR_COLS = 128 + 128 * 127 // 2
+_NLFSR = []
+
+
+def _nlfsr_rows(dev):
+    """Every step's annihilator row of the 128-bit filtered LFSR of
+    upstream's examples/nlfsr.py, on the card, as a row selection."""
+    if not _NLFSR:
+        from gf2bv_tpu_torch import BitVec, LinearSystem, QuadraticSystem
+        from gf2bv_tpu_torch.crypto.lfsr import GaloisLFSR
+        from gf2bv_tpu_torch.ops import quad_device
+
+        gens = BitVec.stack(LinearSystem([128], device=dev).gens(lazy=False))
+        reg = GaloisLFSR(128, NLFSR_TAPS, gens)
+        taps = ([], [], [])
+        for _ in range(NLFSR_STEPS):
+            reg()
+            for bits, p in zip(taps, NLFSR_SELECT):
+                bits.append(reg.state[p])
+        f = [BitVec.stack(b) for b in taps]
+        q = QuadraticSystem([128], device=dev)
+        eqs = quad_device.quad_rows(q, [(f[0], f[1]), (f[1], f[2])], f, (1 << NLFSR_STEPS) - 1)
+        _NLFSR.append(q.select_rows(eqs))
+    return _NLFSR[0]
+
+
+def _nlfsr_victim(seed):
+    """A secret and its keystream (bool, one a step)."""
+    from gf2bv_tpu_torch.crypto.lfsr import GaloisLFSR
+
+    secret = random.Random(seed).getrandbits(128) | 1
+    reg = GaloisLFSR(128, NLFSR_TAPS, secret)
+    out = []
+    for _ in range(NLFSR_STEPS):
+        reg()
+        x = [(reg.state >> p) & 1 for p in NLFSR_SELECT]
+        out.append((x[0] & x[1]) ^ (x[0] & x[1] & x[3] & x[4]) ^ x[0] ^ x[1] ^ x[2])
+    return secret, np.array(out, dtype=bool)
+
+
+def _nlfsr_matrix(dev, bucket, seed):
+    """A victim's selected matrix in the row bucket ``bucket``: the first
+    ``bucket - 100`` rows of its keystream's ones, topped up with rows of
+    its zeros where it has fewer ones (whose equations the secret need not
+    meet: the system is then unsatisfiable).  Also whether it was topped
+    up."""
+    _, ks = _nlfsr_victim(seed)
+    ones, zeros = np.flatnonzero(ks), np.flatnonzero(~ks)
+    want = bucket - 100
+    rows = ones[:want] if ones.size >= want else np.concatenate([ones, zeros[: want - ones.size]])
+    keep = np.zeros(NLFSR_STEPS, dtype=bool)
+    keep[rows] = True
+    a = _nlfsr_rows(dev).select(keep)
+    assert a.shape[0] == bucket
+    return a, ones.size < want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [8704, 8960])
+def test_mode1_replay_equals_the_eager_body_bit_for_bit(dev, bucket):
+    """Three victims a bucket (topped up with wrong rows where they have too
+    few ones: unsatisfiable), the first solved three times (eager, capture, replay),
+    against ``rref_blocked(trailing=False)`` on the same matrix: the RREF,
+    the pivot map and the verdict."""
+    calls, verdicts, topped = [], [], []
+    for seed, times in ((81, 3), (82, 1), (83, 1)):
+        a, wrong_rows = _nlfsr_matrix(dev, bucket, seed)
+        topped.append(wrong_rows)
+        keep = a.clone()
+        want = gauss_blocked.rref_blocked(a, NLFSR_COLS, trailing=False)
+        for _ in range(times):
+            got, counts = _counted(lambda: gauss_blocked.rref_full_blocked(a, NLFSR_COLS),
+                                   FULL_COUNTERS)
+            calls.append(counts)
+            assert len(got) == 3 and all(torch.equal(g, w) for g, w in zip(got, want))
+        verdicts.append(bool(want[2]))
+        assert torch.equal(a, keep)
+    assert [c["rref_full_graph_captures"] for c in calls] == [0, 1, 0, 0, 0]
+    assert [c["rref_full_graph_replays"] for c in calls] == [0, 1, 1, 1, 1]
+    assert all(c["rref_full_calls"] == 1 for c in calls)
+    assert verdicts == topped and any(verdicts)
+    assert len(gauss_blocked._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_mode1_results_held_across_replays_keep_their_values(dev):
+    mats = [_nlfsr_matrix(dev, 8704, seed)[0] for seed in (91, 92)]
+    for a in mats:  # eager, then the capture
+        gauss_blocked.rref_full_blocked(a, NLFSR_COLS)
+    first = gauss_blocked.rref_full_blocked(mats[0], NLFSR_COLS)
+    held = [t.clone() for t in first]
+    second = gauss_blocked.rref_full_blocked(mats[1], NLFSR_COLS)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, h) for t, h in zip(first, held))
+    assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+def test_a_mode1_replay_counts_one_eager_calls_launches(dev):
+    a = _nlfsr_matrix(dev, 8704, 93)[0]
+    _cuda.reset_launches()
+    gauss_blocked.rref_blocked(a, NLFSR_COLS, trailing=False)
+    eager = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+    per_call = []
+    for _ in range(3):  # eager, capture and replay, replay
+        _cuda.reset_launches()
+        gauss_blocked.rref_full_blocked(a, NLFSR_COLS)
+        per_call.append({k: n for k, n in _cuda.LAUNCHES.items() if n})
+    print(f"mode 1, 8704 rows: {eager}")
+    assert per_call == [eager] * 3 and sum(eager.values()) > 0
+
+
+@pytest.mark.cuda
+def test_mode1_and_mode0_keys_of_one_shape_are_distinct_entries(dev):
+    a, _ = _mt_matrix(111, 624, dev)
+    want0 = gauss_blocked._rref_origin_eager(a, COLS)
+    want1 = gauss_blocked.rref_blocked(a, COLS, trailing=False)
+    for _ in range(3):  # eager, capture, replay: each body its own entry
+        got0 = gauss_blocked.rref_origin_blocked(a, COLS)
+        got1 = gauss_blocked.rref_full_blocked(a, COLS)
+        assert all(torch.equal(g, w) for g, w in zip(got0, want0))
+        assert all(torch.equal(g, w) for g, w in zip(got1, want1))
+    kinds = sorted(entry.kind for entry in gauss_blocked._graphs.values())
+    assert kinds == ["rref", "rref_full"]
+    assert len({key[:-1] for key in gauss_blocked._graphs}) == 1
+
+
+@pytest.mark.cuda
+def test_nlfsr_selected_solve_one_recovers_the_secret(dev):
+    """The benchmark's request: the keystream's ones kept, solved in mode 1
+    from the graph once the bucket is warm, the secret the first consistent
+    point; the kept indices are one upload."""
+    sel = _nlfsr_rows(dev)
+    for seed in (121, 122, 123, 124):
+        secret, ks = _nlfsr_victim(seed)
+        got, counts = _counted(lambda: sel.solve_one(ks),
+                               FULL_COUNTERS + ("h2d_copies",))
+        print(f"seed {seed}: {counts}")
+        assert got == (secret,)
+        assert counts["rref_full_calls"] == 1 and counts["h2d_copies"] >= 1
