@@ -201,8 +201,9 @@ EXPECTED_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 16, "update_s
 MODE1_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 79}
 BATCH1_LAUNCHES = {"scan_batched": 80, "reconstruct_batched": 80, "update_full": 320}
 BATCH0_LAUNCHES = {"scan_batched": 80, "reconstruct_batched": 80, "update_trailing": 320}
-# (phase1, phase2) -> launch counts of one flagship mode-0 solve (pallas_sub:
-# checked against its fallback count in check_engines)
+# (phase1, phase2) -> launch counts of one flagship mode-0 solve, each the
+# first call of its engines' graph key, so eager (pallas_sub: checked against
+# its fallback count in check_engines)
 ENGINE_LAUNCHES = {
     ("pallas_scan2", "mxu"): {"scan2": 79, "reconstruct": 79, "update_full": 16,
                               "update_seg": 63},
@@ -212,13 +213,17 @@ ENGINE_LAUNCHES = {
     ("pallas_sub", "mxu"): None,
     ("pallas_scan", "mxu_la"): {"scan": 1, "reconstruct": 79, "update_scan": 79,
                                 "update_full": 79},
-    ("pallas_scan", "mxu_noseg"): {"scan": 79, "reconstruct": 79, "update_trailing": 79},
+    ("pallas_scan", "mxu_noseg"): {"scan": 79, "reconstruct": 79, "update_trailing": 79,
+                                   "scan_subset": 79, "scan_subset_test": 79},
 }
 UPDATE_ENGINES = ("pallas", "mxu2", "mxu4")
 for _p2 in UPDATE_ENGINES:
     ENGINE_LAUNCHES[("pallas_scan", _p2)] = {"scan": 79, "reconstruct": 79,
-                                             f"update_{_p2}": 79}
-MULTI_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 79}
+                                             f"update_{_p2}": 79, "scan_subset": 79,
+                                             "scan_subset_test": 79}
+# multi-RHS and the sweep run rref_blocked eager: every panel subset-first
+MULTI_LAUNCHES = {"scan": 79, "reconstruct": 79, "update_full": 79, "scan_subset": 79,
+                  "scan_subset_test": 79}
 WP_MULTI = WP + 128  # the multi-RHS matrix: one appended 128-word tile
 NB_MULTI = 256  # instances of the multi-RHS batch
 SWEEP_BITS = 12  # pinned state bits of the sweep: 4096 candidates
@@ -249,6 +254,8 @@ KERNELS = {
              "gf2bv_tpu/ops/pallas_phase1.py:233"),
     "scan_chunked": ("scan_chunked", "gf2bv_tpu_torch/csrc/scan_chunked.cu",
                      "gf2bv_tpu/ops/pallas_phase1.py:233"),
+    "scan_subset": ("scan_subset", "gf2bv_tpu_torch/csrc/scan_subset.cu",
+                    "gf2bv_tpu/ops/pallas_phase1.py:233"),
     "reconstruct": ("reconstruct", "gf2bv_tpu_torch/csrc/reconstruct.cu",
                     "gf2bv_tpu/ops/pallas_phase1.py:278"),
     "update_seg": ("update_seg", "gf2bv_tpu_torch/csrc/update_table.cu",
@@ -395,6 +402,15 @@ def check_launches(what: str, want: dict) -> dict:
     return got
 
 
+def subset_first(want: dict, panels: int) -> dict:
+    """``want`` with ``panels`` panels scanned subset-first: a subset kernel
+    and a test each, beside the gated full scan ``want`` counts.  A shape's
+    eager first call scans every panel so; a replay only the panels its
+    first call's subset decided (the flagship's MT19937 systems: all but
+    panel 0)."""
+    return {**want, "scan_subset": panels, "scan_subset_test": panels}
+
+
 def check_kernels(dev, card: str) -> dict:
     """Each kernel against its plain twin at the flagship shapes."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
@@ -477,6 +493,7 @@ def check_kernels(dev, card: str) -> dict:
     res.update(check_update_engine_kernels(dev, card, a, used, w0, sel, pf))
     res.update(check_redesign(dev, card, a, bT, used, w0, sel, pf))
     res.update(check_chunked(dev, card, w0))
+    res.update(check_subset_scans(dev, card, a))
     for name, (_, ms, plain_ms) in res.items():
         bound_ms, by, _ = BOUNDS[name]
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -612,6 +629,98 @@ def check_chunked(dev, card: str, w0: int) -> dict:
               f"({card})")
     res.update(check_scan2_chunked(card, bT, used, w0, res["scan_chunked"][1]))
     res.update(check_fused_chunked(dev, card, a, bT, used, w0, res["scan_chunked"][1]))
+    return res
+
+
+def subset_panel_inputs(a, cols: int, panels, trailing: bool = True) -> dict:
+    """{t: (bT, used, w0)}: the inputs of panel t's subset-first scan in the
+    default engine's eager elimination of ``a`` (every panel subset-first)."""
+    from gf2bv_tpu_torch.ops import gauss_blocked
+
+    seen = {}
+    real = gauss_blocked.scan_subset
+
+    def spy(bT, used, w0, k, c, decided):
+        if w0 // (k // 32) in panels:
+            seen[w0 // (k // 32)] = (bT.clone(), used.clone(), w0)
+        return real(bT, used, w0, k, c, decided)
+
+    gauss_blocked.scan_subset = spy
+    try:
+        gauss_blocked.rref_blocked(a, cols, K, trailing)
+    finally:
+        gauss_blocked.scan_subset = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def subset_case(card: str, what: str, bT, used, w0: int, cols: int, want_decided=None):
+    """``phase1.launch_scan_subset`` on one panel's inputs against its twin
+    (``scan_subset_plain`` on the CPU, the chained scan's twin as the
+    fallback past the largest cluster) and against ``scan_plain``: prow,
+    used', ``decided`` and cT at the pivot rows, bit for bit; its launches;
+    its time beside the full scan's on the same inputs.  Returns (err, ms,
+    full scan's ms, decided)."""
+    from gf2bv_tpu_torch.ops import _cuda, phase1
+
+    kw, rows = bT.shape
+    route = phase1.scan_route(rows, kw)
+    chained = route.kernel == "scan_chunked"
+    decided = torch.full((1,), 7, dtype=torch.int32, device=bT.device)
+    _cuda.reset_launches()
+    prow, used_o, cT, _ = phase1.launch_scan_subset(bT, used, w0, K, cols, decided)
+    torch.cuda.synchronize()
+    check_launches(f"subset-first scan, {what}", {
+        "scan_subset": 1, "scan_subset_test": 1, route.kernel: route.chunks if chained else 1})
+    got = int(decided)
+    twin = phase1.scan_subset_plain(bT.cpu(), used.cpu(), w0, K, cols,
+                                    chunk_rows=route.chunk_rows if chained else None)
+    full = phase1.scan_plain(bT, used, w0, K, cols)
+    piv = full[0].clamp(min=0).long()[full[0] >= 0]
+    if got != int(twin[3]) or (want_decided is not None and got != int(want_decided)):
+        raise AssertionError(f"subset-first scan, {what}: decided {got}, its twin "
+                             f"{int(twin[3])}, expected {want_decided}")
+    dev = bT.device
+    err = require_equal(f"subset-first scan, {what}, against its twin", [
+        (prow, twin[0].to(dev)), (used_o, twin[1].to(dev)), (cT[:, piv], twin[2].to(dev)[:, piv])])
+    require_equal(f"subset-first scan, {what}, against scan_plain", [
+        (prow, full[0]), (used_o, full[1]), (cT[:, piv], full[2][:, piv])])
+    if int(piv.numel()) == 0:
+        raise AssertionError(f"subset-first scan, {what}: the panel has no pivots")
+    ms = cuda_ms(lambda: phase1.launch_scan_subset(bT, used, w0, K, cols, decided), 5)
+    full_ms = cuda_ms(lambda: phase1.scan(bT, used, w0, K, cols), 5)
+    print(f"subset-first scan, {what} ({rows} rows, {int(piv.numel())} pivots): "
+          f"{'decided by the subset' if got else 'missed: the ' + route.kernel + ' fallback ran'}"
+          f"; = its twin and scan_plain; {ms:.4f} ms a panel (subset kernel, test and gated "
+          f"{route.kernel}), the full scan alone {full_ms:.4f} ms ({card})")
+    return err, ms, full_ms, got
+
+
+def check_subset_scans(dev, card: str, a) -> dict:
+    """The subset-first scan on real panels of the solver (the inputs the
+    eager elimination hands it): flagship panels 0 (the subset misses: the
+    cluster scan runs), 1, 20 and 78 (the subset decides), and panels 0 and
+    20 of the very tall system (its fallback the chained scan).  Returns the
+    kernels-line entry: flagship panel 20, its plain twin's time, and the
+    bound of the bytes a decided panel must move (used read, used' written,
+    the subset's words read and their coefficient words written, prow and
+    the record written)."""
+    from gf2bv_tpu_torch.crypto.mt_torch import COLS
+    from gf2bv_tpu_torch.ops import phase1
+
+    S = phase1.SCAN_SUBSET_ROWS
+    res = {}
+    for t, (bT, used, w0) in sorted(subset_panel_inputs(a, COLS, (0, 1, 20, 78)).items()):
+        err, ms, _, _ = subset_case(card, f"flagship panel {t}", bT, used, w0, COLS, t != 0)
+        if t == 20:
+            plain_ms = cuda_ms(lambda: phase1.scan_subset_plain(bT, used, w0, K, COLS), 1)
+            res["scan_subset"] = (err, ms, plain_ms)
+            note_bound("scan_subset", 2 * nbytes(used) + 2 * 4 * (K // 32) * S
+                       + 4 * (K + phase1.subset_scratch_words(K)))
+    vouts = mt_outputs(SEED + 8, VERY_TALL_SAMPLES)[1]
+    tall = flagship_system(dev, vouts, VERY_TALL_ROWS)
+    for t, (bT, used, w0) in sorted(subset_panel_inputs(tall, COLS, (0, 20)).items()):
+        subset_case(card, f"very tall panel {t}", bT, used, w0, COLS, t != 0)
     return res
 
 
@@ -1284,7 +1393,7 @@ def check_main_path(dev, card: str) -> dict:
     _cuda.reset_launches()
     got = solve_mt19937(outs, 32, device=dev)
     torch.cuda.synchronize()
-    launches = check_launches("solve_mt19937", EXPECTED_LAUNCHES)
+    launches = check_launches("solve_mt19937", subset_first(EXPECTED_LAUNCHES, 79))
     if got != state:
         raise AssertionError("solve_mt19937 did not recover the MT19937 state")
     print(f"solve_mt19937: state recovered; launches {launches}")
@@ -1300,7 +1409,8 @@ def check_main_path(dev, card: str) -> dict:
     cold_s = time.perf_counter() - t0
     if got_ls != state:
         raise AssertionError("LinearSystem.solve_one did not recover the MT19937 state")
-    check_launches("LinearSystem.solve_one", EXPECTED_LAUNCHES)
+    # the shape's second call: captured, and replayed under the first call's plan
+    check_launches("LinearSystem.solve_one", subset_first(EXPECTED_LAUNCHES, 78))
     t0 = time.perf_counter()
     lin.solve_one(zeros)
     warm_ls = time.perf_counter() - t0
@@ -1360,7 +1470,7 @@ def check_mode1(dev, card: str) -> None:
     _cuda.reset_launches()
     space = solve_mt19937(outs, 32, mode=1, device=dev)
     torch.cuda.synchronize()
-    check_launches("solve_mt19937 mode 1", MODE1_LAUNCHES)
+    check_launches("solve_mt19937 mode 1", subset_first(MODE1_LAUNCHES, 79))
     if space is None or space.dimension != 0 or space.origin != state_int(state):
         raise AssertionError("solve_mt19937(mode=1) is not the dimension-0 space at the state")
     print(f"solve_mt19937 mode 1: dimension 0 at the state; launches {MODE1_LAUNCHES}")
@@ -1382,7 +1492,8 @@ def check_mode1(dev, card: str) -> None:
     space = lin.solve_raw_space(zeros)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    check_launches("solve_raw_space", MODE1_LAUNCHES)
+    # 19968 equations: a row bucket of its own, so an eager first call
+    check_launches("solve_raw_space", subset_first(MODE1_LAUNCHES, 79))
     if space is None or space.dimension != 31:
         raise AssertionError(f"solve_raw_space without the MSB equations: dimension "
                              f"{None if space is None else space.dimension}, expected 31")
@@ -1658,8 +1769,9 @@ def check_engines(dev, card: str) -> dict:
             if p1 == "pallas_sub":
                 counts = check_subset_launches("tall pallas_sub")
             else:  # pallas_scanm runs the 1-pivot scan at 40192 rows
-                counts = check_launches(f"tall {p1}", {
-                    "scan": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+                want = {"scan": 79, "reconstruct": 79, "update_full": 16, "update_seg": 63}
+                counts = check_launches(f"tall {p1}", subset_first(want, 79)
+                                        if p1 == "pallas_scan" else want)
             if got != tstate:
                 raise AssertionError(f"tall system, {p1}: state not recovered")
             best = warm_best(lambda: solve_mt19937(touts, 32, samples=TALL_SAMPLES, device=dev),
@@ -1675,8 +1787,9 @@ def check_engines(dev, card: str) -> dict:
 
     _cuda.reset_launches()
     got, cold = timed(very_tall)
-    counts = check_launches("very tall system", {
-        "scan_chunked": 79 * chunks, "reconstruct": 79, "update_full": 16, "update_seg": 63})
+    counts = check_launches("very tall system", subset_first({
+        "scan_chunked": 79 * chunks, "reconstruct": 79, "update_full": 16, "update_seg": 63},
+        79))
     if got != vstate:
         raise AssertionError("very tall system: state not recovered")
     launches["scan_chunked"] = counts["scan_chunked"]
@@ -1782,8 +1895,8 @@ def check_multi_rhs(dev, card: str) -> dict:
             _cuda.reset_launches()
             got = tmpl.solve_one_batch(batch)
             torch.cuda.synchronize()
-            counts = check_launches(f"multi-RHS under {p2}", {
-                "scan": 79, "reconstruct": 79, f"update_{p2}": 79})
+            counts = check_launches(f"multi-RHS under {p2}", subset_first({
+                "scan": 79, "reconstruct": 79, f"update_{p2}": 79}, 79))
             if got != states:
                 raise AssertionError(f"multi-RHS under {p2}: states differ from the default's")
             launches[f"update_{p2}"] = counts[f"update_{p2}"]
@@ -1846,7 +1959,7 @@ def check_skip_and_jnp(dev, card: str) -> None:
         _cuda.reset_launches()
         got = solve_mt19937(outs, 32, device=dev)
         torch.cuda.synchronize()
-        check_launches("skip", {"scan": 79, "reconstruct": 79})
+        check_launches("skip", subset_first({"scan": 79, "reconstruct": 79}, 79))
         if got == state:
             raise AssertionError("phase2=skip cannot recover the state")
         t = min(timed(lambda: solve_mt19937(outs, 32, device=dev))[1] for _ in range(3))
@@ -1965,13 +2078,20 @@ def check_quadratic(dev, card: str) -> dict:
         solutions = [s for (s,) in qsys.solve_all_packed(eqs_sel)]
         torch.cuda.synchronize()
         panels = -(-(qsys.cols + 1) // K)
-        launches[name] = check_launches(f"NLFSR {name} solve_all_packed", {
-            "scan": panels, "reconstruct": panels, "update_full": panels})
+        launches[name] = check_launches(f"NLFSR {name} solve_all_packed", subset_first({
+            "scan": panels, "reconstruct": panels, "update_full": panels}, panels))
         if not solutions or any(s != secret for s in solutions):
             raise AssertionError(f"{name}: solve_all_packed did not recover the secret "
                                  f"({len(solutions)} solutions)")
         if qsys.solve_one_packed(eqs_sel) != (secret,):
             raise AssertionError(f"{name}: solve_one_packed did not recover the secret")
+        if k == 0:  # the subset-first scan on this bucket's real panels (mode 1)
+            from gf2bv_tpu_torch.ops import gauss_blocked
+
+            padded = gauss_blocked._pad_device(eqs_sel, K)  # as the solver pads it
+            for t, (bT, used, w0) in sorted(subset_panel_inputs(
+                    padded, qsys.cols, (0, panels // 2, panels - 1), False).items()):
+                subset_case(card, f"NLFSR {name} panel {t}", bT, used, w0, qsys.cols)
 
         _, build_wall, build_ev = event_ms(build)
         build_dev = device_ms(build)
@@ -2029,7 +2149,8 @@ def check_sfmt(dev, card: str) -> dict:
 
     _cuda.reset_launches()
     state, cold_s = timed(lambda: lin.solve_one(zeros))
-    launches = check_launches("SFMT19937 solve_one", EXPECTED_LAUNCHES)
+    # the shape's graph (the tall MT19937 system's) was evicted since: eager
+    launches = check_launches("SFMT19937 solve_one", subset_first(EXPECTED_LAUNCHES, 79))
     if state is None:
         raise AssertionError("SFMT19937: solve_one found the system unsatisfiable")
     clone = SFMT19937(list(state), index=624)
@@ -2454,8 +2575,9 @@ def check_sharded(dev, card: str) -> dict:
     batch = [o for _, o in pairs]
     if tmpl.solve_one(batch[0]) != states[0]:
         raise AssertionError("captured-trace solve_one did not recover the state")
-    per_shard = {"scan": SHARDS * panels, "reconstruct": SHARDS * panels,
-                 "update_full": SHARDS * panels}
+    # each shard's eliminations run rref_blocked eager: every panel subset-first
+    per_shard = subset_first({"scan": SHARDS * panels, "reconstruct": SHARDS * panels,
+                              "update_full": SHARDS * panels}, SHARDS * panels)
     no_rounds = {k: 0 for k in collectives.COUNTS}
     raws = counted(f"sharded multi-RHS B={NB_MULTI}",
                    lambda: tmpl.solve_raw_batch(batch, 0, mesh=batch_mesh), per_shard, no_rounds)

@@ -73,13 +73,17 @@ scan_block_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict_
 
 // The cluster scan over `batch` systems: the grid is batch clusters of nb
 // blocks (plain blocks when nb == 1), and cluster blockIdx.x / nb scans system
-// blockIdx.x / nb.  kMinKey: the min-key election.
+// blockIdx.x / nb.  kMinKey: the min-key election.  skip_if: null, or a word
+// that makes the launch return at once where it is nonzero.
 template <bool kCluster, int kSlots, bool kMinKey>
 __global__ void __launch_bounds__(gf2::kClusterThreads, 1)
 scan_cluster_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
                     int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
                     uint32_t* __restrict__ cT, int rows, int kw, int w0, int cols, int rpb,
-                    int rpb_pad, int nb) {
+                    int rpb_pad, int nb, const int32_t* __restrict__ skip_if) {
+  // the subset-first scan's fallback: every block reads the same word, so the
+  // whole grid returns before the body's first cluster barrier
+  if (skip_if != nullptr && *skip_if != 0) return;
   extern __shared__ uint4 smem4[];
   const int b = blockIdx.x / nb;
   const size_t slice = (size_t)kw * rows;  // words of one system's bT / cT
@@ -172,6 +176,7 @@ namespace {
 // One call of the cluster scan: `batch` systems on clusters of nblocks blocks
 // each, by the 1-pivot or the min-key election.  max_clusters set: launch
 // nothing, only report how many such clusters the card holds at once.
+// skip_if: as scan_cluster_kernel's.
 struct ScanCall {
   const uint32_t* bT_in;
   const int32_t* used_in;
@@ -182,6 +187,7 @@ struct ScanCall {
   cudaStream_t stream;
   int* max_clusters;
   bool minkey;
+  const int32_t* skip_if = nullptr;
 };
 
 template <bool kCluster, int kSlots, bool kMinKey>
@@ -198,7 +204,7 @@ cudaError_t launch_scan_cluster(const ScanCall& c, const gf2::ScanGeometry& g) {
   cudaLaunchAttribute attr;
   gf2::cluster_config(&cfg, &attr, c.batch * c.nblocks, c.nblocks, g.smem, c.stream);
   rc = cudaLaunchKernelEx(&cfg, kernel, c.bT_in, c.used_in, c.prow, c.used_out, c.cT, c.rows,
-                          c.kw, c.w0, c.cols, g.rpb, g.rpb_pad, c.nblocks);
+                          c.kw, c.w0, c.cols, g.rpb, g.rpb_pad, c.nblocks, c.skip_if);
   return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 
@@ -235,6 +241,16 @@ extern "C" int gf2_scan(const uint32_t* bT_in, const int32_t* used_in, int32_t* 
                         int nblocks, cudaStream_t stream) {
   return (int)scan_clusters({bT_in, used_in, prow, used_out, cT, 1, rows, kw, w0, cols,
                              nblocks, stream, nullptr, false});
+}
+
+cudaError_t gf2::scan_cluster_gated(const uint32_t* bT_in, const int32_t* used_in,
+                                    int32_t* prow, int32_t* used_out, uint32_t* cT, int rows,
+                                    int kw, int w0, int cols, int nblocks,
+                                    const int32_t* skip_if, cudaStream_t stream) {
+  ScanCall c{bT_in, used_in, prow, used_out, cT, 1, rows, kw, w0, cols, nblocks, stream,
+             nullptr, false};
+  c.skip_if = skip_if;
+  return scan_clusters(c);
 }
 
 // The one-block scan with its state in global memory; bT_work (kw, rows) is

@@ -49,12 +49,15 @@ namespace {
 // Chunk [base, base + nrows) of `batch` systems of a (kw, rows) slice: the
 // grid is batch clusters of nb blocks (plain blocks when nb == 1), cluster
 // blockIdx.x / nb taking system blockIdx.x / nb.  record: (batch, 9 K) words.
+// skip_if: ChunkCall's.
 template <bool kCluster, int kSlots>
 __global__ void __launch_bounds__(gf2::kClusterThreads, 1)
 scan_chunk_kernel(const uint32_t* __restrict__ bT_in, const int32_t* __restrict__ used_in,
                   int32_t* __restrict__ prow, int32_t* __restrict__ used_out,
                   uint32_t* __restrict__ cT, int32_t* __restrict__ record, int rows, int kw,
-                  int w0, int cols, int base, int nrows, int rpb, int rpb_pad, int nb) {
+                  int w0, int cols, int base, int nrows, int rpb, int rpb_pad, int nb,
+                  const int32_t* __restrict__ skip_if) {
+  if (skip_if != nullptr && *skip_if != 0) return;  // the whole grid, before any barrier
   extern __shared__ uint4 smem4[];
   const int b = blockIdx.x / nb;
   const int K = 32 * kw;
@@ -82,7 +85,7 @@ cudaError_t launch_chunk(const gf2::ChunkCall& c, int base, int nrows, int nb,
   gf2::cluster_config(&cfg, &attr, c.batch * nb, nb, g.smem, c.stream);
   rc = cudaLaunchKernelEx(&cfg, kernel, c.bT_in, c.used_in, c.prow, c.used_out, c.cT,
                           c.record, c.rows, c.kw, c.w0, c.cols, base, nrows, g.rpb, g.rpb_pad,
-                          nb);
+                          nb, c.skip_if);
   return rc != cudaSuccess ? rc : cudaGetLastError();
 }
 

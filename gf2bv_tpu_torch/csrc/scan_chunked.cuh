@@ -14,7 +14,9 @@ namespace gf2 {
 
 // One call of the chained scan: `batch` systems, chunks of chunk_rows rows
 // from row 0, each on clusters of nblocks blocks but the last, on
-// nblocks_last.  record: scratch of batch x 9 K words.
+// nblocks_last.  record: scratch of batch x 9 K words.  skip_if: null, or a
+// word that makes every plain link return at once where it is nonzero (the
+// subset-first scan's fallback, scan_subset.cu).
 struct ChunkCall {
   const uint32_t* bT_in;
   const int32_t* used_in;
@@ -24,6 +26,7 @@ struct ChunkCall {
   int32_t* record;
   int batch, rows, kw, w0, cols, chunk_rows, nblocks, nblocks_last;
   cudaStream_t stream;
+  const int32_t* skip_if = nullptr;
 };
 
 // Shared memory of a link before its state, in quads: the election's header

@@ -655,4 +655,12 @@ cudaError_t prepare_cluster_launch(Kernel kernel, ClusterLaunchState* st, int cl
   return cudaSuccess;
 }
 
+// The 1-pivot cluster scan of one system on nblocks blocks (gf2_scan's launch)
+// that returns at once where *skip_if is nonzero: the subset-first scan's
+// fallback (scan_subset.cu).  Defined in scan.cu.
+cudaError_t scan_cluster_gated(const uint32_t* bT_in, const int32_t* used_in, int32_t* prow,
+                               int32_t* used_out, uint32_t* cT, int rows, int kw, int w0,
+                               int cols, int nblocks, const int32_t* skip_if,
+                               cudaStream_t stream);
+
 }  // namespace gf2

@@ -46,6 +46,7 @@ LAUNCHES = {
     "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
     "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
     "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
+    "scan_subset": 0, "scan_subset_test": 0,
 }
 
 _P = ctypes.c_void_p
@@ -77,6 +78,9 @@ _SIGNATURES = {
     # (bT_in, used_in, prow, used_out, cT, record, batch, rows, kw, w0, cols, chunk_rows,
     #  nblocks, nblocks_last, stream)
     "gf2_scan_batched_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (bT_in, used_in, prow, used_out, cT, scratch, decided, rows, kw, w0, cols,
+    #  chunk_rows (0: the cluster scan), nblocks, nblocks_last, stream)
+    "gf2_scan_subset": [_P] * 7 + [_I] * 7 + [_P],
     # (rows, kw, nblocks, out: resident clusters of that size)
     "gf2_scan_occupancy": [_I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, batch, wp, kw, w0, stream)

@@ -33,10 +33,15 @@ runs the engine's Hopper kernels, a CPU tensor their plain twins; nothing
 else chooses between them.  The RREF is unique and every engine keeps the
 pivot rule, so results are bit for bit those of the JAX package.
 
+Under ``pallas_scan`` a panel's scan is the subset-first scan
+(:func:`phase1.scan_subset`: the first ``SCAN_SUBSET_ROWS`` unused rows, with
+the full scan where they miss a pivot), unless a plan says otherwise.
+
 The mode-0 elimination (:func:`rref_origin_blocked`) and the full RREF of
 mode 1 (:func:`rref_full_blocked`) of a system shape met before on the card
 are replayed from a CUDA graph of the same body, kept per body and shape
-(at most :data:`GRAPH_KEYS`).
+(at most :data:`GRAPH_KEYS`).  The graph scans a panel subset-first only
+where the shape's first call's subset decided it (:class:`_RrefGraph`).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from .panel_update import (
 )
 from .phase1 import (
     SUBSET_ROWS, _bitval, phase1_panel, phase1_scan_subset, rebuild_pivots, reconstruct, scan,
+    scan_subset,
 )
 
 K_PANEL = 256  # panel width in bits
@@ -200,9 +206,14 @@ def phase1_panel_jnp(a: torch.Tensor, b_orig: torch.Tensor, used: torch.Tensor,
 
 class _Panels:
     """The state of one blocked elimination: the matrix (updated in place),
-    the used rows and the pivot map (with its dump slot at ``cols``)."""
+    the used rows and the pivot map (with its dump slot at ``cols``).
+    ``decided`` (panels,) int32 is set to 1 on each panel whose subset-first
+    scan decided it; ``subset_first`` (a bool a panel, or None: every panel)
+    says which panels ``pallas_scan`` scans subset-first, the others by
+    :func:`scan`."""
 
-    def __init__(self, a: torch.Tensor, cols: int, K: int, trailing: bool, phase2: str):
+    def __init__(self, a: torch.Tensor, cols: int, K: int, trailing: bool, phase2: str,
+                 decided: torch.Tensor, subset_first: tuple | None):
         self.a = a
         self.cols = cols
         self.K = K
@@ -212,6 +223,8 @@ class _Panels:
         self.bit_ids = torch.arange(K, dtype=I32, device=dev)
         self.used = torch.zeros((1, self.rows), dtype=I32, device=dev)
         self.pof = torch.full((cols + 1,), -1, dtype=I32, device=dev)
+        self.decided = decided
+        self.subset_first = subset_first
         self.trailing = trailing
         self.phase2 = phase2
         # mxu in trailing mode: the segmented update, dead tiles d = w0 // 128
@@ -248,6 +261,9 @@ class _Panels:
                                                        self.cols)
             elif phase1 == "pallas":
                 pf, prow, self.used = phase1_panel(self.a, bT, self.used, w0, K, self.cols)
+            elif phase1 == "pallas_scan" and (self.subset_first is None or self.subset_first[t]):
+                prow, self.used, cT = scan_subset(bT, self.used, w0, K, self.cols,
+                                                  self.decided[t : t + 1])
             else:
                 prow, self.used, cT = scan(bT, self.used, w0, K, self.cols,
                                            _SCAN_VARIANT[phase1])
@@ -335,9 +351,16 @@ class _Panels:
         self.used = used
 
 
+def _panel_count(wp: int, cols: int, k_panel: int) -> int:
+    """Panels of a blocked elimination of ``wp`` words over ``cols`` columns."""
+    kw = k_panel // 32
+    return min(wp // kw, -(-(1 + cols) // (32 * kw)))
+
+
 def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
                  trailing: bool = False, *, phase1: str = "pallas_scan",
-                 phase2: str = "mxu"):
+                 phase2: str = "mxu", subset_first: tuple | None = None,
+                 decided: torch.Tensor | None = None):
     """Blocked RREF of ``a`` (rows, wp) int32.
 
     Returns (rref, pivot_row_of_col (cols,), inconsistent 0-dim bool).  The
@@ -357,6 +380,12 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
     then not a full RREF left of the last panel and ``inconsistent`` is
     unreliable; mode 0 verifies its solution against the original system
     instead (:func:`rref_origin_blocked`).
+
+    Under ``pallas_scan`` a panel is scanned subset-first
+    (:func:`phase1.scan_subset`) where ``subset_first`` (a bool a panel) says
+    so, every panel where it is None, the others by the full scan alone.
+    ``decided``, a (panels,) int32 zero tensor on ``a``'s device where
+    given, receives 1 on each panel the subset-first scan decided.
     """
     p1 = engine(phase1, "phase1")
     p2 = engine(phase2, "phase2")
@@ -364,11 +393,13 @@ def rref_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL,
     kw = K // 32
     rows, wp = a.shape
     pad = -wp % kw
-    panels = min(wp // kw, -(-(1 + cols) // (32 * kw)))
+    panels = _panel_count(wp, cols, K)
     work = torch.nn.functional.pad(a, (0, pad)) if pad else a.clone()
     if p2 == "mxu_la" and not (la_grid(rows, wp + pad)[2] * 32 >= K and (wp + pad) % 128 == 0):
         p2 = "mxu"  # too few grid steps to host a panel's scan: the reference's gate
-    st = _Panels(work, cols, K, trailing, p2)
+    if decided is None:
+        decided = torch.zeros((panels,), dtype=I32, device=a.device)
+    st = _Panels(work, cols, K, trailing, p2, decided, subset_first)
     if p2 == "mxu_la":
         st.lookahead(panels)
     else:
@@ -396,13 +427,51 @@ def origin_parity_unsat(a: torch.Tensor, origin32: torch.Tensor) -> torch.Tensor
     return (parity32(row_words) == 1).any()
 
 
+def _rref_planned(a: torch.Tensor, subset_first: tuple | None, trailing: bool, cols: int,
+                  k_panel: int, phase1: str, phase2: str):
+    """:func:`rref_blocked`'s outputs with its panels scanned subset-first
+    as ``subset_first`` says, and the panels' ``decided`` flags."""
+    decided = torch.zeros((_panel_count(a.shape[1], cols, k_panel),), dtype=I32,
+                          device=a.device)
+    out = rref_blocked(a, cols, k_panel, trailing, phase1=phase1, phase2=phase2,
+                       subset_first=subset_first, decided=decided)
+    return tuple(out), decided
+
+
+def _rref_origin_body(a: torch.Tensor, subset_first: tuple | None, cols: int, k_panel: int,
+                      phase1: str, phase2: str):
+    """The body of :func:`rref_origin_blocked`, its panels scanned
+    subset-first as ``subset_first`` says: ((origin32, unsat), decided)."""
+    (rref32, pof, _), decided = _rref_planned(a, subset_first, True, cols, k_panel, phase1,
+                                              phase2)
+    origin32 = extract_device.origin_device(rref32, pof, cols)
+    return (origin32, origin_parity_unsat(a, origin32)), decided
+
+
 def _rref_origin_eager(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
                        phase1: str = "pallas_scan", phase2: str = "mxu"):
     """The body of :func:`rref_origin_blocked`, run call by call: every
-    panel's PyTorch calls and launches from Python."""
-    rref32, pof, _ = rref_blocked(a, cols, k_panel, True, phase1=phase1, phase2=phase2)
-    origin32 = extract_device.origin_device(rref32, pof, cols)
-    return origin32, origin_parity_unsat(a, origin32)
+    panel's PyTorch calls and launches from Python, every panel of
+    ``pallas_scan`` scanned subset-first."""
+    return _rref_origin_body(a, None, cols, k_panel, phase1, phase2)[0]
+
+
+def _rref_full_body(a: torch.Tensor, subset_first: tuple | None, cols: int, k_panel: int,
+                    phase1: str, phase2: str):
+    """The body of :func:`rref_full_blocked`, as :func:`_rref_origin_body`:
+    ((rref, pivot_row_of_col, inconsistent), decided)."""
+    return _rref_planned(a, subset_first, False, cols, k_panel, phase1, phase2)
+
+
+def _count_scans(decided: torch.Tensor | None, replayed: bool = False) -> None:
+    """While a profiler runs: the panels scanned (``scan_panels``) and
+    those the subset-first scan decided (``scan_subset_panels``), summed
+    from ``decided`` only when the span log is read, so that the elimination
+    waits on nothing; a graph's own flags (``replayed``), which its next
+    replay overwrites, are copied first on the card.  Off, nothing runs."""
+    if decided is not None and profiling.tracing():
+        profiling.count("scan_panels", decided.shape[0])
+        profiling.count_sum("scan_subset_panels", decided.clone() if replayed else decided)
 
 
 # -- the eliminations replayed from a CUDA graph -------------------------------------
@@ -420,27 +489,42 @@ class _RrefGraph:
     it writes, and the launches of the port's kernels it makes per replay.
     ``kind``, the prefix of its counters, names the body: ``"rref"`` the
     mode-0 elimination with its origin (:func:`rref_origin_blocked`),
-    ``"rref_full"`` the full RREF of mode 1 (:func:`rref_full_blocked`)."""
+    ``"rref_full"`` the full RREF of mode 1 (:func:`rref_full_blocked`).
 
-    def __init__(self, kind: str):
+    ``first`` holds the ``decided`` flags of the key's first (eager) call,
+    read once when the graph is captured: the plan scans a panel
+    subset-first where the first call's subset decided it, and by the full
+    scan alone where it missed (the full scan is exact on every system; the
+    subset-first scan stays exact on a later system that misses, through its
+    test on the card).  ``decided``, the graph's own flags, is counted only
+    while a profiler runs (:func:`_count_scans`)."""
+
+    def __init__(self, kind: str, first: torch.Tensor | None = None):
         self.kind = kind
         self.lock = threading.Lock()  # capture and replays, one at a time
         self.graph = self.done = None
         self.static = None
         self.outputs: tuple = ()
+        self.decided = None
+        self.first = first
+        self.plan: tuple | None = None
         self.launches: dict[str, int] = {}
 
     def _capture(self, a: torch.Tensor, body) -> None:
-        """Capture ``body`` on a static input of ``a``'s shape.  The launches
-        the wrappers count while capturing are taken back: a capture runs
-        nothing."""
+        """Capture ``body`` under the plan from :attr:`first` on a static
+        input of ``a``'s shape.  The launches the wrappers count while
+        capturing are taken back: a capture runs nothing."""
+        if self.first is not None:
+            self.plan = tuple(bool(v) for v in self.first.tolist())
+            self.first = None
         self.static = torch.empty(a.shape, dtype=a.dtype, device=a.device)
         before = dict(_cuda.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:
             # thread_local: other threads' CUDA calls stay legal while this one captures
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.outputs = tuple(body(self.static))
+                outputs, self.decided = body(self.static, self.plan)
+                self.outputs = tuple(outputs)
         finally:
             self.launches = {k: n - before[k] for k, n in _cuda.LAUNCHES.items()
                              if n != before[k]}
@@ -463,13 +547,14 @@ class _RrefGraph:
             for k, n in self.launches.items():
                 _cuda.LAUNCHES[k] += n
             profiling.count(f"{self.kind}_graph_replays")
+            _count_scans(self.decided, replayed=True)
             out = tuple(t.clone() for t in self.outputs)
             self.done.record()
             return out
 
 
 _graphs: OrderedDict = OrderedDict()  # key -> _RrefGraph, least recently used first
-_seen: OrderedDict = OrderedDict()  # keys called once, eager
+_seen: OrderedDict = OrderedDict()  # keys called once, eager -> that call's decided flags
 _graphs_lock = threading.Lock()
 
 
@@ -498,16 +583,15 @@ def _graph_for(key) -> _RrefGraph | None:
         if entry is not None:
             _graphs.move_to_end(key)
         elif key in _seen:
-            del _seen[key]
-            entry = _graphs[key] = _RrefGraph(key[-1])
+            entry = _graphs[key] = _RrefGraph(key[-1], _seen.pop(key))
             if len(_graphs) > GRAPH_KEYS:
                 _graphs.popitem(last=False)
         return entry
 
 
-def _record_seen(key) -> None:
+def _record_seen(key, decided: torch.Tensor | None = None) -> None:
     with _graphs_lock:
-        _seen[key] = None
+        _seen[key] = decided
         if len(_seen) > _SEEN_KEYS:
             _seen.popitem(last=False)
 
@@ -527,15 +611,18 @@ def clear_graphs() -> None:
 
 def _replayed(kind: str, body, a: torch.Tensor, cols: int, k_panel: int, phase1: str,
               phase2: str) -> tuple:
-    """``body(a)``, by a replay of its graph where :func:`_graph_key` gives a
-    key that has been called before, else eager.  Counts ``<kind>_calls``."""
+    """``body(a, plan)``'s outputs, by a replay of its graph where
+    :func:`_graph_key` gives a key that has been called before, else eager
+    with no plan (every panel subset-first).  Counts ``<kind>_calls``, and
+    while a profiler runs ``scan_panels`` and ``scan_subset_panels``."""
     profiling.count(f"{kind}_calls")
     key = _graph_key(a, cols, k_panel, phase1, phase2, kind)
     entry = None if key is None else _graph_for(key)
     if entry is None:
-        out = body(a)
+        out, decided = body(a, None)
         if key is not None:
-            _record_seen(key)
+            _record_seen(key, decided)
+        _count_scans(decided)
         return out
     try:
         return entry.run(a, body)
@@ -552,11 +639,14 @@ def rref_origin_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
     On the card, a system shape met before (:func:`_graph_key`) is solved by
     replaying a CUDA graph of the same body: the same kernels in the same
     order on the same bytes, one launch from the host instead of ~5000
-    PyTorch calls.  Its first call runs eager and records the shape; the
-    second captures.  CPU tensors and the engines that read back inside the
-    loop always run eager.  Counters: ``rref_calls``, ``rref_graph_replays``,
-    ``rref_graph_captures``."""
-    body = functools.partial(_rref_origin_eager, cols=cols, k_panel=k_panel,
+    PyTorch calls.  Its first call runs eager and records the shape and
+    which panels the subset-first scan decided; the second captures, with the
+    subset-first scan on those panels and the full scan alone on the others.
+    CPU tensors and the engines that read back inside the loop always run
+    eager.  Counters: ``rref_calls``, ``rref_graph_replays``,
+    ``rref_graph_captures``; while a profiler runs ``scan_panels`` and
+    ``scan_subset_panels``."""
+    body = functools.partial(_rref_origin_body, cols=cols, k_panel=k_panel,
                              phase1=phase1, phase2=phase2)
     return _replayed("rref", body, a, cols, k_panel, phase1, phase2)
 
@@ -568,7 +658,7 @@ def rref_full_blocked(a: torch.Tensor, cols: int, k_panel: int = K_PANEL, *,
     a CUDA graph under the gate of :func:`rref_origin_blocked`, in a cache
     entry of its own.  Counters: ``rref_full_calls``,
     ``rref_full_graph_replays``, ``rref_full_graph_captures``."""
-    body = functools.partial(rref_blocked, cols=cols, k_panel=k_panel, trailing=False,
+    body = functools.partial(_rref_full_body, cols=cols, k_panel=k_panel,
                              phase1=phase1, phase2=phase2)
     return _replayed("rref_full", body, a, cols, k_panel, phase1, phase2)
 

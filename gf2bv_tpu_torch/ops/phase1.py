@@ -506,6 +506,221 @@ def scan(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
     return scan_cluster(bT, used, w0, K, cols, route.nblocks)
 
 
+# -- kernel 1c: the subset-first scan (the default engine's scan on the card) ----------
+
+# Rows of the subset-first scan: the first SCAN_SUBSET_ROWS unused rows of a
+# panel, 16 a lane of one warp (csrc/scan_subset.cu: kSubsetRows, a
+# compile-time constant).  At 256 the NLFSR attack's dense rows leave columns
+# free on most panels; a step costs more the more rows a lane holds (PERF.md
+# §6).
+SCAN_SUBSET_ROWS = 512
+# words of the kernel's scratch after the record: flag, sub_end, the subset's rows
+SUBSET_HEADER_WORDS = 3
+
+
+def subset_scratch_words(K: int) -> int:
+    """Words of the subset-first scan's scratch: the record (the pivots'
+    slice words [K][8] at their election, then their rows [K], the chained
+    scan's layout) and the header."""
+    return 9 * K + SUBSET_HEADER_WORDS
+
+
+def _valid_steps(w0: int, K: int, cols: int) -> tuple[int, int]:
+    """The panel's valid columns as the steps [lo, hi): global bits 1..cols."""
+    return max(0, min(K, 1 - 32 * w0)), max(0, min(K, cols - 32 * w0 + 1))
+
+
+def scan_subset_steps_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                            S: int = SCAN_SUBSET_ROWS):
+    """The subset kernel in its own order, plain torch: bT (kw, rows), used
+    (1, rows).  The first ``S`` unused rows (the subset, in row order) are
+    scanned a word of 32 columns at a time: a step elects among the rows'
+    current word alone and records the candidates' coefficient bits; after
+    the word its pivots' later words at their election are solved (pivot t's
+    are its stored words XOR those of the earlier pivots its coefficients
+    name), and every row XORs in the pivots its coefficient word names.
+
+    Returns (prow (K,) global rows, used' (1, rows), cT (kw, rows): the
+    coefficient words of the subset's rows, zero elsewhere, scratch
+    (``subset_scratch_words(K)``,) as the kernel leaves it: the record and
+    the header (flag: a valid column left free while unused rows lie above
+    the subset; sub_end: the row after the subset's last, ``rows`` when the
+    subset is every unused row; the subset's rows))."""
+    kw, rows = bT.shape
+    dev = bT.device
+    unused = torch.nonzero(used[0] == 0)[:, 0]
+    idx = unused[:S]
+    n = idx.shape[0]
+    whole = unused.shape[0] < S  # the subset is every unused row
+    sub_end = rows if whole else int(idx[-1]) + 1
+    w = bT[:, idx].clone()  # (kw, n)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    cT = torch.zeros_like(bT)
+    rec = np.zeros((K, 8), dtype=np.uint32)
+    pslot = [-1] * K
+    lo, hi = _valid_steps(w0, K, cols)
+    free = False
+    for g in range(kw):
+        c = torch.zeros(n, dtype=I32, device=dev)
+        for b in range(32):
+            jj = 32 * g + b
+            if not lo <= jj < hi:
+                continue
+            cand = (((w[g] >> b) & 1) == 1) & live
+            hits = torch.nonzero(cand)[:, 0]
+            if not hits.shape[0]:
+                free = True
+                continue
+            s = int(hits[0])
+            pw = w[g, s].clone()
+            cand[s] = False
+            live[s] = False
+            w[g] ^= torch.where(cand, pw, 0).to(I32)
+            c |= torch.where(cand, _bitval(b), 0).to(I32)
+            pslot[jj] = s
+            rec[jj, g] = int(pw) & 0xFFFFFFFF
+        cT[g, idx] = c
+        if g + 1 == kw:
+            continue
+        # the word's pivots' later words at their election: a triangular solve
+        later = torch_to_u32(w[g + 1 :].T.contiguous())  # (n, kw - g - 1)
+        coef = torch_to_u32(c)
+        for t in range(32):
+            s = pslot[32 * g + t]
+            if s < 0:
+                continue
+            p = later[s].copy()
+            for u in range(t):
+                if (int(coef[s]) >> u) & 1:
+                    p ^= rec[32 * g + u, g + 1 : kw]
+            rec[32 * g + t, g + 1 : kw] = p
+        # every row XORs in the pivots its coefficient word names
+        rec_t = u32_to_torch(np.ascontiguousarray(rec[32 * g : 32 * g + 32, g + 1 : kw]), dev)
+        for t in range(32):
+            on = ((c >> t) & 1) == 1
+            w[g + 1 :] ^= torch.where(on[None, :], rec_t[t][:, None], 0).to(I32)
+    prow = torch.full((K,), -1, dtype=I32, device=dev)
+    for jj, s in enumerate(pslot):
+        if s >= 0:
+            prow[jj] = idx[s]
+    used_o = used.clone()
+    used_o[0, idx[~live]] = 1
+    header = [int(free and not whole and sub_end < rows), sub_end, n]
+    scratch = torch.cat([u32_to_torch(rec.reshape(-1), dev), prow,
+                         torch.tensor(header, dtype=I32, device=dev)])
+    return prow, used_o, cT, scratch
+
+
+def scan_subset_test_plain(bT: torch.Tensor, used: torch.Tensor, scratch: torch.Tensor,
+                           w0: int, K: int, cols: int) -> bool:
+    """The miss test of the subset-first scan, plain torch: where the header
+    is flagged, every unused row from sub_end on is reduced by the record's
+    pivots column by column; True where such a row has the bit of a valid
+    column that the subset left free (its pivot would be that row)."""
+    kw, rows = bT.shape
+    flag, sub_end = (int(v) for v in scratch[9 * K : 9 * K + 2])
+    if not flag:
+        return False
+    rec = scratch[: 8 * K].view(K, 8)[:, :kw]
+    taken = (scratch[8 * K : 9 * K] >= 0).tolist()
+    above = used[0] == 0
+    above[:sub_end] = False
+    w = bT[:, above].clone()
+    lo, hi = _valid_steps(w0, K, cols)
+    for jj in range(lo, hi):
+        sw, sh = jj >> 5, jj & 31
+        has = ((w[sw] >> sh) & 1) == 1
+        if not taken[jj]:
+            if bool(has.any()):
+                return True
+            continue
+        w[sw:] ^= torch.where(has[None, :], rec[jj, sw:][:, None], 0).to(I32)
+    return False
+
+
+def scan_subset_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                      chunk_rows: int | None = None, S: int = SCAN_SUBSET_ROWS):
+    """Plain twin of :func:`scan_subset`: the subset kernel
+    (:func:`scan_subset_steps_plain`), the miss test
+    (:func:`scan_subset_test_plain`) and, on a miss, the full scan from the
+    same inputs (:func:`scan_plain`, or :func:`scan_chunked_plain` on chunks
+    of ``chunk_rows``).  Returns (prow, used', cT, decided): ``decided``
+    True where the subset decided the panel; prow, used' and cT at the pivot
+    rows are :func:`scan_plain`'s."""
+    prow, used_o, cT, scratch = scan_subset_steps_plain(bT, used, w0, K, cols, S)
+    if not scan_subset_test_plain(bT, used, scratch, w0, K, cols):
+        return prow, used_o, cT, True
+    if chunk_rows is None:
+        return (*scan_plain(bT, used, w0, K, cols), False)
+    return (*scan_chunked_plain(bT, used, w0, K, cols, chunk_rows), False)
+
+
+def launch_scan_subset(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                       decided: torch.Tensor):
+    """One ``gf2_scan_subset`` call on CUDA tensors: the subset kernel on
+    ``SCAN_SUBSET_ROWS`` rows, the miss test, and the fallback
+    :func:`scan_route` picks (the cluster scan, or the chained scan past the
+    largest cluster's rows) gated on ``decided`` (1,) int32, which ends 1
+    where the subset decided the panel and 0 where the fallback ran.  No launch waits on the host.
+    Returns (prow, used', cT, scratch); raises where the fallback's geometry
+    fits no kernel."""
+    _check_k(bT, K)
+    kw, rows = bT.shape
+    dev = bT.device
+    _cuda.require(bT, "bT", (kw, rows), dev)
+    _cuda.require(used, "used", (1, rows), dev)
+    _cuda.require(decided, "decided", (1,), dev)
+    route = scan_route(rows, kw)
+    chained = route.kernel == "scan_chunked"
+    prow = torch.empty((K,), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    scratch = torch.empty((subset_scratch_words(K),), dtype=I32, device=dev)
+    fallback = ((route.chunk_rows, route.nblocks, route.nblocks_last) if chained
+                else (0, route.nblocks, route.nblocks))
+    rc = _cuda.lib().gf2_scan_subset(
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        scratch.data_ptr(), decided.data_ptr(), rows, kw, int(w0), int(cols),
+        *fallback, _cuda.stream_of(bT),
+    )
+    _cuda.check(rc, "scan_subset kernel")
+    _cuda.LAUNCHES["scan_subset"] += 1
+    _cuda.LAUNCHES["scan_subset_test"] += 1
+    _cuda.LAUNCHES[route.kernel] += route.chunks if chained else 1
+    return prow, used_o, cT, scratch
+
+
+def subset_decides(prow: torch.Tensor, used: torch.Tensor, S: int = SCAN_SUBSET_ROWS) -> bool:
+    """Whether the subset-first scan decides a panel, from the full scan's
+    ``prow`` and the panel's ``used``: every pivot lies among the first
+    ``S`` unused rows.  The subset misses exactly where the full scan elects
+    a row above it (up to the first such column both scans take the same
+    pivots), so this is :func:`scan_subset_test_plain`'s verdict negated."""
+    unused = torch.nonzero(used[0] == 0)[:, 0]
+    return unused.shape[0] <= S or bool((prow < unused[S]).all())
+
+
+def scan_subset(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
+                decided: torch.Tensor):
+    """The subset-first scan of one panel: the 1-pivot scan on the first
+    ``SCAN_SUBSET_ROWS`` unused rows, exact wherever it decides the panel,
+    with a test of the rows above the subset and the full scan where the
+    subset missed a pivot (csrc/scan_subset.cu).  ``decided`` (1,) int32 is
+    set to 1 where the subset decided, 0 where the full scan ran.  Outputs
+    as :func:`scan`: prow, used' and cT at the pivot rows are bit for bit
+    the full scan's, and cT at the other rows is left unspecified (the
+    solver reads it only at the pivot rows).  On the card every choice is
+    made on the device.  On the CPU the full scan runs
+    (:func:`scan_plain`) and :func:`subset_decides` sets ``decided``; the
+    kernels' own order is :func:`scan_subset_plain`, the tests' reference."""
+    _check_k(bT, K)
+    if not _cuda.on_cuda(bT):
+        prow, used_o, cT = scan_plain(bT, used, w0, K, cols)
+        decided.fill_(int(subset_decides(prow, used)))
+        return prow, used_o, cT
+    return launch_scan_subset(bT, used, w0, K, cols, decided)[:3]
+
+
 # -- kernel 6: two pivots per step --------------------------------------------------
 
 

@@ -18,8 +18,9 @@ in-memory log (:func:`spans`): the name, start and end in
 its parent's id, the request id (the id of the outermost span open when it
 started: the spans of one call share it) and its counters.  :func:`count`
 adds to the innermost open span's counters (a count with no span open is
-not kept).  Off, a span is one flag read and a shared no-op context
-manager, and a count one flag read.  Every :func:`phase` is also a span.
+not kept); :func:`count_sum` adds a device tensor's sum, read only when the
+log is read, so that the span waits on nothing.  Off, a span is one flag
+read and a shared no-op context manager, and a count one flag read.  Every :func:`phase` is also a span.
 """
 
 from __future__ import annotations
@@ -57,9 +58,11 @@ class _Ring:
         self.names: list = [None] * size
         self.cols = array("q", bytes(8 * len(_FIELDS) * size))
         self.counters: dict[int, dict[str, int]] = {}  # slot -> counters
+        self.pending: dict[int, list] = {}  # slot -> [(counter, tensor to sum)]
         self.written = 0
 
-    def append(self, name, start_ns, end_ns, sid, parent, request, counters) -> None:
+    def append(self, name, start_ns, end_ns, sid, parent, request, counters,
+               pending=None) -> None:
         slot = self.written % self.size
         self.written += 1
         self.names[slot] = name
@@ -71,12 +74,19 @@ class _Ring:
             self.counters[slot] = counters
         else:
             self.counters.pop(slot, None)
+        if pending:
+            self.pending[slot] = pending
+        else:
+            self.pending.pop(slot, None)
 
     def records(self) -> list[dict]:
         first = max(0, self.written - self.size)
         out = []
         for k in range(first, self.written):
             slot = k % self.size
+            for name, t in self.pending.pop(slot, ()):
+                counters = self.counters.setdefault(slot, {})
+                counters[name] = counters.get(name, 0) + int(t.sum())
             rec = dict(zip(_FIELDS, self.cols[len(_FIELDS) * slot: len(_FIELDS) * (slot + 1)]))
             rec["name"] = self.names[slot]
             rec["parent"] = rec["parent"] or None
@@ -95,7 +105,7 @@ _NOOP = contextlib.nullcontext()
 
 
 class _Span:
-    __slots__ = ("name", "id", "parent", "request", "start_ns", "counters", "_rf")
+    __slots__ = ("name", "id", "parent", "request", "start_ns", "counters", "pending", "_rf")
 
     def __init__(self, name: str):
         self.name = name
@@ -107,7 +117,7 @@ class _Span:
         outer = _stack[-1] if _stack else None
         self.parent = outer.id if outer else 0
         self.request = outer.request if outer else self.id
-        self.counters = None
+        self.counters = self.pending = None
         self._rf = record_function(f"gf2bv.{self.name}")
         self._rf.__enter__()
         self.start_ns = time.time_ns()
@@ -119,7 +129,7 @@ class _Span:
         _stack.pop()
         self._rf.__exit__(*exc)
         _log.append(self.name, self.start_ns, end_ns, self.id, self.parent, self.request,
-                    self.counters)
+                    self.counters, self.pending)
         return False
 
 
@@ -132,6 +142,11 @@ def span(name: str):
     return _Span(name)
 
 
+def tracing() -> bool:
+    """Whether a profiler runs, so that spans and counters are kept."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` of the innermost open span, while a
     profiler runs."""
@@ -142,6 +157,20 @@ def count(name: str, n: int = 1) -> None:
         if inner.counters is None:
             inner.counters = {}
         inner.counters[name] = inner.counters.get(name, 0) + n
+
+
+def count_sum(name: str, t) -> None:
+    """Add the sum of tensor ``t`` to the counter ``name`` of the innermost
+    open span, while a profiler runs.  ``t`` is kept and summed when the log
+    is read (:func:`spans`), so nothing waits on the device now: hand a
+    tensor that nothing overwrites."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    if _stack:
+        inner = _stack[-1]
+        if inner.pending is None:
+            inner.pending = []
+        inner.pending.append((name, t))
 
 
 def spans() -> list[dict]:

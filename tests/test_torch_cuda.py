@@ -228,6 +228,7 @@ def test_wrapper_counts_launches(dev):
         "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
         "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
         "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
+        "scan_subset": 0, "scan_subset_test": 0,
     }
 
 

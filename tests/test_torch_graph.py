@@ -2,7 +2,11 @@
 (``gauss_blocked.rref_origin_blocked``) and mode 1's full RREF
 (``gauss_blocked.rref_full_blocked``).  The routing on the CPU, and on the
 card the replay against the eager body, results held across replays, the
-launch accounting, and what the profiler sees.
+launch accounting, and what the profiler sees.  Also, on the card, the
+subset-first scan (``phase1.scan_subset``) that both bodies run: its kernels
+against their twins, the eliminations against the full scan on every panel
+(the plan the graph takes from a shape's first call), and its test on the
+card inside a replay.
 
 The card tests are marked ``cuda`` and skip without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -318,8 +322,11 @@ def test_results_held_across_replays_keep_their_values(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("samples,launches", [(624, 237), (2100, 316)])
+@pytest.mark.parametrize("samples,launches", [(624, 393), (2100, 472)])
 def test_a_replay_counts_one_solves_launches_and_a_capture_none(dev, samples, launches):
+    """The eager call scans every panel subset-first; the graph scans panel 0,
+    where the first call's subset missed, by the full scan alone: one subset
+    kernel and one test fewer, and the same gated full scans."""
     a, _ = _mt_matrix(41, samples, dev)
     per_call = []
     for _ in range(3):  # eager, capture and replay, replay
@@ -327,19 +334,22 @@ def test_a_replay_counts_one_solves_launches_and_a_capture_none(dev, samples, la
         gauss_blocked.rref_origin_blocked(a, COLS)
         per_call.append({k: n for k, n in _cuda.LAUNCHES.items() if n})
     print(f"{samples} outputs: {per_call[0]}")
-    assert per_call[0] == per_call[1] == per_call[2]
-    assert sum(per_call[0].values()) == launches
+    assert per_call[1] == per_call[2]
+    assert {k: n - per_call[1].get(k, 0) for k, n in per_call[0].items()
+            if n != per_call[1].get(k, 0)} == {"scan_subset": 1, "scan_subset_test": 1}
+    assert per_call[1]["scan_subset"] == per_call[1]["scan_subset_test"] == 78
+    assert sum(per_call[1].values()) == launches
     assert gauss_blocked._graphs[gauss_blocked._graph_key(a, COLS, 256, "pallas_scan", "mxu")
-                                 ].launches == per_call[0]
+                                 ].launches == per_call[1]
 
 
 @pytest.mark.cuda
 def test_the_profiler_sees_every_kernel_of_a_replay(dev):
     """A replayed elimination under the profiler shows the same device rows,
-    by name and count, as the eager body under it, and three more copies
+    by name and count, as the eager body under it, and its own copies
     (the caller's matrix into the graph's input, the two outputs out of its
-    pool): ``device_ms`` and ``elimination_roofline`` read the graph's
-    kernels."""
+    pool, the subset's flags): ``device_ms`` and ``elimination_roofline``
+    read the graph's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,14 +370,25 @@ def test_the_profiler_sees_every_kernel_of_a_replay(dev):
 
     _cuda.reset_launches()
     replayed = rows(lambda: gauss_blocked.rref_origin_blocked(a, COLS))
-    assert sum(_cuda.LAUNCHES.values()) == 237
-    eager = rows(lambda: gauss_blocked._rref_origin_eager(a, COLS))
+    assert sum(_cuda.LAUNCHES.values()) == 393
+    plan = gauss_blocked._graphs[gauss_blocked._graph_key(a, COLS, 256, "pallas_scan", "mxu")].plan
+    eager = rows(lambda: gauss_blocked._rref_origin_body(a, plan, COLS, 256, "pallas_scan",
+                                                         "mxu")[0])
+    # the body's own copy of the matrix is a Memcpy row of the eager body; in
+    # the graph its copy node runs as CUDA's own memcpy128 kernel or leaves
+    # no row (both seen on the H100)
+    node = replayed.pop("memcpy128", 0)
+    assert node in (0, 1) and "memcpy128" not in eager
     ours = lambda r: {k: n for k, n in r.items()  # noqa: E731
                       if not k.startswith(("Memcpy", "Memset")) and "at::" not in k}
     print(f"replay: {sum(replayed.values())} device rows, {sum(ours(replayed).values())} "
-          f"of the port's kernels; eager: {sum(eager.values())}")
-    assert ours(replayed) == ours(eager) and sum(ours(eager).values()) >= 237
+          f"of the port's kernels, memcpy128 {node}; eager: {sum(eager.values())}")
+    assert ours(replayed) == ours(eager) and sum(ours(eager).values()) >= 393
     extra = {k: replayed.get(k, 0) - eager.get(k, 0) for k in set(replayed) | set(eager)}
+    # the replay's four copies: the matrix into the graph's input, the two
+    # outputs out of its pool, and under the profiler the subset's flags
+    # (scan_subset_panels, summed when the log is read)
+    assert sum(n for k, n in replayed.items() if k.startswith("Memcpy")) == 4
     assert {k: n for k, n in extra.items() if n} == {"Memcpy DtoD (Device -> Device)": 3}
 
 
@@ -577,3 +598,150 @@ def test_nlfsr_selected_solve_one_recovers_the_secret(dev):
         print(f"seed {seed}: {counts}")
         assert got == (secret,)
         assert counts["rref_full_calls"] == 1 and counts["h2d_copies"] >= 1
+
+
+# -- the subset-first scan on the card ------------------------------------------------------
+
+
+def _panels(a, cols, K, trailing, p1, p2, subset_first=None):
+    """``rref_blocked``'s three outputs with its panels scanned subset-first
+    as ``subset_first`` says, and its panels' ``decided`` flags."""
+    decided = torch.zeros((gauss_blocked._panel_count(a.shape[1], cols, K),),
+                          dtype=torch.int32, device=a.device)
+    out = gauss_blocked.rref_blocked(a, cols, K, trailing, phase1=p1, phase2=p2,
+                                     subset_first=subset_first, decided=decided)
+    return (*out, decided)
+
+
+def _rand_slice(seed, kw, rows, density, used_frac, dev):
+    rng = np.random.default_rng(seed)
+    bits = rng.random((kw, rows, 32)) < density
+    words = (bits * (1 << np.arange(32, dtype=np.uint64))).sum(-1).astype(np.uint32)
+    used = (rng.random((1, rows)) < used_frac).astype(np.uint32)
+    return u32_to_torch(words, dev), u32_to_torch(used, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,kw,density,used_frac,w0,cols", [
+    (512, 8, 0.5, 0.0, 0, 10**6),  # S rows, all unused: the subset is every row
+    (512, 8, 0.02, 0.3, 2, 10**6),
+    (300, 3, 0.3, 0.1, 0, 10**6),  # fewer rows than S
+    (3000, 8, 0.5, 0.2, 1, 10**6),  # rows above the subset, no miss
+    (3000, 8, 0.01, 0.2, 0, 10**6),  # a miss: the cluster scan runs
+    (3000, 2, 0.3, 0.5, 4, 32 * 4 + 40),  # valid columns end inside the panel
+    (67328, 8, 0.003, 0.1, 0, 10**6),  # a miss past 65536 rows: the chained scan runs
+])
+def test_the_subset_kernel_against_its_twin(dev, rows, kw, density, used_frac, w0, cols):
+    """The subset kernel's prow, used', scratch (record and header) and its
+    rows' coefficient words against ``scan_subset_steps_plain``; the test's
+    verdict against ``scan_subset_test_plain``; every output at the pivot
+    rows against ``scan_plain``; one launch of each kernel."""
+    from gf2bv_tpu_torch.ops import phase1
+
+    bT, used = _rand_slice(rows + kw + w0, kw, rows, density, used_frac, dev)
+    K = 32 * kw
+    decided = torch.full((1,), 7, dtype=torch.int32, device=dev)
+    _cuda.reset_launches()
+    prow, used_o, cT, scratch = phase1.launch_scan_subset(bT, used, w0, K, cols, decided)
+    route = phase1.scan_route(rows, kw)
+    chained = route.kernel == "scan_chunked"
+    assert {k: n for k, n in _cuda.LAUNCHES.items() if n} == {
+        "scan_subset": 1, "scan_subset_test": 1, route.kernel: route.chunks if chained else 1}
+    bc, uc = bT.cpu(), used.cpu()
+    sp, su, sc, sscr = phase1.scan_subset_steps_plain(bc, uc, w0, K, cols)
+    miss = phase1.scan_subset_test_plain(bc, uc, sscr, w0, K, cols)
+    assert int(decided) == int(not miss)
+    if not chained or not miss:  # a chained fallback reuses the record as its own
+        assert torch.equal(scratch.cpu(), sscr)
+    if not miss:
+        assert torch.equal(prow.cpu(), sp) and torch.equal(used_o.cpu(), su)
+        subset = sscr[8 * K : 9 * K]
+        subset = subset[subset >= 0].long()
+        assert torch.equal(cT.cpu()[:, subset], sc[:, subset])
+    want = phase1.scan_plain(bT, used, w0, K, cols)
+    assert torch.equal(prow, want[0]) and torch.equal(used_o, want[1])
+    piv = want[0].clamp(min=0).long()[want[0] >= 0]
+    assert torch.equal(cT[:, piv], want[2][:, piv])
+    print(f"{rows} rows: {'miss' if miss else 'decided'}, header {sscr[-3:].tolist()}")
+
+
+def _nlfsr_bucket(dev):
+    return _nlfsr_matrix(dev, 8704, 131)[0], NLFSR_COLS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", SYSTEMS + ["nlfsr8704"])
+def test_subset_first_eliminations_equal_the_full_scans(dev, system):
+    """Mode 0 on the three MT19937 / SFMT shapes, mode 1 on an NLFSR bucket:
+    the eager body (every panel subset-first), the capture and a replay (the
+    plan from the first call) against the same body with the full scan on
+    every panel, bit for bit: the RREF and the pivot map of the panel loop,
+    then the origin and the verdict (mode 0) or the full RREF (mode 1)."""
+    if system == "nlfsr8704":
+        a, cols = _nlfsr_bucket(dev)
+    else:
+        a, cols = _matrix(system, 151, dev), COLS
+    mode0 = system != "nlfsr8704"
+    panels = -(-(1 + cols) // 256)
+    old = _panels(a, cols, 256, mode0, "pallas_scan", "mxu", (False,) * panels)
+    new = _panels(a, cols, 256, mode0, "pallas_scan", "mxu")
+    assert all(torch.equal(g, w) for g, w in zip(new[:3], old[:3]))
+    assert not old[3].any()
+    decided = new[3].tolist()
+    print(f"{system}: the subset decided {sum(decided)} of {panels} panels; missed at "
+          f"{[t for t, d in enumerate(decided) if not d]}")
+    if mode0:
+        want = gauss_blocked._rref_origin_body(a, (False,) * panels, cols, 256, "pallas_scan",
+                                               "mxu")[0]
+        for _ in range(3):  # eager, capture, replay
+            got = gauss_blocked.rref_origin_blocked(a, cols)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        for _ in range(3):
+            got = gauss_blocked.rref_full_blocked(a, cols)
+            assert all(torch.equal(g, w) for g, w in zip(got, old[:3]))
+    entry = next(iter(gauss_blocked._graphs.values()))
+    assert entry.plan == tuple(bool(d) for d in decided)
+    assert torch.equal(entry.decided, new[3])
+
+
+def _subset_shape_system(seed, miss):
+    """A 1300-row system over 300 columns (two panels of 256 columns),
+    padded to 1536 x 128 words: dense rows (no panel misses), or sparse rows
+    with column 270 in the last row alone, beyond the first 512 unused rows
+    of panel 1 (the subset misses there)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = 1300, 300
+    coeff = (rng.random((rows, cols)) < (0.05 if miss else 0.5)).astype(np.uint8)
+    if miss:
+        coeff[:, 269] = 0
+        coeff[-1, 269] = 1
+    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
+    bits = np.concatenate([((coeff @ secret) % 2)[:, None], coeff], axis=1)
+    eqs = packing.pack_bits(bits, 1 + cols)
+    return eqs, gauss_blocked._pad(eqs, 256, word_align=128)
+
+
+@pytest.mark.cuda
+def test_a_replay_whose_plan_scans_subset_first_still_solves_a_miss(dev):
+    """The shape's first two calls do not miss, so the graph scans both
+    panels subset-first; a system of the same shape that misses in panel 1 is
+    then solved by that replay exactly: the test and the gated full scan run
+    on the card inside the graph."""
+    dense = [u32_to_torch(_subset_shape_system(s, False)[1], dev) for s in (161, 162)]
+    eqs, a32 = _subset_shape_system(163, True)
+    sparse = u32_to_torch(a32, dev)
+    for a in dense:  # eager, capture
+        gauss_blocked.rref_origin_blocked(a, 300)
+    entry = next(iter(gauss_blocked._graphs.values()))
+    assert entry.plan == (True, True)
+    (origin, bad), counts = _counted(lambda: gauss_blocked.rref_origin_blocked(sparse, 300),
+                                     COUNTERS + ("scan_panels", "scan_subset_panels"))
+    assert counts["rref_graph_replays"] == 1
+    assert counts["scan_panels"] == 2 and counts["scan_subset_panels"] == 1
+    assert entry.decided.tolist() == [1, 0]
+    want = gauss_blocked._rref_origin_body(sparse, (False, False), 300, 256, "pallas_scan",
+                                           "mxu")[0]
+    assert torch.equal(origin, want[0]) and not bool(bad) and not bool(want[1])
+    ref = gauss_ref.solve_oracle(eqs, 300, mode=0)
+    assert np.array_equal(packing.from_u32(torch_to_u32(origin)[None, :])[0], ref.origin)

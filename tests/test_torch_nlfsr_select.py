@@ -153,7 +153,9 @@ def test_selection_and_filter_open_their_spans():
     assert names.count("quad.select") == 1 and "quad.filter" in names
     assert names.index("quad.select") < names.index("rref") < names.index("quad.filter")
     recs = {r["name"]: r for r in profiling.spans()}
-    assert recs["rref"]["counters"] == {"rref_full_calls": 1}
+    panels = -(-(1 + COLS) // 256)  # every one scanned subset-first: fewer rows than S
+    assert recs["rref"]["counters"] == {"rref_full_calls": 1, "scan_panels": panels,
+                                        "scan_subset_panels": panels}
 
 
 def _counted(fn):
@@ -180,6 +182,8 @@ def test_mode1_on_the_cpu_runs_the_eager_body_and_keeps_no_graph(seed):
     for _ in range(3):  # a repeated shape stays eager on the CPU
         got, counts = _counted(lambda: gauss_blocked.rref_full_blocked(a, COLS))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        assert counts == {"rref_full_calls": 1}
+        panels = -(-(1 + COLS) // 256)
+        assert counts == {"rref_full_calls": 1, "scan_panels": panels,
+                          "scan_subset_panels": panels}
     assert torch.equal(a, keep)
     assert not gauss_blocked._graphs and not gauss_blocked._seen

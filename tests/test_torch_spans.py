@@ -111,6 +111,32 @@ def test_counters_go_to_the_innermost_span():
     assert got == {"inner": {"c": 2, "d": 1}, "outer": {"c": 5}}
 
 
+def test_a_tensors_sum_is_counted_when_the_log_is_read():
+    """``count_sum`` keeps the tensor and sums it only in ``spans()``: a
+    write to it before the read shows, the read is made once, and nothing is
+    kept with no span open or outside a profile."""
+    flags = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    profiling.count_sum("s", torch.ones(3))  # no profile: not kept
+
+    def work():
+        profiling.count_sum("s", torch.ones(5))  # no span open: not kept
+        with profiling.span("outer"):
+            profiling.count("s", 2)
+            profiling.count_sum("s", flags)
+            profiling.count_sum("t", flags)
+            with profiling.span("inner"):
+                profiling.count_sum("s", torch.ones(3, dtype=torch.int32))
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        work()
+    flags[1] = 1  # written after the span closed, before the log is read
+    got = {r["name"]: r["counters"] for r in profiling.spans()}
+    assert got == {"inner": {"s": 3}, "outer": {"s": 6, "t": 4}}
+    flags.zero_()
+    assert {r["name"]: r["counters"] for r in profiling.spans()} == got
+
+
 def test_h2d_copies_count_copies_to_a_cuda_device_only(monkeypatch):
     moved = []
     monkeypatch.setattr(torch.Tensor, "to", lambda self, dev: moved.append(dev) or self)
