@@ -10,67 +10,57 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. Builds the port's kernels from gf2bv_tpu_torch/csrc with nvcc (sm_90a).
 3. Holds each kernel (the ports of the fifteen TPU kernels, the chained scans
    (1-pivot, batched, two-pivot) and the chained fused kernels of slices
-   taller than one cluster, and the five one-block kernels kept beside the
-   cluster scan, the batched scan, the fused update + scan, the fused phase 1
-   and the two-pivot scan) against its plain PyTorch twin on the
-   card, bit for bit, at the flagship MT19937 shapes (20224 rows x 640 words,
-   K = 256, panel 20), and times both with CUDA events: scan, reconstruct,
-   full-width update, segmented update (dead_tiles 1..4), trailing update
-   (w0 in {0, 160, 320, 632}, whole matrix), batched scan and batched
-   rebuild (4 systems), two-pivot scan (a cluster kernel, against both
-   twins and its cluster twin, beside the one-block kernel it replaced and
-   the 1-pivot scan, in microseconds per pair step), min-key scan (a cluster
-   kernel, against both twins, beside the one-block kernel it replaced, which no
-   solve runs, and the 1-pivot scan), fused phase 1 (one cluster launch,
-   beside the one-block kernel, the split engine and the scan alone), fused
-   update + scan (full and trailing; beside the one-block kernel, the scan
-   and the update apart, and its update part alone); also the batched scan's
-   time per step for 1, 4, 8 and 16 systems on each cluster size that holds a
-   slice, beside the one-block kernel and the clusters of each size the card
-   runs at once, and each scan's time per step.  The update
-   engines' kernels (the table kernel of engine pallas, the tensor-core
-   kernel that mxu2 and mxu4 share under their two rules) run at panel 20 of
-   the 768-word multi-RHS
-   matrix, mxu2 and mxu4 also trailing at w0 = 160 and 632 on 640 words, the
-   three again from a CUDA graph's replay with the mxu2 kernel's time with
-   each of three costs taken out in turn; the
-   launch probe on (256, 128) words.  Beside each time stands the kernel's
-   bound: its bytes (inputs read once, outputs written once) over 3.35 TB/s
-   (the data sheet names no one-bit tensor-core rate, so the product of the
-   mxu updates is printed against the int8 peak as a reading only).
+   taller than one cluster, and the subset-first scan) against its plain
+   PyTorch twin on the card, bit for bit, at the flagship MT19937 shapes
+   (20224 rows x 640 words, K = 256, panel 20), and times both with CUDA
+   events: scan, reconstruct, full-width update, segmented update
+   (dead_tiles 1..4), trailing update (w0 in {0, 160, 320, 632}, whole
+   matrix), batched scan and batched rebuild (4 systems), two-pivot scan (a
+   cluster kernel, against both twins and its cluster twin, beside the
+   1-pivot scan, in microseconds per pair step), min-key scan (a cluster
+   kernel, against both twins, beside the 1-pivot scan), fused phase 1 (one
+   cluster launch, beside the split engine and the scan alone), fused
+   update + scan (full and trailing; beside the scan and the update apart,
+   and its update part alone); also the batched scan's time per step for 1,
+   4, 8 and 16 systems on each cluster size that holds a slice, beside the
+   clusters of each size the card runs at once, and each scan's time per
+   step.  The update engines' kernels (the table kernel of engine pallas,
+   the tensor-core kernel that mxu2 and mxu4 share under their two rules)
+   run at panel 20 of the 768-word multi-RHS matrix, mxu2 and mxu4 also
+   trailing at w0 = 160 and 632 on 640 words, the three again from a CUDA
+   graph's replay; the launch probe on (256, 128) words.  Beside each time
+   stands the kernel's bound: its bytes (inputs read once, outputs written
+   once) over 3.35 TB/s (the data sheet names no one-bit tensor-core rate,
+   so the product of the mxu updates is printed against the int8 peak as a
+   reading only).
    The redesigned kernels are held to more (check_redesign): the rebuild's
-   blocked coefficient solve against the step-by-step kernel it replaced and
-   against the plain twin at K = 64, 128 and 256, at the first, a middle and
-   the last panel of 640, 768 and 333 words, on solver inputs and on
-   arbitrary ones, for one system and for four, both kernels, the product
-   (table kernel and mask-and-XOR tiles) and the whole rebuild timed apart
-   from a CUDA graph's replay; the
-   cluster scan against its twin on a subset slice (one block), at an odd row
-   count and on the tall system (40192 rows), with the route, microseconds
-   per step, the one-block kernel's time and the other cluster sizes' on the
-   same inputs; the three mxu updates against their twins on 640 and 768
-   words, on an unaligned width and on a (rows, 8) slice, each timed beside
-   the mask-and-XOR kernel they replace; the table kernel's time with each
-   of four costs taken out in turn.
+   blocked coefficient solve against the plain twin at K = 64, 128 and 256,
+   at the first, a middle and the last panel of 640, 768 and 333 words, on
+   solver inputs and on arbitrary ones, for one system and for four, the
+   solve, the product (table kernel) and the whole rebuild timed apart from
+   a CUDA graph's replay; the cluster scan against its twin on a subset
+   slice (one block), at an odd row count and on the tall system (40192
+   rows), with the route, microseconds per step and the other cluster
+   sizes' on the same inputs; the three mxu updates against their twins on
+   640 and 768 words, on an unaligned width and on a (rows, 8) slice, each
+   timed beside its byte bound.
    The chained scans (check_chunked) at panel 20 of the very tall system
    (67328 rows), one system and two, against their twins in the chain's order
    and the step twins, timed from a CUDA graph's replay under both cuts of the
    rows into chunks (equal chunks, the route's; the largest cluster filled
-   first) beside the one-block kernels they replaced; the chained two-pivot
-   scan the same way, beside its first link alone, the one-block kernel it
-   replaced and the 1-pivot chain; at the same panel the
-   chained fused phase 1 and fused update + scan (full and trailing) against
-   their twins in the chain's order, the step twins and the split engine,
-   timed beside the one-block kernels they replaced, the split engine, the
-   update apart, the chain alone and its first link alone.
+   first); the chained two-pivot scan the same way, beside its first link
+   alone and the 1-pivot chain; at the same panel the chained fused phase 1
+   and fused update + scan (full and trailing) against their twins in the
+   chain's order, the step twins and the split engine, timed beside the split
+   engine, the update apart, the chain alone and its first link alone.
    Then the launch floor: microseconds per launch over 256 chained launches
    of the probe (many blocks, 16-byte accesses), of torch.bitwise_xor and of
    the one-tile update.
 4. Drives the mode-0 main path: recovers a random.Random MT19937 state from
    624 outputs through crypto.mt_torch.solve_mt19937 and through
    LinearSystem([32]*624).solve_one, and checks the kernel launch counts of
-   one solve (79 cluster scans and no one-block scan, 79 reconstructs, 16
-   full and 63 segmented updates).
+   one solve (79 cluster scans, 79 reconstructs, 16 full and 63 segmented
+   updates).
 5. Checks that a flipped output bit makes the system unsatisfiable.
 6. Times solve_mt19937 warm (best of 3).
 7. Mode 1: solve_mt19937(mode=1) is a space of dimension 0 at the state
@@ -87,7 +77,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    timed warm as recoveries per second; the batched solver's full RREF is
    the default engine's, system by system; two very tall systems through
    solve_batched run the chained batched scan (80 panels x 2 chunks
-   launches, no one-block scan), timed cold and warm (best of 3) with the
+   launches), timed cold and warm (best of 3) with the
    device time of a profiled call.
 9. Engines: for each engine of the blocked solver other than the default
    (pallas_scan2, pallas_scanm, pallas, pallas_sub with mxu; mxu_la and
@@ -103,15 +93,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the 1-pivot scan: the min-key packing takes fewer than 2^15 rows) and
    pallas_sub, each timed warm; a very tall one, 2100 outputs (67328 padded
    rows: more than the largest cluster holds), under the default engine,
-   which must run the chained scan (79 panels x 2 chunks launches, no
-   one-block scan; timed cold and warm, best of 3, with the device time of a
-   profiled call), under mxu_la, which must run the chained scan for its
-   first slice and the chained fused update + scan 79 x 2 chunks launches,
-   and under phase 1 pallas, which must run the chained fused phase 1 79 x 2
-   chunks launches (no one-block kernel under either; each timed cold and
-   warm, best of 3, and profiled: device time by kernel, idle share), and
-   under pallas_scan2, which must run the chained two-pivot scan 79 x 2 chunks
-   launches (no one-block kernel; cold, warm best of 3, profiled).
+   which must run the chained scan (79 panels x 2 chunks launches; timed
+   cold and warm, best of 3, with the device time of a profiled call), under
+   mxu_la, which must run the chained scan for its first slice and the
+   chained fused update + scan 79 x 2 chunks launches, and under phase 1
+   pallas, which must run the chained fused phase 1 79 x 2 chunks launches
+   (each timed cold and warm, best of 3, and profiled: device time by
+   kernel, idle share), and under pallas_scan2, which must run the chained
+   two-pivot scan 79 x 2 chunks launches (cold, warm best of 3, profiled).
 11. Multi-RHS: one captured MT19937 template, 256 instances from
    random.Random seeds through CapturedTrace.solve_one_batch (one
    elimination on 768 words): every state recovered, a flipped output bit
@@ -491,7 +480,7 @@ def check_kernels(dev, card: str) -> dict:
     res.update(check_batched_kernels(dev, card, used, w0))
     res.update(check_engine_kernels(dev, card, a, bT, used, w0, sel, pf))
     res.update(check_update_engine_kernels(dev, card, a, used, w0, sel, pf))
-    res.update(check_redesign(dev, card, a, bT, used, w0, sel, pf))
+    check_redesign(dev, card, a, bT, used, w0, sel, pf)
     res.update(check_chunked(dev, card, w0))
     res.update(check_subset_scans(dev, card, a))
     for name, (_, ms, plain_ms) in res.items():
@@ -508,11 +497,10 @@ def check_kernels(dev, card: str) -> dict:
 
 
 def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
-    """The batched scan (one cluster per system), the kept one-block kernel
-    and the batched rebuild on NB systems from different seeds, at panel 20,
-    each system with its own pre-used rows; old and new scan timed in the
-    same run from a CUDA graph's replay, for 1, NB, 8 and 16 systems on each
-    cluster size that holds a slice."""
+    """The batched scan (one cluster per system) and the batched rebuild on
+    NB systems from different seeds, at panel 20, each system with its own
+    pre-used rows; the scan timed from a CUDA graph's replay, for 1, NB, 8
+    and 16 systems on each cluster size that holds a slice."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_batched, phase1
 
@@ -535,13 +523,6 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
     if int((prow >= 0).sum(dim=1).min()) == 0:
         raise AssertionError("a batched scan system has no pivots")
     note_bound("scan_batched", nbytes(bT, used, *out_k))
-    out_b = gauss_batched.scan_batched_block(bT, used, w0, K, COLS)
-    res["scan_batched_block"] = (
-        require_equal("scan_batched_block", zip(out_b, out_p)),
-        graph_ms(lambda: gauss_batched.scan_batched_block(bT, used, w0, K, COLS), 8),
-        res["scan_batched"][2],
-    )
-    note_bound("scan_batched_block", nbytes(bT, used, *out_b))
     sizes = [nb for nb in phase1.SCAN_CLUSTER_SIZES if phase1.scan_fits(-(-ROWS // nb), kw)]
     print(f"clusters holding a ({kw}, {ROWS}) slice that the card runs at once "
           f"(cudaOccupancyMaxActiveClusters): "
@@ -553,7 +534,6 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
         usedn = used.repeat(reps, 1)[:nb].contiguous()
         want = gauss_batched.scan_batched_plain(bTn, usedn, w0, K, COLS)
         route = phase1.scan_batched_route(nb, ROWS, kw)
-        old = graph_ms(lambda: gauss_batched.scan_batched_block(bTn, usedn, w0, K, COLS), 8)
         per_size = []
         for c in sizes:
             require_equal(f"scan_batched B={nb} on {c} blocks", zip(
@@ -562,8 +542,7 @@ def check_batched_kernels(dev, card: str, used0: torch.Tensor, w0: int) -> dict:
                 lambda: gauss_batched.scan_batched_cluster(bTn, usedn, w0, K, COLS, c), 16)
             per_size.append(f"{c} blocks a system {ms:.4f} ms ({1000 * ms / K:.3f} us per step)")
         print(f"scan_batched B={nb}: route {route.kernel} on {route.nblocks} blocks a system; "
-              + "; ".join(per_size) + f"; one block a system (scan_batched_block) {old:.4f} ms "
-              f"({1000 * old / K:.3f} us per step) ({card})")
+              + "; ".join(per_size) + f" ({card})")
 
     ps = prow.clamp(min=0).long()
     arows = torch.gather(mats, 1, ps[:, :, None].expand(NB, K, WP)).contiguous()
@@ -583,9 +562,9 @@ def check_chunked(dev, card: str, w0: int) -> dict:
     """The chained kernels at panel 20 of the very tall system, each system
     with a quarter of its rows used: the chained scans, one system and two,
     held against their twins in the chain's order and the step twins, timed
-    from a CUDA graph's replay under both cuts of the rows into chunks, beside
-    the one-block kernels they replaced; then the chained fused phase 1 and
-    fused update + scan (check_fused_chunked)."""
+    from a CUDA graph's replay under both cuts of the rows into chunks; then
+    the chained two-pivot scan (check_scan2_chunked) and the chained fused
+    phase 1 and fused update + scan (check_fused_chunked)."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_batched, phase1
 
@@ -602,12 +581,11 @@ def check_chunked(dev, card: str, w0: int) -> dict:
     cuts = {"equal chunks (the route's)": route.chunk_rows,
             "largest cluster first": phase1.scan_max_rows(kw, chained=True)}
     res = {}
-    for name, x, u, scan, plain, step, block in (
+    for name, x, u, scan, plain, step in (
             ("scan_chunked", bT, used, phase1.scan_chunked, phase1.scan_chunked_plain,
-             phase1.scan_plain, phase1.scan_block),
+             phase1.scan_plain),
             ("scan_batched_chunked", bT2, used2, gauss_batched.scan_batched_chunked,
-             gauss_batched.scan_batched_chunked_plain, gauss_batched.scan_batched_plain,
-             gauss_batched.scan_batched_block)):
+             gauss_batched.scan_batched_chunked_plain, gauss_batched.scan_batched_plain)):
         want = step(x, u, w0, K, COLS)
         times = []
         for cut, rows_c in cuts.items():
@@ -618,13 +596,12 @@ def check_chunked(dev, card: str, w0: int) -> dict:
         if int((want[0] >= 0).sum()) == 0:
             raise AssertionError(f"{name}: the very tall panel has no pivots")
         note_bound(name, nbytes(x, u, *want))
-        block_ms = graph_ms(lambda: block(x, u, w0, K, COLS), 4)
         res[name] = (err, times[0], cuda_ms(lambda: plain(x, u, w0, K, COLS, route.chunk_rows), 1))
         print(f"{name} at the very tall panel 20 ({x.shape[0] if x.dim() == 3 else 1} x "
               f"{VERY_TALL_ROWS} rows, graph replay): "
               + "; ".join(f"{cut} {t:.4f} ms ({1000 * t / K:.3f} us a step)"
                           for cut, t in zip(cuts, times))
-              + f"; the one-block kernel {block_ms:.4f} ms; twin {res[name][2]:.1f} ms; route "
+              + f"; twin {res[name][2]:.1f} ms; route "
               f"{route.chunks} chunks of {route.chunk_rows} rows on {route.nblocks} blocks "
               f"({card})")
     res.update(check_scan2_chunked(card, bT, used, w0, res["scan_chunked"][1]))
@@ -728,8 +705,8 @@ def check_scan2_chunked(card: str, bT, used, w0: int, chain_ms: float) -> dict:
     """The chained two-pivot scan at panel 20 of the very tall system, by its
     route, against its twin in the chain's order and the step twins; timed
     from a CUDA graph's replay under both cuts of the rows, beside its first
-    link alone (the first chunk's rows scanned as a slice of their own), the
-    one-block kernel it replaced and the 1-pivot chain on the same inputs."""
+    link alone (the first chunk's rows scanned as a slice of their own) and
+    the 1-pivot chain on the same inputs."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import phase1
 
@@ -752,8 +729,6 @@ def check_scan2_chunked(card: str, bT, used, w0: int, chain_ms: float) -> dict:
     most = phase1.scan_max_rows(kw, chained=True, pairs=True)
     require_equal("scan2_chunked, largest cluster first", zip(
         phase1.scan2_chunked(bT, used, w0, K, COLS, most), out_k))
-    require_equal("scan2_block at the very tall panel",
-                  zip(phase1.scan2_block(bT, used, w0, K, COLS), out_k))
     ms = graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 16)
     res = {"scan2_chunked": (err, ms, cuda_ms(
         lambda: phase1.scan2_chunked_plain(bT, used, w0, K, COLS, chunk), 1))}
@@ -761,14 +736,12 @@ def check_scan2_chunked(card: str, bT, used, w0: int, chain_ms: float) -> dict:
     cut_b = graph_ms(lambda: phase1.scan2_chunked(bT, used, w0, K, COLS, most), 16)
     first = bT[:, :chunk].contiguous(), used[:, :chunk].contiguous()
     link0 = graph_ms(lambda: phase1.scan2_chunked(*first, w0, K, COLS), 16)
-    block_ms = graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 2)
     chain1 = graph_ms(lambda: phase1.scan_chunked(bT, used, w0, K, COLS), 16)
     print(f"scan2_chunked at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph replay): "
           f"{ms:.4f} ms (again {again:.4f}; {2000 * ms / K:.3f} us a pair), {route.chunks} "
           f"chunks of {chunk} rows on {route.nblocks} / {route.nblocks_last} blocks, pivot rows "
           f"in chunks {sorted(set((pivots // chunk).tolist()))}; largest cluster first "
-          f"{cut_b:.4f} ms; its first link alone {link0:.4f} ms; the one-block kernel "
-          f"(scan2_block) {block_ms:.4f} ms ({1000 * block_ms / K:.3f} us a step); the 1-pivot "
+          f"{cut_b:.4f} ms; its first link alone {link0:.4f} ms; the 1-pivot "
           f"chain (scan_chunked) {chain1:.4f} ms (earlier in this run {chain_ms:.4f}); twin "
           f"{res['scan2_chunked'][2]:.1f} ms ({card})")
     return res
@@ -778,9 +751,9 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
     """The chained fused phase 1 and fused update + scan at panel 20 of the
     very tall system, by their routes, against their twins in the chain's
     order, the step twins and (phase 1) the split engine; each timed from a
-    CUDA graph's replay beside the one-block kernel it replaced, the split
-    engine or the update apart, the chain alone and its first link alone
-    (the first chunk's rows scanned as a slice of their own)."""
+    CUDA graph's replay beside the split engine or the update apart, the
+    chain alone and its first link alone (the first chunk's rows scanned as a
+    slice of their own)."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_blocked, panel_update, phase1
 
@@ -805,9 +778,6 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
         require_equal("phase1_fused_chunked", zip(out_k, out_p)),
         graph_ms(lambda: phase1.phase1_panel(*args), 16),
         cuda_ms(lambda: phase1.phase1_panel_chunked_plain(*args, chunk), 1))
-    block_out = phase1.phase1_panel_block(*args)
-    require_equal("phase1_fused_block at the very tall panel", zip(block_out, out_p))
-    block_ms = graph_ms(lambda: phase1.phase1_panel_block(*args), 2)
     split_ms = graph_ms(lambda: phase1.phase1_panel_split(*args), 16)
     first = bT[:, :chunk].contiguous(), used[:, :chunk].contiguous()
     link0_ms = graph_ms(lambda: phase1.scan_chunked(*first, w0, K, COLS), 16)
@@ -816,9 +786,8 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
     print(f"phase1_fused_chunked at the very tall panel 20 ({VERY_TALL_ROWS} rows, graph "
           f"replay): {res['phase1_fused_chunked'][1]:.4f} ms (again {again:.4f}), "
           f"{froute.chunks} chunks of {chunk} rows on {froute.nblocks} / {froute.nblocks_last} "
-          f"blocks, pivot rows in chunks {sorted(set((pivots // chunk).tolist()))}; the "
-          f"one-block kernel (phase1_fused_block) {block_ms:.4f} ms; split engine (chained scan "
-          f"+ gathers + reconstruct) {split_ms:.4f} ms; the chained scan alone {chain_ms:.4f} "
+          f"blocks, pivot rows in chunks {sorted(set((pivots // chunk).tolist()))}; split "
+          f"engine (chained scan + gathers + reconstruct) {split_ms:.4f} ms; the chained scan alone {chain_ms:.4f} "
           f"ms, its first link alone {link0_ms:.4f} ms; no valid column {nocol:.4f} ms; twin "
           f"{res['phase1_fused_chunked'][2]:.1f} ms ({card})")
 
@@ -841,8 +810,6 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
         out_p = panel_update.update_scan_chunked_plain(a.clone(), *uargs, uroute.chunk_rows)
         require_equal(f"update_scan_chunked w0={w0t} against the step twin",
                       zip(out_k, panel_update.update_scan_plain(a.clone(), *uargs)))
-        require_equal(f"update_scan_block w0={w0t} at the very tall panel", zip(
-            panel_update.update_scan_block(a.clone(), *uargs), out_p))
         upd_bytes = update_bytes(VERY_TALL_ROWS, kw,
                                  WP if w0t is None else 1 + WP - 128 * (w0t // 128))
         note_bound("update_scan_chunked", upd_bytes + nbytes(bTn, used, *out_k[1:]))
@@ -850,7 +817,6 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
         ms_k.append(graph_ms(lambda: panel_update.update_scan(scratch, *uargs), 16))
         ms_p.append(cuda_ms(lambda: panel_update.update_scan_chunked_plain(
             scratch, *uargs, uroute.chunk_rows), 1))
-        block_ms = graph_ms(lambda: panel_update.update_scan_block(scratch, *uargs), 2)
         upd_ms = graph_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
                           else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 16)
         scan_ms = graph_ms(lambda: phase1.scan(bTn, used, w0 + kw, K, COLS), 16)
@@ -861,9 +827,7 @@ def check_fused_chunked(dev, card: str, a, bT, used, w0: int, chain_ms: float) -
         print(f"update_scan_chunked w0={w0t} at the very tall panel 20 ({VERY_TALL_ROWS} rows, "
               f"graph replay): {ms_k[-1]:.4f} ms, {uroute.chunks} launches (a link each, "
               f"{panel_update.update_scan_first_rows(VERY_TALL_ROWS)} of the update's rows "
-              f"beside the first, the rest beside the others); the one-block kernel "
-              f"(update_scan_block) "
-              f"{block_ms:.4f} ms; apart: the chained scan {scan_ms:.4f} ms (its first link "
+              f"beside the first, the rest beside the others); apart: the chained scan {scan_ms:.4f} ms (its first link "
               f"alone {link0_ms:.4f} ms) and the update {upd_ms:.4f} ms; its update with no "
               f"valid column {part:.4f} ms; twin {ms_p[-1]:.1f} ms ({card})")
     # the time is the mean of the full and trailing cases
@@ -875,8 +839,7 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     """The scan variants, the fused phase 1 and the fused update + scan at
     panel 20 of the flagship system, against their twins; the min-key scan and
     the fused phase 1 (cluster kernels) timed from a CUDA graph's replay
-    beside their kept one-block kernels, the 1-pivot scan and the split
-    engine."""
+    beside the 1-pivot scan and the split engine."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import panel_update, phase1
 
@@ -884,8 +847,8 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     scan_ms = {"scan": None}
     kw = K // 32
     # the two-pivot scan: the cluster kernel (its route) against both twins and
-    # its cluster twin, the kept one-block kernel too; both timed from a CUDA
-    # graph's replay beside the 1-pivot cluster scan on the same inputs
+    # its cluster twin, timed from a CUDA graph's replay beside the 1-pivot
+    # cluster scan on the same inputs
     route2 = phase1.scan2_route(ROWS, kw)
     out_k = phase1.scan2(bT, used, w0, K, COLS)
     out_p = phase1.scan2_plain(bT, used, w0, K, COLS)
@@ -897,23 +860,18 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
     scan2_plain_ms = cuda_ms(lambda: phase1.scan2_plain(bT, used, w0, K, COLS), 2)
     res["scan2"] = (require_equal("scan2", zip(out_k, out_p)),
                     graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 32), scan2_plain_ms)
-    res["scan2_block"] = (
-        require_equal("scan2_block", zip(phase1.scan2_block(bT, used, w0, K, COLS), out_p)),
-        graph_ms(lambda: phase1.scan2_block(bT, used, w0, K, COLS), 8), scan2_plain_ms)
-    for name in ("scan2", "scan2_block"):
-        note_bound(name, nbytes(bT, used, *out_k))
+    note_bound("scan2", nbytes(bT, used, *out_k))
     scan2_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 32)
     scan2_again = graph_ms(lambda: phase1.scan2(bT, used, w0, K, COLS), 32)
     print(f"scan2 at panel 20, replayed from a CUDA graph: cluster kernel on {route2.nblocks} "
           f"blocks {res['scan2'][1]:.4f} ms (again {scan2_again:.4f}; "
-          f"{2000 * res['scan2'][1] / K:.3f} us a pair step), the one-block kernel "
-          f"(scan2_block) {res['scan2_block'][1]:.4f} ms ({2000 * res['scan2_block'][1] / K:.3f} "
-          f"us a pair), the 1-pivot cluster scan {scan2_g:.4f} ms "
+          f"{2000 * res['scan2'][1] / K:.3f} us a pair step), the 1-pivot cluster scan "
+          f"{scan2_g:.4f} ms "
           f"({2000 * scan2_g / K:.3f} us a pair of steps) ({card})")
     scan_ms["scan2"] = res["scan2"][1]
 
-    # the min-key scan: the cluster kernel (its route) against both twins, the
-    # kept one-block kernel too; all three scans timed from a CUDA graph's replay
+    # the min-key scan: the cluster kernel (its route) against both twins; both
+    # scans timed from a CUDA graph's replay
     route = phase1.scan_minkey_route(ROWS, kw)
     out_k = phase1.scan_minkey(bT, used, w0, K, COLS)
     out_p = phase1.scan_minkey_plain(bT, used, w0, K, COLS)
@@ -927,16 +885,12 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
                           graph_ms(lambda: phase1.scan_minkey(bT, used, w0, K, COLS), 32),
                           minkey_plain_ms)
     note_bound("scan_minkey", nbytes(bT, used, *out_k))
-    require_equal("scan_minkey_block",
-                  zip(phase1.scan_minkey_block(bT, used, w0, K, COLS), out_p))
     scan_g = graph_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 32)
-    minkey_block = graph_ms(lambda: phase1.scan_minkey_block(bT, used, w0, K, COLS), 8)
     minkey_again = graph_ms(lambda: phase1.scan_minkey(bT, used, w0, K, COLS), 32)
     print(f"scan_minkey at panel 20, replayed from a CUDA graph: cluster kernel on "
           f"{route.nblocks} blocks {res['scan_minkey'][1]:.4f} ms (again {minkey_again:.4f}; "
-          f"{1000 * res['scan_minkey'][1] / K:.3f} us a step), the one-block kernel it replaces "
-          f"(scan_minkey_block, on no solve's path) {minkey_block:.4f} ms, the 1-pivot cluster "
-          f"scan {scan_g:.4f} ms ({card})")
+          f"{1000 * res['scan_minkey'][1] / K:.3f} us a step), the 1-pivot cluster scan "
+          f"{scan_g:.4f} ms ({card})")
     scan_ms["scan_minkey"] = res["scan_minkey"][1]
     scan_ms["scan"] = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
     # pallas_sub's scan: the first SUBSET_ROWS unused rows
@@ -949,41 +903,33 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
         print(f"{key} at panel 20: {ms:.4f} ms per panel, {1000 * ms / K:.3f} us per "
               f"column step ({card})")
 
-    # the fused phase 1: the cluster kernel (its route) and the kept one-block
-    # kernel against the twin and the split engine, all timed from a CUDA
-    # graph's replay
+    # the fused phase 1: the cluster kernel (its route) against the twin and the
+    # split engine, both timed from a CUDA graph's replay
     froute = phase1.phase1_fused_route(ROWS, kw)
     out_k = phase1.phase1_panel(a, bT, used, w0, K, COLS)
     out_p = phase1.phase1_panel_plain(a, bT, used, w0, K, COLS)
-    out_b = phase1.phase1_panel_block(a, bT, used, w0, K, COLS)
     # the slice, the K pivot rows of a, and pf, prow, used out
-    for name in ("phase1_fused", "phase1_fused_block"):
-        note_bound(name, nbytes(bT, used, *out_k) + 4 * K * WP)
+    note_bound("phase1_fused", nbytes(bT, used, *out_k) + 4 * K * WP)
     require_equal("phase1_fused against the split engine",
                   zip(out_k, phase1.phase1_panel_split(a, bT, used, w0, K, COLS)))
     fused_plain_ms = cuda_ms(lambda: phase1.phase1_panel_plain(a, bT, used, w0, K, COLS), 2)
     res["phase1_fused"] = (require_equal("phase1_fused", zip(out_k, out_p)),
                            graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 32),
                            fused_plain_ms)
-    res["phase1_fused_block"] = (
-        require_equal("phase1_fused_block", zip(out_b, out_p)),
-        graph_ms(lambda: phase1.phase1_panel_block(a, bT, used, w0, K, COLS), 4),
-        fused_plain_ms)
     split_ms = graph_ms(lambda: phase1.phase1_panel_split(a, bT, used, w0, K, COLS), 32)
     fused_again = graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, COLS), 32)
     nocol = graph_ms(lambda: phase1.phase1_panel(a, bT, used, w0, K, 0), 32)
     print(f"phase1 at panel 20, replayed from a CUDA graph: fused cluster kernel on "
           f"{froute.nblocks} blocks ({froute.smem_bytes} B shared memory a block) "
-          f"{res['phase1_fused'][1]:.4f} ms (again {fused_again:.4f}), the one-block kernel "
-          f"(phase1_fused_block) {res['phase1_fused_block'][1]:.4f} ms, split engine (scan + "
+          f"{res['phase1_fused'][1]:.4f} ms (again {fused_again:.4f}), split engine (scan + "
           f"gathers + reconstruct) {split_ms:.4f} ms, the 1-pivot scan alone {scan_g:.4f} ms; "
           f"the fused kernel with no valid column (slice loads, solve and product with no "
           f"pivot) {nocol:.4f} ms ({card})")
 
     # the next panel's slice after this panel's update, as the look-ahead loop has it;
-    # the fused kernel (cluster scan beside table updates) and the kept one-block
-    # kernel against the twin, both timed in the same run from a CUDA graph's replay
-    errs, errs_b, ms_k, ms_b, ms_p = [], [], [], [], []
+    # the fused kernel (cluster scan beside table updates) against the twin, timed
+    # from a CUDA graph's replay
+    errs, ms_k, ms_p = [], [], []
     scratch = a.clone()
     for w0t in (None, w0):
         nxt = panel_update.update_full_plain(a.clone(), sel, pf) if w0t is None else \
@@ -991,28 +937,23 @@ def check_engine_kernels(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
         bTn = nxt[:, w0 + kw : w0 + 2 * kw].T.contiguous()
         args = (sel, pf, bTn, used, w0 + kw, COLS, w0t)
         out_k = panel_update.update_scan(a.clone(), *args)
-        out_b = panel_update.update_scan_block(a.clone(), *args)
         out_p = panel_update.update_scan_plain(a.clone(), *args)
         upd_bytes = update_bytes(ROWS, kw, WP if w0t is None else 1 + WP - 128 * (w0t // 128))
-        for name in ("update_scan", "update_scan_block"):
-            note_bound(name, upd_bytes + nbytes(bTn, used, *out_k[1:]))
+        note_bound("update_scan", upd_bytes + nbytes(bTn, used, *out_k[1:]))
         errs.append(require_equal(f"update_scan w0={w0t}", zip(out_k, out_p)))
-        errs_b.append(require_equal(f"update_scan_block w0={w0t}", zip(out_b, out_p)))
         ms_k.append(graph_ms(lambda: panel_update.update_scan(scratch, *args), 16))
-        ms_b.append(graph_ms(lambda: panel_update.update_scan_block(scratch, *args), 8))
         ms_p.append(cuda_ms(lambda: panel_update.update_scan_plain(scratch, *args), 2))
         # cols = 0: no column is valid, so the scan cluster only loads and stores
         part = graph_ms(lambda: panel_update.update_scan(
             scratch, sel, pf, bTn, used, w0 + kw, 0, w0t), 16)
         upd_ms = graph_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
                           else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)), 16)
-        print(f"update_scan w0={w0t}: fused kernel {ms_k[-1]:.4f} ms (one-block kernel "
-              f"update_scan_block {ms_b[-1]:.4f} ms) against scan {scan_g:.4f} ms + update "
+        print(f"update_scan w0={w0t}: fused kernel {ms_k[-1]:.4f} ms against scan "
+              f"{scan_g:.4f} ms + update "
               f"{upd_ms:.4f} ms apart; its update part alone (a scan with no valid column) "
               f"{part:.4f} ms; plain {ms_p[-1]:.4f} ms ({card})")
     # the fused update + scan's time is the mean of the full and trailing cases
     res["update_scan"] = (max(errs), sum(ms_k) / 2, sum(ms_p) / 2)
-    res["update_scan_block"] = (max(errs_b), sum(ms_b) / 2, sum(ms_p) / 2)
     return res
 
 
@@ -1055,14 +996,9 @@ def check_update_engine_kernels(dev, card: str, a, used, w0: int, sel640, pf640)
         # kernel runs the product faster than the int8 peak would allow: bytes
         # bound all three
         note_bound(name, update_bytes(ROWS, kw, WP_MULTI))
-    # the three kernels on the same inputs replayed from a CUDA graph, and the
-    # mxu2 kernel with one cost taken out at a time
+    # the three kernels on the same inputs replayed from a CUDA graph
     t = {name: graph_ms(lambda: kern(scratch, sel, pf), 32) for name, (kern, _) in cases.items()}
     t["update_mxu2 again"] = graph_ms(lambda: panel_update.update_mxu2(scratch, sel, pf), 32)
-    for probe, what in panel_update.MXU2_PROBES.items():
-        if probe:
-            t[f"update_mxu2, {what}"] = graph_ms(
-                lambda: panel_update.update_mxu2_probe(scratch, sel, pf, probe), 32)
     as_product = product_ops(ROWS, kw, WP_MULTI) / INT8_OPS_PER_MS
     print(f"updates on {WP_MULTI} words replayed from a CUDA graph: "
           + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items())
@@ -1096,7 +1032,7 @@ def check_update_engine_kernels(dev, card: str, a, used, w0: int, sel640, pf640)
 
 def scan_case(card: str, what: str, bT, used, w0: int) -> tuple:
     """The scan the route picks for this slice against its twin, timed beside
-    the one-block kernel and the other cluster sizes on the same inputs."""
+    the other cluster sizes on the same inputs."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import _cuda, phase1
 
@@ -1111,8 +1047,6 @@ def scan_case(card: str, what: str, bT, used, w0: int) -> tuple:
     if int((out_k[0] >= 0).sum()) == 0:
         raise AssertionError(f"scan, {what}: the panel has no pivots")
     ms = cuda_ms(lambda: phase1.scan(bT, used, w0, K, COLS), 5)
-    require_equal(f"scan_block, {what}", zip(phase1.scan_block(bT, used, w0, K, COLS), out_p))
-    block_ms = cuda_ms(lambda: phase1.scan_block(bT, used, w0, K, COLS), 3)
     others = []
     for nb in phase1.SCAN_CLUSTER_SIZES:
         if nb == route.nblocks or not phase1.scan_fits(-(-rows // nb), kw) or rows < 32 * nb:
@@ -1123,15 +1057,13 @@ def scan_case(card: str, what: str, bT, used, w0: int) -> tuple:
         others.append(f"{nb} blocks {1000 * t / K:.3f}")
     print(f"scan, {what} ({rows} rows): route {route.kernel} on {route.nblocks} blocks of "
           f"{route.rows_per_block} rows, {route.smem_bytes} B shared memory each: {ms:.4f} ms "
-          f"per panel, {1000 * ms / K:.3f} us per step; scan_block (one block, state in "
-          f"global memory) {block_ms:.4f} ms, {1000 * block_ms / K:.3f} us per step; other "
-          f"cluster sizes, us per step: {', '.join(others) or 'none'} ({card})")
+          f"per panel, {1000 * ms / K:.3f} us per step; other cluster sizes, us per step: {', '.join(others) or 'none'} ({card})")
     return err, ms, out_k, out_p
 
 
 def update_case(card: str, what: str, a, sel, pf) -> None:
     """The three mxu updates on this matrix against their twins, each timed
-    beside the mask-and-XOR kernel on the same words."""
+    beside its byte bound."""
     from gf2bv_tpu_torch.ops import panel_update as pu
 
     rows, wp = a.shape
@@ -1151,14 +1083,11 @@ def update_case(card: str, what: str, a, sel, pf) -> None:
     scratch = a.clone()
     for name, kern, twin, lo, const in cases:
         require_equal(f"{name}, {what}", [(kern(a.clone()), twin(a.clone()))])
-        require_equal(f"mask-and-XOR kernel as {name}, {what}",
-                      [(pu.update_rank_k(a.clone(), sel, pf, lo, const), twin(a.clone()))])
         ms = cuda_ms(lambda: kern(scratch), 10)
-        old = cuda_ms(lambda: pu.update_rank_k(scratch, sel, pf, lo, const), 10)
         live = wp - lo + (1 if const else 0)
         bound = update_bytes(rows, kw, live) / HBM_BYTES_PER_MS
         print(f"{name}, {what} ({rows} x {wp} words, {live} live): table kernel {ms:.4f} ms, "
-              f"mask-and-XOR kernel {old:.4f} ms, byte bound {bound:.4f} ms ({card})")
+              f"byte bound {bound:.4f} ms ({card})")
 
 
 def rebuild_inputs(dev, k: int, w0: int, wp: int, kind: str, nb: int, gen):
@@ -1189,15 +1118,15 @@ def rebuild_inputs(dev, k: int, w0: int, wp: int, kind: str, nb: int, gen):
 
 
 def rebuild_case(what: str, arows, coeff, prow, w0: int) -> None:
-    """The blocked coefficient solve against the step-by-step kernel, and the
-    rebuild that runs it against the plain twin; arows (K, wp) for one system
-    or (B, K, wp) for a batch."""
+    """The blocked coefficient solve, and the rebuild that runs it, against
+    their plain twins; arows (K, wp) for one system or (B, K, wp) for a
+    batch."""
     from gf2bv_tpu_torch.ops import gauss_batched, phase1
 
     new = phase1.reconstruct_coeff(arows, coeff, prow, w0)
-    old = phase1.reconstruct_coeff_steps(arows, coeff, prow, w0)
-    torch.cuda.synchronize()
-    require_equal(f"coefficient solve, blocked against step by step, {what}", [(new, old)])
+    # on CPU tensors the wrapper runs the step-by-step twin
+    twin = phase1.reconstruct_coeff(arows.cpu(), coeff.cpu(), prow.cpu(), w0)
+    require_equal(f"coefficient solve against its twin, {what}", [(new, twin.to(new.device))])
     if arows.dim() == 2:
         pf, pf_p = (phase1.reconstruct(arows, coeff, prow, w0),
                     phase1.reconstruct_plain(arows, coeff, prow, w0))
@@ -1209,9 +1138,9 @@ def rebuild_case(what: str, arows, coeff, prow, w0: int) -> None:
 
 def check_rebuild(dev, card: str, a, bT, used, w0: int) -> None:
     """The rebuild's blocked coefficient solve beyond the flagship panel, and
-    old and new kernel, the product and the whole rebuild timed on the card
-    alone (a CUDA graph's replay) at the flagship panel, for one system and
-    for NB."""
+    the coefficient solve, the product and the whole rebuild timed on the
+    card alone (a CUDA graph's replay) at the flagship panel, for one system
+    and for NB."""
     from gf2bv_tpu_torch.crypto.mt_torch import COLS
     from gf2bv_tpu_torch.ops import gauss_batched, launch_floor, phase1
     from gf2bv_tpu_torch.ops import panel_update as pu
@@ -1231,8 +1160,8 @@ def check_rebuild(dev, card: str, a, bT, used, w0: int) -> None:
                                  coeff[0].contiguous(), prow[0].contiguous(), w0c)
                     rebuild_case(what + f", B={NB}", arows, coeff, prow, w0c)
                     cases += 2
-    print(f"rebuild: the blocked coefficient solve = the step-by-step kernel, and the rebuild "
-          f"= its plain twin, in {cases} cases (K 64/128/256; 640, 768 and 333 words; "
+    print(f"rebuild: the blocked coefficient solve and the rebuild = their plain twins, "
+          f"in {cases} cases (K 64/128/256; 640, 768 and 333 words; "
           f"first, middle and last panel; solver and arbitrary inputs; one system and "
           f"B={NB}), max_abs_err 0")
 
@@ -1254,31 +1183,23 @@ def check_rebuild(dev, card: str, a, bT, used, w0: int) -> None:
     pf0 = torch.zeros_like(arows[0])
     t = {
         "new": graph_ms(lambda: phase1.reconstruct_coeff(*one)),
-        "old": graph_ms(lambda: phase1.reconstruct_coeff_steps(*one)),
-        "old again": graph_ms(lambda: phase1.reconstruct_coeff_steps(*one)),
         "new again": graph_ms(lambda: phase1.reconstruct_coeff(*one)),
         "new B": graph_ms(lambda: phase1.reconstruct_coeff(*many)),
-        "old B": graph_ms(lambda: phase1.reconstruct_coeff_steps(*many)),
-        "product": graph_ms(lambda: pu.update_rank_k(pf0, tbits, arows[0])),
         "table": graph_ms(lambda: pu.update_full(pf0, tbits, arows[0])),
         "whole": graph_ms(lambda: phase1.reconstruct(*one)),
         "whole B": graph_ms(lambda: gauss_batched.reconstruct_batched(*many)),
     }
     print(f"coefficient solve at K = {K}, flagship panel 20, per launch replayed from a CUDA "
-          f"graph: blocked kernel {t['new']:.4f} ms (again {t['new again']:.4f}), step-by-step "
-          f"kernel {t['old']:.4f} ms (again {t['old again']:.4f}); B={NB}: blocked "
-          f"{t['new B']:.4f} ms, step by step {t['old B']:.4f} ms ({card})")
+          f"graph: blocked kernel {t['new']:.4f} ms (again {t['new again']:.4f}); B={NB} "
+          f"{t['new B']:.4f} ms ({card})")
     print(f"the rebuild's product pf = T.arows on ({K}, {WP}) words, timed as an update in "
           f"place on a zeroed pf: the table kernel (whose body is the rebuild's second "
-          f"launch) {t['table']:.4f} ms, the mask-and-XOR tiles that ran it before "
-          f"{t['product']:.4f} ms; the whole rebuild (both launches) {t['whole']:.4f} ms, "
+          f"launch) {t['table']:.4f} ms; the whole rebuild (both launches) {t['whole']:.4f} ms, "
           f"B={NB} {t['whole B']:.4f} ms ({card})")
     for k in (64, 128):
         ak, ck, pk = (x[0].contiguous() for x in rebuild_inputs(dev, k, 8, WP, "solver", 1, gen))
         print(f"coefficient solve at K = {k} ({2 * k} steps): blocked kernel "
-              f"{graph_ms(lambda: phase1.reconstruct_coeff(ak, ck, pk, 8)):.4f} ms, step by "
-              f"step {graph_ms(lambda: phase1.reconstruct_coeff_steps(ak, ck, pk, 8)):.4f} ms "
-              f"({card})")
+              f"{graph_ms(lambda: phase1.reconstruct_coeff(ak, ck, pk, 8)):.4f} ms ({card})")
     # a reading, not a bound: the chain as groups x one group's 32 steps alone.  At
     # K = 32 the kernel is one forward and one back group of 32 steps, each step a
     # broadcast and the thread's one row to serve.
@@ -1296,27 +1217,19 @@ def check_rebuild(dev, card: str, a, bT, used, w0: int) -> None:
           f"other rows each step serves ({card})")
 
 
-def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
+def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> None:
     """The redesigned kernels beyond the flagship panel: the rebuild's
-    coefficient solve (check_rebuild); the cluster scan
-    on one block (768 rows), at an odd row count and on the tall system, the
-    kept one-block scan against its twin, the table kernel under the mxu
-    rules on 768 words, on an unaligned width and on a (rows, 8) slice, old
-    and new kernel timed on the same inputs; what the table kernel's time is
-    made of."""
-    from gf2bv_tpu_torch.crypto.mt_torch import COLS, mt19937_system_device
+    coefficient solve (check_rebuild); the cluster scan on one block (768
+    rows), at an odd row count and on the tall system; the table kernel under
+    the mxu rules on 768 words, on an unaligned width and on a (rows, 8)
+    slice, each against its twin and timed."""
+    from gf2bv_tpu_torch.crypto.mt_torch import mt19937_system_device
     from gf2bv_tpu_torch.core.words import u32_to_torch
-    from gf2bv_tpu_torch.ops import panel_update as pu
     from gf2bv_tpu_torch.ops import phase1
 
     kw = K // 32
-    res = {}
     check_rebuild(dev, card, a, bT, used, w0)
-    err, _, _, out_p = scan_case(card, "flagship panel 20", bT, used, w0)
-    res["scan_block"] = (
-        err, cuda_ms(lambda: phase1.scan_block(bT, used, w0, K, COLS), 5),
-        cuda_ms(lambda: phase1.scan_plain(bT, used, w0, K, COLS), 2))
-    note_bound("scan_block", nbytes(bT, used, *out_p))
+    scan_case(card, "flagship panel 20", bT, used, w0)
     # SUBSET_ROWS unused rows, those with a bit in the slice first (the first
     # SUBSET_ROWS unused rows of the raw system hold no pivot of this panel)
     unused = torch.nonzero(used[0] == 0)[:, 0]
@@ -1344,20 +1257,6 @@ def check_redesign(dev, card: str, a, bT, used, w0: int, sel, pf) -> dict:
                 pf[:, : WP - 2].contiguous())
     update_case(card, "the look-ahead engine's slice", a[:, w0 : w0 + kw].contiguous(), sel,
                 pf[:, w0 : w0 + kw].contiguous())
-
-    # what the table kernel's time on 768 words is made of: one cost out at a time
-    scratch = a768.clone()
-    base = cuda_ms(lambda: pu.update_table_probe(scratch, sel, pf768, 0), 20)
-    zero_sel = torch.zeros_like(sel)
-    parts = {"all-zero selectors (every lane reads entry 0: no bank conflicts)":
-             cuda_ms(lambda: pu.update_table_probe(scratch, zero_sel, pf768, 0), 20)}
-    for probe, what in pu.TABLE_PROBES.items():
-        if probe:
-            parts[what] = cuda_ms(lambda: pu.update_table_probe(scratch, sel, pf768, probe), 20)
-    print(f"table kernel on {WP_MULTI} words: {base:.4f} ms as it is; with one cost taken "
-          f"out: " + "; ".join(f"{what} {ms:.4f} ms" for what, ms in parts.items())
-          + f" ({card})")
-    return res
 
 
 def check_launch_floor(dev, card: str) -> int:

@@ -6,11 +6,10 @@
 // into one link of the chain, so a panel takes as many launches as chunks.
 //
 // gf2_phase1_fused_chunked replaces gf2bv_tpu/ops/pallas_phase1.py:
-// _make_kernel (phase1_panel, the "pallas" engine) past one cluster, where
-// the one-block kernel gf2_phase1_fused_block ran before (phase1_fused.cu;
-// 15.1-15.2 ms a panel on 67328 rows).  Same contract as gf2_phase1_fused: in a
-// (rows, wp), bT (kw, rows), used (rows,), w0, cols; out pf (K, wp) the
-// panel's RREF pivot rows, prow (K,), used' (rows,), cT (kw, rows).
+// _make_kernel (phase1_panel, the "pallas" engine) past one cluster.  Same
+// contract as gf2_phase1_fused: in a (rows, wp), bT (kw, rows), used (rows,),
+// w0, cols; out pf (K, wp) the panel's RREF pivot rows, prow (K,), used'
+// (rows,), cT (kw, rows).
 //   * Launches 0 .. C-2 are the chained scan's plain links.
 //   * The last launch is the link followed by the fused phase 1's product
 //     stages (phase1_product_body: the blocked coefficient solve in every
@@ -26,7 +25,7 @@
 //
 // gf2_update_scan_chunked replaces gf2bv_tpu/ops/pallas_update.py:
 // _make_mxu_scan_kernel (panel_update_mxu_scan, the "mxu_la" engine) past one
-// cluster, where gf2_update_scan_block ran before.  Same contract as
+// cluster.  Same contract as
 // gf2_update_scan: the rank-K update of a on the words {0 if const_word} U
 // [word_lo, wp), and the 1-pivot scan of the next slice bTn at w0n.  The two
 // parts share no data (the scan reads the separate, already-updated bTn), so

@@ -35,133 +35,13 @@
 // solve's words and the tables; the product stages start after the scan's
 // header, so nothing the exchange used is written again.  The coefficient
 // solve is compiled for K = 256 and takes every kw, so the kernel has the
-// scan's ten instantiations and no more.
-//
-// gf2_phase1_fused_block is the earlier design under its own name, on no
-// solve's path since the chained kernel (fused_chunked.cu) took the rows past
-// what the largest cluster holds, kept to be timed beside it: ONE block of
-// 1024 threads, the scan
-// with its state in L2 (scan_system.cuh), each panel row carried in shared
-// memory as [T | slice] (T: the combination of pivot rows a[prow[t]] it is
-// made of; slice: its words w0 .. w0+kw-1), rebuilt per pivot step from the
-// earlier rows selected by C[piv] (each thread owns one earlier row and four
-// of the 2*kw words; four warp XOR-reductions and one barrier combine them),
-// the back pass on the same rows (thread k owns row k), then pf = T . a[prow]
-// at full width on the same SM, each pivot row read from a once per 32-word
-// tile.
+// scan's ten instantiations and no more.  Slices taller than the largest
+// cluster holds take the chained kernel (fused_chunked.cu).
 
 #include "phase1_product.cuh"
 #include "scan_cluster.cuh"
-#include "scan_system.cuh"
 
 namespace {
-
-using gf2::kMaxKw;
-using gf2::kScanThreads;
-
-constexpr int kMaxK = 32 * kMaxKw;
-constexpr int kTsStride = 2 * kMaxKw + 1;  // one [T | slice] row, padded against bank conflicts
-
-__global__ void __launch_bounds__(kScanThreads)
-phase1_fused_block_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ bT_in,
-                          const int32_t* __restrict__ used_in, int32_t* __restrict__ prow,
-                          int32_t* used, uint32_t* cT, uint32_t* bT, uint32_t* __restrict__ pf,
-                          int rows, int wp, int kw, int w0, int cols) {
-  __shared__ uint32_t ts[kMaxK * kTsStride];  // the panel rows as [T | slice]
-  __shared__ uint32_t part[kScanThreads / 32][4];
-  __shared__ int prow_s[kMaxK];
-  __shared__ int warp_min[kScanThreads / 32];
-  __shared__ int piv_s;
-  const int tid = threadIdx.x;
-  const int K = 32 * kw;
-  const int rw = 2 * kw;
-
-  gf2::scan_init(bT_in, used_in, used, cT, bT, rows, kw);
-  for (int i = tid; i < kMaxK * kTsStride; i += blockDim.x) ts[i] = 0u;
-  // the rebuild's split: thread owns earlier row t_own and words q + 4m
-  const int t_own = tid & (kMaxK - 1);
-  const int q = tid / kMaxK;
-
-  for (int jj = 0; jj < K; ++jj) {
-    const long long gbit = 32LL * w0 + jj;
-    if (gbit < 1 || gbit > cols) {  // block-uniform: no pivot, no barrier
-      if (tid == 0) prow[jj] = prow_s[jj] = -1;
-      continue;
-    }
-    const int sw = jj >> 5;
-    const uint32_t bit = 1u << (jj & 31);
-    const uint32_t* col = bT + (size_t)sw * rows;
-
-    const int piv =
-        gf2::block_min(gf2::first_candidate(col, used, bit, rows), rows, warp_min, &piv_s);
-    if (tid == 0) prow[jj] = prow_s[jj] = piv < rows ? piv : -1;
-    if (piv >= rows) continue;  // block-uniform: row jj stays zero
-
-    uint32_t bp[kMaxKw];
-#pragma unroll
-    for (int g = 0; g < kMaxKw; ++g)
-      bp[g] = (g >= sw && g < kw) ? bT[(size_t)g * rows + piv] : 0u;
-
-    // forward rebuild of row jj from the earlier rows selected by C[piv]
-    const bool take = t_own < jj && ((cT[(size_t)(t_own >> 5) * rows + piv] >> (t_own & 31)) & 1u);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int g = q + 4 * m;
-      uint32_t x = (take && g < rw) ? ts[t_own * kTsStride + g] : 0u;
-      x = __reduce_xor_sync(0xffffffffu, x);
-      if ((tid & 31) == 0) part[tid >> 5][m] = x;
-    }
-    __syncthreads();
-    if (tid < rw) {
-      const int g = tid;
-      uint32_t x = g < kw ? (g == sw ? bit : 0u) : a[(size_t)piv * wp + w0 + (g - kw)];
-      const int w_lo = (g & 3) * (kMaxK / 32);  // the warps that hold word g
-      for (int w = w_lo; w < w_lo + kMaxK / 32; ++w) x ^= part[w][g >> 2];
-      ts[jj * kTsStride + g] = x;
-    }
-
-    gf2::eliminate(col, used, cT, bT, bp, bit, sw, piv, rows, kw);
-  }
-  __syncthreads();
-
-  // back pass; row j is final at step j
-  for (int j = K - 1; j >= 0; --j) {
-    if (prow_s[j] < 0) continue;  // block-uniform
-    const int k = tid;
-    if (k < 32 * ((j >> 5) + 1) && k != j &&
-        ((ts[k * kTsStride + kw + (j >> 5)] >> (j & 31)) & 1u)) {
-      for (int g = 0; g < rw; ++g) ts[k * kTsStride + g] ^= ts[j * kTsStride + g];
-    }
-    __syncthreads();
-  }
-
-  // pf = T . a[prow], one 32-word tile at a time: thread (tx, ty) owns word
-  // tx of rows ty + 32 r
-  const int tx = tid & 31, ty = tid >> 5;
-  for (int wb = 0; wb < wp; wb += 32) {
-    const int w = wb + tx;
-    uint32_t acc[kMaxKw];
-#pragma unroll
-    for (int r = 0; r < kMaxKw; ++r) acc[r] = 0u;
-    for (int g = 0; g < kw; ++g) {
-      uint32_t s[kMaxKw];
-#pragma unroll
-      for (int r = 0; r < kMaxKw; ++r) s[r] = r < kw ? ts[(ty + 32 * r) * kTsStride + g] : 0u;
-      for (int b = 0; b < 32; ++b) {
-        const int pr = prow_s[32 * g + b];
-        if (pr < 0) continue;  // block-uniform
-        const uint32_t p = w < wp ? a[(size_t)pr * wp + w] : 0u;
-#pragma unroll
-        for (int r = 0; r < kMaxKw; ++r) acc[r] ^= p & (0u - ((s[r] >> b) & 1u));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxKw; ++r)
-      if (r < kw && w < wp) pf[(size_t)(ty + 32 * r) * wp + w] = acc[r];
-  }
-}
-
-// -- the cluster kernel ------------------------------------------------------
 
 static_assert(gf2::kClusterThreads == gf2::kTabThreads, "one block size for the scan and tables");
 
@@ -242,17 +122,4 @@ extern "C" int gf2_phase1_fused(const uint32_t* a, const uint32_t* bT_in,
   GF2_FUSED_SLOTS(gf2::kMaxSlots)
 #undef GF2_FUSED_SLOTS
   return (int)cudaErrorInvalidValue;
-}
-
-// The earlier design: one block, the scan's state in global memory (bT_work
-// (kw, rows) its working copy of the slice).
-extern "C" int gf2_phase1_fused_block(const uint32_t* a, const uint32_t* bT_in,
-                                      const int32_t* used_in, int32_t* prow,
-                                      int32_t* used_out, uint32_t* cT, uint32_t* bT_work,
-                                      uint32_t* pf, int rows, int wp, int kw, int w0, int cols,
-                                      cudaStream_t stream) {
-  if (kw < 1 || kw > kMaxKw || w0 < 0 || w0 + kw > wp) return (int)cudaErrorInvalidValue;
-  phase1_fused_block_kernel<<<1, kScanThreads, 0, stream>>>(
-      a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols);
-  return (int)cudaGetLastError();
 }

@@ -56,8 +56,8 @@ phase1_product_body(const uint32_t* __restrict__ a, const uint32_t* cT, const in
   // this block's strips of pf = T . a[prow]: the K rows are one chunk
   const int K = 32 * kw;
   for (int strip = rank; strip < nstrips; strip += nb)
-    table_update_body<0, true, true>(pf, tbits, a, K, wp, kw, 0, 0, K, aligned, kw == 8,
-                                     strip, 0, work, prow);
+    table_update_body<true, true>(pf, tbits, a, K, wp, kw, 0, 0, K, aligned, kw == 8, strip,
+                                  0, work, prow);
 }
 
 }  // namespace gf2

@@ -54,12 +54,8 @@
 //     no warp asks another during a group; before each group the holding warp
 //     publishes the words through shared memory: one block barrier a group.
 // That is 2 K warp-level steps and kw + 1 block barriers of nq warps (9 at
-// K = 256) where the step-by-step kernel below has 2 K = 512 block barriers.
-//
-// coeff_steps_kernel is that earlier design: one block of K threads (thread
-// k owns row k in shared memory), one block barrier per step.  It is on no
-// solve's path; gf2_reconstruct_coeff_steps keeps it callable so that both
-// can be timed on the same inputs.
+// K = 256) where one block of K threads, a row a thread, would take 2 K = 512
+// block barriers.
 //
 // The batched rebuild (gf2_reconstruct_batched) replaces
 // gf2bv_tpu/ops/gauss_batched.py: _make_reconstruct_kernel_b (launched by
@@ -74,53 +70,6 @@
 namespace {
 
 constexpr int kMaxKw = 8;  // K <= 256
-
-__global__ void coeff_steps_kernel(const uint32_t* __restrict__ arows,
-                                   const uint32_t* __restrict__ coeff,
-                                   const int32_t* __restrict__ prow,
-                                   uint32_t* __restrict__ tbits, int wp, int kw, int w0) {
-  extern __shared__ uint32_t smem[];
-  const int K = 32 * kw;
-  const int k = threadIdx.x;         // blockDim.x == K
-  const int rw = 2 * kw;             // row: [T (kw words) | slice (kw words)]
-  uint32_t* row = smem;              // [K][2*kw]
-  uint32_t* cf = smem + K * rw;      // [K][kw] coefficients
-  int* has = (int*)(cf + K * kw);    // [K]
-  // block b of the grid takes system b
-  arows += (size_t)blockIdx.x * K * wp;
-  coeff += (size_t)blockIdx.x * K * kw;
-  prow += (size_t)blockIdx.x * K;
-  tbits += (size_t)blockIdx.x * K * kw;
-
-  for (int g = 0; g < kw; ++g) {
-    row[k * rw + g] = (g == (k >> 5)) ? (1u << (k & 31)) : 0u;
-    row[k * rw + kw + g] = arows[(size_t)k * wp + w0 + g];
-    cf[k * kw + g] = coeff[(size_t)k * kw + g];
-  }
-  has[k] = prow[k] >= 0;
-  __syncthreads();
-
-  // forward rebuild; row t is final at step t
-  for (int t = 0; t < K; ++t) {
-    if (k == t && !has[t]) {
-      for (int g = 0; g < rw; ++g) row[k * rw + g] = 0u;
-    } else if (k > t && has[t] && ((cf[k * kw + (t >> 5)] >> (t & 31)) & 1u)) {
-      for (int g = 0; g < rw; ++g) row[k * rw + g] ^= row[t * rw + g];
-    }
-    __syncthreads();
-  }
-
-  // back pass; row j is final at step j
-  for (int j = K - 1; j >= 0; --j) {
-    if (has[j] && k != j && k < 32 * ((j >> 5) + 1) &&
-        ((row[k * rw + kw + (j >> 5)] >> (j & 31)) & 1u)) {
-      for (int g = 0; g < rw; ++g) row[k * rw + g] ^= row[j * rw + g];
-    }
-    __syncthreads();
-  }
-
-  for (int g = 0; g < kw; ++g) tbits[(size_t)k * kw + g] = row[k * rw + g];
-}
 
 using gf2::blocked_quads;
 using gf2::blocked_smem_words;
@@ -201,17 +150,4 @@ extern "C" int gf2_reconstruct_coeff(const uint32_t* arows, const uint32_t* coef
                                      int kw, int w0, cudaStream_t stream) {
   if (bad_shape(batch, wp, kw, w0)) return (int)cudaErrorInvalidValue;
   return (int)launch_coeff_blocked(arows, coeff, prow, tbits, batch, wp, kw, w0, stream);
-}
-
-// The same by the step-by-step kernel (one block barrier per step): the
-// earlier design, on no solve's path, kept callable so that both can be timed
-// on the same inputs.
-extern "C" int gf2_reconstruct_coeff_steps(const uint32_t* arows, const uint32_t* coeff,
-                                           const int32_t* prow, uint32_t* tbits, int batch,
-                                           int wp, int kw, int w0, cudaStream_t stream) {
-  if (bad_shape(batch, wp, kw, w0)) return (int)cudaErrorInvalidValue;
-  const int K = 32 * kw;
-  const size_t smem = (size_t)(K * 3 * kw) * sizeof(uint32_t) + (size_t)K * sizeof(int);
-  coeff_steps_kernel<<<batch, K, smem, stream>>>(arows, coeff, prow, tbits, wp, kw, w0);
-  return (int)cudaGetLastError();
 }

@@ -3,10 +3,9 @@
 //
 // gf2_scan2_chunked replaces gf2bv_tpu/ops/pallas_phase1.py: _make_scan_kernel2
 // (variant "2" of _call_scan_kernel) for slices past the largest cluster
-// (65536 rows at K = 256), where the one-block kernel gf2_scan2_block (scan2.cu,
-// state in global memory, ~40 us a pair step at 67328 rows) ran before.  The
-// contract is the 1-pivot scan's, to the bit: in bT (kw, rows), used (rows,),
-// w0, cols; out prow (K,), used' (rows,), cT (kw, rows).
+// (65536 rows at K = 256).  The contract is the 1-pivot scan's
+// (scan_cluster.cuh), to the bit: in bT (kw, rows), used (rows,), w0, cols;
+// out prow (K,), used' (rows,), cT (kw, rows).
 //
 // It is the 1-pivot chain (scan_chunked.cu: why a chain is exact, the record,
 // the equal chunks of the route) with the two-pivot body: launch c scans chunk

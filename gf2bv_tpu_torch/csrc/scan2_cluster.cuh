@@ -1,6 +1,6 @@
 // The two-pivot scan of one system by a thread-block cluster with its state
 // in shared memory (scan2.cu: gf2_scan2).  The contract is the 1-pivot
-// scan's (scan_system.cuh), two columns at a time as pallas_phase1.py:
+// scan's (scan_cluster.cuh), two columns at a time as pallas_phase1.py:
 // _make_scan_kernel2 takes them: for each even jj0, pivot 0 is the lowest
 // unused row with bit jj0 set; column jj0 + 1 is seen through pivot 0's
 // elimination done virtually; pivot 1 is its lowest candidate other than

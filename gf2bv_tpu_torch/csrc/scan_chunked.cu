@@ -4,9 +4,7 @@
 // gf2_scan_chunked replaces gf2bv_tpu/ops/pallas_phase1.py: _make_scan_kernel,
 // and gf2_scan_batched_chunked gf2bv_tpu/ops/gauss_batched.py:
 // _make_scan_kernel_b, for slices past the largest cluster (65536 rows at
-// K = 256), where the one-block kernels gf2_scan_block and
-// gf2_scan_batched_block (scan.cu, state in global memory, 7.5 us a step)
-// ran before.  The contract is scan_system.cuh's, to the bit: in bT (kw,
+// K = 256).  The contract is scan_cluster.cuh's, to the bit: in bT (kw,
 // rows), used (rows,), w0, cols; out prow (K,), used' (rows,), cT (kw, rows);
 // the pivot of a column is the lowest unused row with the bit set.
 //

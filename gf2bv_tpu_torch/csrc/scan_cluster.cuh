@@ -2,15 +2,23 @@
 // state in shared memory, as a body other kernels call: the 1-pivot scan and
 // the batched scan (scan.cu: one cluster, or one cluster per system) and the
 // scan cluster of the fused update + scan (panel_update.cu: cluster 0 of a
-// grid whose other clusters update the matrix).  The contract is
-// scan_system.cuh's (pallas_phase1.py: _make_scan_kernel): in bT (kw, rows),
-// used (rows,), w0, cols; out prow (K,), used' (rows,), cT (kw, rows); the
-// pivot of a column is the lowest unused row with the bit set.
+// grid whose other clusters update the matrix).
+//
+// The contract of every scan of this directory (pallas_phase1.py:
+// _make_scan_kernel):
+//   in : bT (kw, rows) transposed panel slice, used (rows,) 0/1, w0, cols
+//   out: prow (K,) pivot row per panel column (-1 = free or invalid),
+//        used' (rows,), cT (kw, rows) elimination coefficients
+// For each panel column jj (packed bit 32*w0 + jj, valid in 1..cols) the
+// pivot is the LOWEST unused row index with the bit set (the reference's
+// rule: any other rule permutes rows and breaks bit-exact comparisons).  Its
+// slice words >= jj's word are XORed into every other candidate, the
+// candidate's coefficient bit jj is set in cT, and the pivot is marked used.
 //
 // What bounds a scan on the H100: latency.  K = 256 dependent steps per panel,
 // each an election of the lowest candidate row followed by an elimination
 // sweep; the arithmetic and the 1.5 MB moved are negligible.  With the state
-// in global memory and one block (scan_system.cuh) a step costs each thread a
+// in global memory and one block of 1024 threads a step costs each thread a
 // serial walk over its ~20 rows through L2 latency, twice: 7.5 us per step on
 // 20224 rows against 0.58 us on 768.
 //

@@ -1,6 +1,6 @@
 // The subset-first pivot scan of one K-column panel: the default engine's
 // scan on the card (ops/phase1.py: scan_subset).  Same contract as the
-// cluster scan (scan_system.cuh): in bT (kw, rows), used (rows,), w0, cols;
+// cluster scan (scan_cluster.cuh): in bT (kw, rows), used (rows,), w0, cols;
 // out prow (K,), used' (rows,), cT (kw, rows); the pivot of a column is the
 // lowest unused row with the bit set.  cT is exact on the rows of the subset
 // (below) and on every row where the fallback ran; the solver reads it only

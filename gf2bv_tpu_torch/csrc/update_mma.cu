@@ -55,8 +55,6 @@
 //     __shfl_xor_sync stages), laid out so that one 16-byte load gives a
 //     thread the B fragments of two products and a warp's loads hit 32 banks.
 //     One launch, no scratch.
-//   gf2_update_mxu2_probe launches the same kernel with one cost taken out
-//   (the writes to a, the products, the B build), for timing.
 //
 // Bound on the H100: the product is 2 * rows * K * 32 * wp one-bit
 // operations, for which the data sheet names no rate; priced at the int8
@@ -64,7 +62,7 @@
 // kernel takes less (0.102-0.110 ms), so that is no bound.  The bytes of a
 // (read and written once), sel and pf bound it (0.0375 ms there).  Its time
 // goes in about equal parts to the products, the traffic of a and the B build
-// (gf2_update_mxu2_probe takes each out).
+// (measured by taking each out in turn).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -174,10 +172,7 @@ __device__ __forceinline__ void store_words(uint32_t* p, int n, bool quad, uint4
 // words a block along x, tiles_per_block 16-row tiles a block along y.  vec:
 // wp % 4 == 0 and a 16-byte aligned, so every whole quad of a row is one
 // 16-byte access (explicit v4 accesses: left to the compiler, the stores came
-// out as four 4-byte ones).  kProbe (timing only,
-// a is scratch): 1 no loads or stores of a, 2 no products (the B words stand
-// in for the counts), 4 no B build.
-template <int kProbe>
+// out as four 4-byte ones).
 __global__ void __launch_bounds__(kMx2Threads, kMx2BlocksPerSm)
 mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
                   const uint32_t* __restrict__ pf, int rows, int wp, int kw, int head_words,
@@ -191,15 +186,14 @@ mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
   const int s = bx < nhead ? kMx2Strip * bx : word_lo + kMx2Strip * (bx - nhead);
   const int nw = min(kMx2Strip, (bx < nhead ? head_words : wp) - s);  // words of the strip
 
-  if (!(kProbe & 4)) {  // B of the strip: warp k transposes k-word k of its nw words
-    const int k = warp;
-    const uint32_t* src = pf + (size_t)(32 * k + lane) * wp + s;  // row 32k + lane of pf
+  // B of the strip: warp k transposes k-word k of its nw words
+  const int k = warp;
+  const uint32_t* src = pf + (size_t)(32 * k + lane) * wp + s;  // row 32k + lane of pf
 #pragma unroll 4
-    for (int w = 0; w < kMx2Strip; ++w) {
-      const uint32_t x = (k < kw && w < nw) ? src[w] : 0u;
-      // lane p: bit j = bit p of pf[32k + j][s + w]
-      bsm[mx2_b_index(w, lane, k)] = transpose32(x, lane);
-    }
+  for (int w = 0; w < kMx2Strip; ++w) {
+    const uint32_t x = (k < kw && w < nw) ? src[w] : 0u;
+    // lane p: bit j = bit p of pf[32k + j][s + w]
+    bsm[mx2_b_index(w, lane, k)] = transpose32(x, lane);
   }
   __syncthreads();
 
@@ -223,7 +217,7 @@ mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
     for (int i = 0; i < 4; ++i) {
       const int r = rbase + 4 * i + (lane >> 3);
       old[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (!(kProbe & 1) && r < rows && nq > 0)
+      if (r < rows && nq > 0)
         old[i] = load_words(a + (size_t)r * wp + s + 4 * cq, nq, quad);
     }
     for (int G = 0; G < groups; ++G) {
@@ -234,15 +228,8 @@ mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
       for (int jp = 0; jp < 8; ++jp) {  // products J = 2 jp and 2 jp + 1: bits 4 jp .. 4 jp + 3
         const uint4 b = bq[8 * jp];
         int c0[4], c1[4];
-        if (kProbe & 2) {
-          c0[0] = c0[2] = (int)b.x;
-          c0[1] = c0[3] = (int)b.y;
-          c1[0] = c1[2] = (int)b.z;
-          c1[1] = c1[3] = (int)b.w;
-        } else {
-          mma_b1_and_popc(c0, af, b.x, b.y);
-          mma_b1_and_popc(c1, af, b.z, b.w);
-        }
+        mma_b1_and_popc(c0, af, b.x, b.y);
+        mma_b1_and_popc(c1, af, b.z, b.w);
         lo |= (((uint32_t)c0[0] & 1u) | (((uint32_t)c0[1] & 1u) << 1) |
                (((uint32_t)c1[0] & 1u) << 2) | (((uint32_t)c1[1] & 1u) << 3)) << (4 * jp);
         hi |= (((uint32_t)c0[2] & 1u) | (((uint32_t)c0[3] & 1u) << 1) |
@@ -257,21 +244,16 @@ mxu2_strip_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
       const int rl = 4 * i + (lane >> 3), r = rbase + rl;
       if (r >= rows || nq == 0) continue;
       const uint4 d = *reinterpret_cast<const uint4*>(stage + rl * kMx2Stage + 4 * cq);
-      if (kProbe & 1) {  // keep the products alive without touching a's tile
-        if ((d.x & d.y & d.z & d.w) == kFull) a[(size_t)r * wp + s] = d.x;
-      } else {
-        store_words(a + (size_t)r * wp + s + 4 * cq, nq, quad, gf2::xor4(old[i], d));
-      }
+      store_words(a + (size_t)r * wp + s + 4 * cq, nq, quad, gf2::xor4(old[i], d));
     }
     __syncwarp();
   }
 }
 
-template <int kProbe>
 cudaError_t launch_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows, int wp,
                         int kw, int head_words, int word_lo, cudaStream_t stream) {
   static bool attributes_set = false;
-  auto kernel = mxu2_strip_kernel<kProbe>;
+  auto kernel = mxu2_strip_kernel;
   if (!attributes_set) {
     cudaError_t rc =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMx2Smem);
@@ -327,22 +309,7 @@ extern "C" int gf2_update_mxu2(uint32_t* a, const uint32_t* sel, const uint32_t*
   if (bad_shape(rows, wp, kw, w0)) return (int)cudaErrorInvalidValue;
   int head_words, word_lo;
   mxu2_rule(wp, w0, &head_words, &word_lo);
-  return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
-}
-
-// The full-width mxu2 update with one cost taken out, for timing (a is
-// scratch): probe 1 no loads or stores of a, 2 no products, 4 no B build;
-// 0 the kernel as it is.
-extern "C" int gf2_update_mxu2_probe(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                                     int rows, int wp, int kw, int probe, cudaStream_t stream) {
-  if (bad_shape(rows, wp, kw, -1)) return (int)cudaErrorInvalidValue;
-  switch (probe) {
-    case 0: return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case 1: return (int)launch_mxu2<1>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case 2: return (int)launch_mxu2<2>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case 4: return (int)launch_mxu2<4>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_mxu2(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
 }
 
 // a ^= S . PF, engine "mxu4", in one launch.  w0 < 0: every word; else, once
@@ -352,5 +319,5 @@ extern "C" int gf2_update_mxu4(uint32_t* a, const uint32_t* sel, const uint32_t*
   if (bad_shape(rows, wp, kw, w0)) return (int)cudaErrorInvalidValue;
   int head_words, word_lo;
   mxu4_rule(wp, w0, &head_words, &word_lo);
-  return (int)launch_mxu2<0>(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
+  return (int)launch_mxu2(a, sel, pf, rows, wp, kw, head_words, word_lo, stream);
 }

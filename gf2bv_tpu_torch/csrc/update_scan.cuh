@@ -47,9 +47,9 @@ update_scan_kernel(const UpdatePart up, const ScanPart sc, const ScanChain chain
   const TableGrid& g = up.grid;
   const int u = (int)blockIdx.x - sc.nb;
   if (u >= g.nstrips * g.nchunks) return;
-  table_update_body<0, false>(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo,
-                              g.const_word, g.chunk_rows, g.aligned, g.sel_vec,
-                              u % g.nstrips, u / g.nstrips, smem4);
+  table_update_body<false>(up.a, up.sel, up.pf, up.rows, up.wp, up.kw, up.word_lo,
+                           g.const_word, g.chunk_rows, g.aligned, g.sel_vec, u % g.nstrips,
+                           u / g.nstrips, smem4);
 }
 
 // const_word: the caller's; up.grid is filled here.  g: the scan's geometry

@@ -21,8 +21,7 @@
 // What bounds it on the H100: the TPU bodies are K mask-and-XOR steps per
 // output word (or the same product on the matrix unit).  On the CUDA cores
 // that form costs about 4 INT32 operations per selector bit and word and is
-// bound by the INT32 pipes at 21-23x the bytes the update must move (rank_k_tile
-// in panel_update.cu, which the pivot-row rebuild's small product keeps).
+// bound by the INT32 pipes at 21-23x the bytes the update must move.
 // Here each group of 8 selector bits costs ONE shared-memory read and one
 // XOR instead of 8 mask-and-XORs:
 //   * a block owns a strip of 4 live word columns (one uint4; the const word
@@ -56,7 +55,7 @@ namespace {
 
 // Block (x, y) of problem z: strip x, row chunk y.  kProduct: problem z of a
 // batch lies at z * mat_stride (a), z * sel_stride and z * pf_stride words.
-template <int kProbe, bool kProduct>
+template <bool kProduct>
 __global__ void __launch_bounds__(kTabThreads)
 table_update_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
                     const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
@@ -68,19 +67,18 @@ table_update_kernel(uint32_t* a, const uint32_t* __restrict__ sel,
     sel += blockIdx.z * sel_stride;
     pf += blockIdx.z * pf_stride;
   }
-  table_update_body<kProbe, kProduct>(a, sel, pf, rows, wp, kw, word_lo, const_word,
-                                      chunk_rows, aligned, sel_vec, (int)blockIdx.x,
-                                      (int)blockIdx.y, smem4);
+  table_update_body<kProduct>(a, sel, pf, rows, wp, kw, word_lo, const_word, chunk_rows,
+                              aligned, sel_vec, (int)blockIdx.x, (int)blockIdx.y, smem4);
 }
 
-template <int kProbe, bool kProduct = false>
+template <bool kProduct>
 cudaError_t launch_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
                          int wp, int kw, int word_lo, int const_word, cudaStream_t stream,
                          int batch = 1, size_t mat_stride = 0, size_t sel_stride = 0,
                          size_t pf_stride = 0) {
   static bool smem_allowed = false;  // once per instantiation: tables up to K = 256
   if (!smem_allowed) {
-    cudaError_t rc = cudaFuncSetAttribute(table_update_kernel<kProbe, kProduct>,
+    cudaError_t rc = cudaFuncSetAttribute(table_update_kernel<kProduct>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)table_smem_bytes(8));
     if (rc != cudaSuccess) return rc;
@@ -93,7 +91,7 @@ cudaError_t launch_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf, i
   if (!table_grid(a, sel, pf, rows, wp, kw, word_lo, const_word, batch, nsm, &g))
     return cudaErrorInvalidValue;
   if (g.nstrips == 0) return cudaSuccess;
-  table_update_kernel<kProbe, kProduct>
+  table_update_kernel<kProduct>
       <<<dim3(g.nstrips, g.nchunks, batch), kTabThreads, table_smem_bytes(kw), stream>>>(
           a, sel, pf, rows, wp, kw, word_lo, g.const_word, g.chunk_rows, g.aligned, g.sel_vec,
           mat_stride, sel_stride, pf_stride);
@@ -105,39 +103,18 @@ cudaError_t launch_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf, i
 cudaError_t launch_table_update(uint32_t* a, const uint32_t* sel, const uint32_t* pf, int rows,
                                 int wp, int kw, int word_lo, int const_word,
                                 cudaStream_t stream) {
-  return launch_table<0>(a, sel, pf, rows, wp, kw, word_lo, const_word, stream);
+  return launch_table<false>(a, sel, pf, rows, wp, kw, word_lo, const_word, stream);
 }
 
 cudaError_t launch_table_product(uint32_t* out, const uint32_t* sel, const uint32_t* pf,
                                  int rows, int wp, int kw, int batch, size_t mat_stride,
                                  size_t sel_stride, size_t pf_stride, cudaStream_t stream) {
-  return launch_table<0, true>(out, sel, pf, rows, wp, kw, 0, 0, stream, batch, mat_stride,
-                               sel_stride, pf_stride);
+  return launch_table<true>(out, sel, pf, rows, wp, kw, 0, 0, stream, batch, mat_stride,
+                            sel_stride, pf_stride);
 }
 
 // a ^= S . PF over every word (replaces pallas_update._panel_update_kernel).
 extern "C" int gf2_update_table(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
                                 int rows, int wp, int kw, cudaStream_t stream) {
   return (int)launch_table_update(a, sel, pf, rows, wp, kw, 0, 0, stream);
-}
-
-// The full-width table update with one of its costs taken out, to time what
-// that cost is (probe 1: selector rows from a resident 16 KB; 2: a strip's
-// rows of a packed densely; 4: no table build; 0: the kernel as it is).  For
-// probe != 0 the result is wrong by design and a is scratch.
-extern "C" int gf2_update_table_probe(uint32_t* a, const uint32_t* sel, const uint32_t* pf,
-                                      int rows, int wp, int kw, int probe,
-                                      cudaStream_t stream) {
-  if (rows < 512) return (int)cudaErrorInvalidValue;  // probe 1 reads rows 0..511
-  switch (probe) {
-    case 0: return (int)launch_table<0>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case kProbeSelResident:
-      return (int)launch_table<kProbeSelResident>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case kProbeDenseA:
-      if (wp % kStrip) return (int)cudaErrorInvalidValue;
-      return (int)launch_table<kProbeDenseA>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    case kProbeNoBuild:
-      return (int)launch_table<kProbeNoBuild>(a, sel, pf, rows, wp, kw, 0, 0, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

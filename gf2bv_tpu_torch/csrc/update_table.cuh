@@ -16,13 +16,6 @@ constexpr int kTabThreads = 512;
 constexpr int kStrip = 4;        // words per table entry
 constexpr int kRowsInFlight = 4; // rows a thread loads before it computes
 
-// kProbe is 0 in every entry point of the solver; the timing probe
-// (gf2_update_table_probe) sets one of the kProbe* bits to take one cost out
-// of the kernel, and its results are then wrong by design.
-constexpr int kProbeSelResident = 1;  // selector rows from the first 512 rows only
-constexpr int kProbeDenseA = 2;       // a strip's rows packed densely (16-byte stride)
-constexpr int kProbeNoBuild = 4;      // no table build
-
 // Words p[0..3], of which the first n (1..4) exist; vec: p is 16-byte aligned
 // and n == 4.
 __device__ __forceinline__ uint4 load4(const uint32_t* p, int n, bool vec) {
@@ -68,7 +61,7 @@ inline size_t table_smem_bytes(int kw) {
 // kProduct: a is written, never read (out = S . PF).  kRowIndex: row t of PF
 // is row pf_rows[t] of the matrix pf, zero where pf_rows[t] < 0 (the fused
 // phase 1 reads its pivot rows in place; sel may then lie in shared memory).
-template <int kProbe, bool kProduct, bool kRowIndex = false>
+template <bool kProduct, bool kRowIndex = false>
 __device__ __forceinline__ void
 table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
                   const uint32_t* __restrict__ pf, int rows, int wp, int kw, int word_lo,
@@ -83,41 +76,39 @@ table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
   const int n = is_const ? 1 : min(kStrip, wp - w);
   const bool vec = aligned && n == kStrip;
 
-  if (!(kProbe & kProbeNoBuild)) {
-    for (int t = tid; t < 32 * kw; t += kTabThreads) {
-      if (kRowIndex) {
-        const int pr = pf_rows[t];
-        pf_s[t] = pr >= 0 ? load4(pf + (size_t)pr * wp + w, n, vec) : make_uint4(0u, 0u, 0u, 0u);
-      } else {
-        pf_s[t] = load4(pf + (size_t)t * wp + w, n, vec);
-      }
+  for (int t = tid; t < 32 * kw; t += kTabThreads) {
+    if (kRowIndex) {
+      const int pr = pf_rows[t];
+      pf_s[t] = pr >= 0 ? load4(pf + (size_t)pr * wp + w, n, vec) : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      pf_s[t] = load4(pf + (size_t)t * wp + w, n, vec);
     }
-    __syncthreads();
-    // 16 threads a table: thread lo starts from the combination of the group's
-    // rows 0-3 that the bits of lo select and doubles it over rows 4-7 in
-    // registers, then stores its 16 entries (lo, 16 + lo, ...): a group's
-    // threads write neighbouring entries, and no barrier splits the build.
-    for (int t = tid; t < 16 * ngroups; t += kTabThreads) {
-      const int g = t >> 4, lo = t & 15;
-      const uint4* rows8 = pf_s + 8 * g;
-      uint4 e[16];
-      e[0] = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if ((lo >> b) & 1) e[0] = xor4(e[0], rows8[b]);
-      const uint4 r4 = rows8[4], r5 = rows8[5], r6 = rows8[6], r7 = rows8[7];
-      e[1] = xor4(e[0], r4);
-      e[2] = xor4(e[0], r5);
-      e[3] = xor4(e[1], r5);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) e[4 + i] = xor4(e[i], r6);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[8 + i] = xor4(e[i], r7);
-#pragma unroll
-      for (int hi = 0; hi < 16; ++hi) tab[g * 256 + 16 * hi + lo] = e[hi];
-    }
-    __syncthreads();
   }
+  __syncthreads();
+  // 16 threads a table: thread lo starts from the combination of the group's
+  // rows 0-3 that the bits of lo select and doubles it over rows 4-7 in
+  // registers, then stores its 16 entries (lo, 16 + lo, ...): a group's
+  // threads write neighbouring entries, and no barrier splits the build.
+  for (int t = tid; t < 16 * ngroups; t += kTabThreads) {
+    const int g = t >> 4, lo = t & 15;
+    const uint4* rows8 = pf_s + 8 * g;
+    uint4 e[16];
+    e[0] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if ((lo >> b) & 1) e[0] = xor4(e[0], rows8[b]);
+    const uint4 r4 = rows8[4], r5 = rows8[5], r6 = rows8[6], r7 = rows8[7];
+    e[1] = xor4(e[0], r4);
+    e[2] = xor4(e[0], r5);
+    e[3] = xor4(e[1], r5);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[4 + i] = xor4(e[i], r6);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[8 + i] = xor4(e[i], r7);
+#pragma unroll
+    for (int hi = 0; hi < 16; ++hi) tab[g * 256 + 16 * hi + lo] = e[hi];
+  }
+  __syncthreads();
 
   // kRowsInFlight rows a thread at a time: their loads of a and of the selector
   // words are all started before the first table read, so the memory latency of
@@ -131,11 +122,9 @@ table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
     for (int j = 0; j < kRowsInFlight; ++j) {
       const int rr = r + j * kTabThreads;
       if (rr >= row1) break;
-      const uint32_t* ap = (kProbe & kProbeDenseA)
-                               ? a + ((size_t)strip * rows + rr) * kStrip
-                               : a + (size_t)rr * wp + w;
+      const uint32_t* ap = a + (size_t)rr * wp + w;
       acc[j] = kProduct ? make_uint4(0u, 0u, 0u, 0u) : load4(ap, n, vec);
-      const uint32_t* sp = sel + (size_t)((kProbe & kProbeSelResident) ? (rr & 511) : rr) * kw;
+      const uint32_t* sp = sel + (size_t)rr * kw;
       if (sel_vec) {
         const uint4 lo = *reinterpret_cast<const uint4*>(sp);
         const uint4 hi = *reinterpret_cast<const uint4*>(sp + 4);
@@ -153,10 +142,7 @@ table_update_body(uint32_t* a, const uint32_t* __restrict__ sel,
 #pragma unroll
       for (int g = 0; g < 8; ++g)
         if (g < kw) acc[j] = lookup_word(acc[j], tab, g, s[j][g]);
-      uint32_t* ap = (kProbe & kProbeDenseA)
-                         ? a + ((size_t)strip * rows + rr) * kStrip
-                         : a + (size_t)rr * wp + w;
-      store4(ap, acc[j], n, vec);
+      store4(a + (size_t)rr * wp + w, acc[j], n, vec);
     }
   }
 }

@@ -40,11 +40,7 @@ LAUNCHES = {
     "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
     "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
     "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
-    "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
-    "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
-    "scan_batched_block": 0, "update_scan_block": 0,
-    "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
-    "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
+    "reconstruct_coeff": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
     "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
     "scan_subset": 0, "scan_subset_test": 0,
 }
@@ -54,14 +50,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
-    "gf2_scan_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (arows, coeff, prow, tbits, pf, wp, kw, w0, stream)
     "gf2_reconstruct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (arows, coeff, prow, tbits, batch, wp, kw, w0, stream): the coefficient solve
-    # alone, by the blocked kernel and by the earlier step-by-step one
+    # (arows, coeff, prow, tbits, batch, wp, kw, w0, stream): the coefficient solve alone
     "gf2_reconstruct_coeff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gf2_reconstruct_coeff_steps": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_full": [_P, _P, _P, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, dead_tiles, stream)
@@ -70,8 +62,6 @@ _SIGNATURES = {
     "gf2_update_trailing": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, batch, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (bT_in, used_in, prow, used_out, cT, bT_work, batch, rows, kw, w0, cols, stream)
-    "gf2_scan_batched_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, record, rows, kw, w0, cols, chunk_rows,
     #  nblocks, nblocks_last, stream)
     "gf2_scan_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -87,25 +77,16 @@ _SIGNATURES = {
     "gf2_reconstruct_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (bT_in, used_in, prow, used_out, cT, bT_work, rows, kw, w0, cols, stream)
-    "gf2_scan2_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, record, rows, kw, w0, cols, chunk_rows,
     #  nblocks, nblocks_last, stream)
     "gf2_scan2_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gf2_scan_minkey_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (bT_in, used_in, prow, used_out, cT, rows, kw, w0, cols, nblocks, stream)
     "gf2_scan_minkey": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (a, bT_in, used_in, prow, used_out, cT, pf, rows, wp, kw, w0, cols, nblocks, stream)
     "gf2_phase1_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (a, bT_in, used_in, prow, used_out, cT, bT_work, pf, rows, wp, kw, w0, cols, stream)
-    "gf2_phase1_fused_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT,
     #  w0n, cols, nblocks, stream)
     "gf2_update_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (a, sel, pf, rows, wp, kw, word_lo, const_word, bTn, used_in, prow, used_out, cT,
-    #  bT_work, w0n, cols, stream)
-    "gf2_update_scan_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _P],
     # (a, bT_in, used_in, prow, used_out, cT, record, pf, rows, wp, kw, w0, cols, chunk_rows,
     #  nblocks, nblocks_last, stream)
     "gf2_phase1_fused_chunked": [_P] * 8 + [_I] * 8 + [_P],
@@ -115,14 +96,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, stream)
     "gf2_update_table": [_P, _P, _P, _I, _I, _I, _P],
-    # (a, sel, pf, rows, wp, kw, word_lo, const_word, stream)
-    "gf2_update_rank_k": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (a, sel, pf, rows, wp, kw, probe, stream)
-    "gf2_update_table_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, w0 (-1: full), stream)
     "gf2_update_mxu2": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # (a, sel, pf, rows, wp, kw, probe, stream)
-    "gf2_update_mxu2_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (a, sel, pf, rows, wp, kw, w0 (-1: full), stream)
     "gf2_update_mxu4": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (out, a, n words, stream)

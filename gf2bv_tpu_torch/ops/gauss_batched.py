@@ -10,8 +10,6 @@ Port of ``gf2bv_tpu/ops/gauss_batched.py``.  Per K-column panel:
   ``csrc/scan_chunked.cu`` with a cluster per system in each launch,
   :func:`scan_batched_chunked`), plain twin :func:`scan_batched_plain`, and
   :func:`scan_batched_chunked_plain` in the chain's order;
-  ``gf2_scan_batched_block`` (one block per system, :func:`scan_batched_block`)
-  is the earlier kernel for the tall slices, on no path of the default engine;
 * gathers of each system's pivot rows and coefficient words;
 * :func:`reconstruct_batched` — pivot-row rebuild + triangular back pass of
   all B systems (``_make_reconstruct_kernel_b`` via ``_reconstruct_batched``);
@@ -73,33 +71,6 @@ def scan_batched_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, co
     return scan_steps_plain(bT, used, w0, K, cols)
 
 
-def _launch_scan_batched(fn_name: str, key: str, bT, used, w0: int, K: int, cols: int,
-                         nblocks: int | None):
-    """Launch a batched scan kernel: the cluster kernel on ``nblocks`` blocks
-    per system, or (``nblocks`` None) the one-block kernel, which takes a
-    working copy of the slices in global memory."""
-    nb, kw, rows = bT.shape
-    dev = bT.device
-    _cuda.require(bT, "bT", (nb, kw, rows), dev)
-    _cuda.require(used, "used", (nb, rows), dev)
-    prow = torch.empty((nb, K), dtype=I32, device=dev)
-    used_o = torch.empty_like(used)
-    cT = torch.empty_like(bT)
-    shape = (nb, rows, kw, int(w0), int(cols))
-    if nblocks is None:
-        work = torch.empty_like(bT)
-        args = (work.data_ptr(), *shape)
-    else:
-        args = (*shape, int(nblocks))
-    rc = getattr(_cuda.lib(), fn_name)(
-        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
-        *args, _cuda.stream_of(bT),
-    )
-    _cuda.check(rc, f"{key} kernel")
-    _cuda.LAUNCHES[key] += 1
-    return prow, used_o, cT
-
-
 def _check_batched(bT: torch.Tensor, K: int) -> None:
     if K != 32 * bT.shape[1]:
         raise ValueError(f"K={K} does not match bT's {bT.shape[1]} words")
@@ -129,18 +100,6 @@ def scan_batched_chunked(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, 
                           cols, route, batched=True)
 
 
-def scan_batched_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The batched scan by one block per system with the state in global
-    memory: the earlier kernel for slices taller than the largest cluster
-    holds, on no path of the default engine since :func:`scan_batched_chunked`
-    took them, kept to be timed beside it; outputs as :func:`scan_batched`."""
-    _check_batched(bT, K)
-    if not _cuda.on_cuda(bT):
-        return scan_batched_plain(bT, used, w0, K, cols)
-    return _launch_scan_batched("gf2_scan_batched_block", "scan_batched_block", bT, used,
-                                w0, K, cols, None)
-
-
 def scan_batched_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
                          nblocks: int):
     """The batched scan on one cluster of ``nblocks`` blocks per system
@@ -150,8 +109,20 @@ def scan_batched_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, 
     _check_batched(bT, K)
     if not _cuda.on_cuda(bT):
         return scan_batched_plain(bT, used, w0, K, cols)
-    return _launch_scan_batched("gf2_scan_batched", "scan_batched", bT, used, w0, K, cols,
-                                nblocks)
+    nb, kw, rows = bT.shape
+    dev = bT.device
+    _cuda.require(bT, "bT", (nb, kw, rows), dev)
+    _cuda.require(used, "used", (nb, rows), dev)
+    prow = torch.empty((nb, K), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    rc = _cuda.lib().gf2_scan_batched(
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        nb, rows, kw, int(w0), int(cols), int(nblocks), _cuda.stream_of(bT),
+    )
+    _cuda.check(rc, "scan_batched kernel")
+    _cuda.LAUNCHES["scan_batched"] += 1
+    return prow, used_o, cT
 
 
 def scan_batched(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):

@@ -27,9 +27,7 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
   ``csrc/fused_chunked.cu``: the same launch with link 0 of the chained scan
   as its scan cluster, then the chain's other links); plain twin
   :func:`update_scan_plain`, and :func:`update_scan_chunked_plain` in the
-  chain's order.  ``gf2_update_scan_block`` (:func:`update_scan_block`: one
-  scanning block, mask-and-XOR tiles) is the earlier kernel for the tall
-  slices, on no solve's path.
+  chain's order.
 
 * :func:`update_pallas` — the full-width update of the ``pallas`` engine
   (``_panel_update_kernel`` via ``panel_update``); CUDA
@@ -41,8 +39,7 @@ of ``csrc/update_table.cu``, under their own rules for the words they update
   ``csrc/update_mma.cu``: one launch of one kernel for both engines
   (one-bit ``mma.sync``, the counts arranged into whole words, written back
   in 16-byte accesses; the TPU's second product that repacks ``mxu4``'s
-  parity planes has no use on the card), :func:`update_mxu2_probe` timing it
-  with one cost out; plain twins :func:`update_mxu2_plain` /
+  parity planes has no use on the card); plain twins :func:`update_mxu2_plain` /
   :func:`update_mxu4_plain`, which follow the TPU bodies (unpack to 0/1,
   integer product, parity, repack).  Their trailing rules differ: ``mxu2``
   only skips tiles wholly left of ``w0`` and always updates tile 0 in full;
@@ -219,30 +216,6 @@ def update_trailing(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, w0: in
     return a
 
 
-def update_rank_k(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
-                  word_lo: int = 0, const_word: bool = False):
-    """``a ^= S·PF`` in place on the words ``[word_lo, wp)`` (and word 0 when
-    ``const_word``) through the mask-and-XOR kernel, K steps per word: the
-    updates' earlier kernel.  Kept callable on an update's arguments so that
-    it can be timed beside the table kernel; nothing in the solver calls it."""
-    rows, wp, kw = _check_shapes(a, sel, pf)
-    if not 0 <= word_lo <= wp:
-        raise ValueError(f"word_lo={word_lo} outside the {wp}-word rows")
-    if not _cuda.on_cuda(a):
-        if const_word and word_lo:
-            rank_k_xor_(a[:, :1], sel, pf[:, :1])
-        rank_k_xor_(a[:, word_lo:], sel, pf[:, word_lo:])
-        return a
-    _require_update_args(a, sel, pf, rows, wp, kw)
-    rc = _cuda.lib().gf2_update_rank_k(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(word_lo),
-        int(bool(const_word)), _cuda.stream_of(a),
-    )
-    _cuda.check(rc, "mask-and-XOR panel update kernel")
-    _cuda.LAUNCHES["update_rank_k"] += 1
-    return a
-
-
 def la_grid(rows: int, wp: int) -> tuple[int, int, int]:
     """(nj, ni, total grid steps) of the reference's look-ahead kernel
     (``pallas_update.la_grid``).  Its grid hosts one scan step per grid step
@@ -297,11 +270,10 @@ def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int,
                         w0: int | None, nblocks: int | None, route=None,
                         first_rows: int | None = None):
     """Launch a fused update + scan kernel: the cluster kernel with its scan
-    on ``nblocks`` blocks, the chained kernel on ``route``'s chunks (a
+    on ``nblocks`` blocks, or the chained kernel on ``route``'s chunks (a
     ``phase1.ChunkedScanRoute``, counted as a launch a chunk; the record is
     scratch of 9 K words) with ``first_rows`` of the update beside its first
-    link, or (both None) the one-block kernel, which takes a working copy of
-    the slice in global memory."""
+    link."""
     rows, wp, kw = _check_shapes(a, sel, pf)
     dev = a.device
     for name, t, shape in (("a", a, (rows, wp)), ("sel", sel, (rows, kw)),
@@ -320,9 +292,6 @@ def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int,
         tail = (record.data_ptr(), int(w0n), int(cols), route.chunk_rows, route.nblocks,
                 route.nblocks_last, int(first_rows))
         launches = route.chunks
-    elif nblocks is None:
-        work = torch.empty_like(bTn)
-        tail = (work.data_ptr(), int(w0n), int(cols))
     else:
         tail = (int(w0n), int(cols), int(nblocks))
     rc = getattr(_cuda.lib(), fn_name)(
@@ -333,22 +302,6 @@ def _launch_update_scan(fn_name: str, key: str, a, sel, pf, bTn, used, w0n: int,
     _cuda.check(rc, f"{key} kernel")
     _cuda.LAUNCHES[key] += launches
     return a, prow, cT, used_o
-
-
-def update_scan_block(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
-                      bTn: torch.Tensor, used: torch.Tensor, w0n: int, cols: int,
-                      w0: int | None = None):
-    """The fused update + scan with its scan by ONE block and the state in
-    global memory, its update by mask-and-XOR tiles: the earlier kernel for
-    slices taller than the largest cluster holds, on no solve's path since
-    :func:`update_scan_chunked` took them, kept to be timed beside it;
-    arguments and outputs as :func:`update_scan`."""
-    _, wp, _ = _check_shapes(a, sel, pf)
-    update_scan_rule(wp, w0)
-    if not _cuda.on_cuda(a):
-        return update_scan_plain(a, sel, pf, bTn, used, w0n, cols, w0)
-    return _launch_update_scan("gf2_update_scan_block", "update_scan_block", a, sel, pf, bTn,
-                               used, w0n, cols, w0, None)
 
 
 def update_scan_cluster(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
@@ -538,29 +491,6 @@ def update_pallas(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor):
     return a
 
 
-TABLE_PROBES = {0: "the kernel as it is", 1: "selector rows from a resident 16 KB",
-                2: "a strip's rows of a packed densely", 4: "no table build"}
-
-
-def update_table_probe(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, probe: int):
-    """The full-width table kernel with one of its costs taken out
-    (``TABLE_PROBES``), for timing on the card only: with ``probe != 0`` the
-    words written to ``a`` are wrong by design, so ``a`` is scratch."""
-    rows, wp, kw = _check_shapes(a, sel, pf)
-    if probe not in TABLE_PROBES:
-        raise ValueError(f"unknown probe {probe}; expected one of {sorted(TABLE_PROBES)}")
-    if a.device.type != "cuda":
-        raise ValueError("the table kernel's timing probe runs on a CUDA device only")
-    _require_update_args(a, sel, pf, rows, wp, kw)
-    rc = _cuda.lib().gf2_update_table_probe(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(probe),
-        _cuda.stream_of(a),
-    )
-    _cuda.check(rc, "table kernel timing probe")
-    _cuda.LAUNCHES["update_table_probe"] += 1
-    return a
-
-
 def _plane_counts(selbits: torch.Tensor, pfbits2: torch.Tensor, j: int, tw: int):
     """(rows, 32*tw) int32: tile j's product, plane-major."""
     return _int_matmul(selbits, pfbits2[:, j * 32 * tw : (j + 1) * 32 * tw])
@@ -652,29 +582,6 @@ def update_mxu2(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,
         return update_mxu2_plain(a, sel, pf, w0)
     return _launch_mma("gf2_update_mxu2", "update_mxu2", "mxu2 panel update kernel",
                        a, sel, pf, w0)
-
-
-MXU2_PROBES = {0: "the kernel as it is", 1: "no loads or stores of a", 2: "no products",
-               4: "no B build"}
-
-
-def update_mxu2_probe(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor, probe: int):
-    """The full-width mxu2 kernel with one of its costs taken out
-    (``MXU2_PROBES``), for timing on the card only: with ``probe != 0`` the
-    words written to ``a`` are wrong by design, so ``a`` is scratch."""
-    rows, wp, kw = _check_shapes(a, sel, pf)
-    if probe not in MXU2_PROBES:
-        raise ValueError(f"unknown probe {probe}; expected one of {sorted(MXU2_PROBES)}")
-    if a.device.type != "cuda":
-        raise ValueError("the mxu2 kernel's timing probe runs on a CUDA device only")
-    _require_update_args(a, sel, pf, rows, wp, kw)
-    rc = _cuda.lib().gf2_update_mxu2_probe(
-        a.data_ptr(), sel.data_ptr(), pf.data_ptr(), rows, wp, kw, int(probe),
-        _cuda.stream_of(a),
-    )
-    _cuda.check(rc, "mxu2 kernel timing probe")
-    _cuda.LAUNCHES["update_mxu2_probe"] += 1
-    return a
 
 
 def update_mxu4(a: torch.Tensor, sel: torch.Tensor, pf: torch.Tensor,

@@ -14,9 +14,7 @@ step structure:
     chain of cluster scans over row chunks, each applying the pivots the
     chunks before it elected); :func:`scan_route` picks between them from the
     shape alone; twin of both :func:`scan_plain`, and
-    :func:`scan_chunked_plain` in the chain's order.  ``gf2_scan_block``
-    (:func:`scan_block`: one block, state in global memory) is the earlier
-    kernel for the tall slices, on no path of the default engine;
+    :func:`scan_chunked_plain` in the chain's order;
   - ``"2"``: two pivots per step (``_make_scan_kernel2``), :func:`scan2`;
     CUDA ``csrc/scan2.cu`` ``gf2_scan2``, a thread-block cluster that elects
     both pivots of a pair in one exchange (body in
@@ -25,17 +23,14 @@ step structure:
     the chain of :func:`scan_chunked` with the two-pivot body);
     :func:`scan2_route` picks between them; twin :func:`scan2_plain`,
     :func:`scan2_cluster_plain` in the cluster kernel's order and
-    :func:`scan2_chunked_plain` in the chain's.  ``gf2_scan2_block``
-    (:func:`scan2_block`: one block, state in global memory) is the earlier
-    kernel for the tall slices, on no path;
+    :func:`scan2_chunked_plain` in the chain's;
   - ``"m"``: election and extraction through packed min-keys
     (``_make_scan_kernel_minkey``), :func:`scan_minkey`; CUDA
     ``gf2_scan_minkey``, the cluster scan with the min-key election
     (:func:`scan_minkey_route`), twin :func:`scan_minkey_plain`, and
-    :func:`scan_minkey_cluster_plain` in the cluster kernel's order;
-    ``gf2_scan_minkey_block`` (:func:`scan_minkey_block`) is the earlier
-    one-block kernel, on no solve's path.  Systems of ``MINKEY_MAX_ROWS`` rows
-    or more take variant ``""``, as in the reference.
+    :func:`scan_minkey_cluster_plain` in the cluster kernel's order.  Systems
+    of ``MINKEY_MAX_ROWS`` rows or more take variant ``""``, as in the
+    reference.
 
 * :func:`reconstruct` — full-width pivot-row rebuild + triangular back pass
   (``_make_reconstruct_kernel`` via ``phase1_reconstruct``); CUDA source
@@ -43,8 +38,7 @@ step structure:
   whose dependent steps are warp-wide broadcasts, then the product
   ``pf = T.arows`` through the table kernel), plain twin
   :func:`reconstruct_plain`; :func:`reconstruct_coeff_blocked_plain` is the
-  twin of the kernel's own order, :func:`reconstruct_coeff` and
-  :func:`reconstruct_coeff_steps` launch the new and the earlier
+  twin of the kernel's own order, and :func:`reconstruct_coeff` launches the
   coefficient solve alone.
 * :func:`phase1_panel` — the fused phase 1 (``_make_kernel``, the
   ``pallas`` engine): scan, rebuild and back pass in one launch; CUDA source
@@ -56,9 +50,6 @@ step structure:
   coefficient solve and the product); :func:`phase1_fused_route` picks
   between them; plain twin :func:`phase1_panel_plain`, and
   :func:`phase1_panel_chunked_plain` in the chain's order.
-  ``gf2_phase1_fused_block`` (:func:`phase1_panel_block`: one block, the
-  scan's state in global memory) is the earlier kernel for the tall slices,
-  on no solve's path.
 
 :func:`phase1_panel_split` (scan, gather, rebuild) and
 :func:`phase1_scan_subset` (the scan of the ``pallas_sub`` engine) are the
@@ -133,11 +124,9 @@ def scan_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int)
 
 
 def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
-                 w0: int, K: int, cols: int, nblocks: int | None = None):
-    """Launch one of the single-system scan kernels.  The one-block kernels
-    (``nblocks`` None) share a C signature and take a working copy of the
-    slice in global memory; the cluster scans (1-pivot and min-key) take
-    their block count instead and keep the slice in shared memory."""
+                 w0: int, K: int, cols: int, nblocks: int):
+    """Launch one of the single-system cluster scans (1-pivot, two-pivot,
+    min-key), which share a C signature, on ``nblocks`` blocks."""
     kw, rows = bT.shape
     dev = bT.device
     _cuda.require(bT, "bT", (kw, rows), dev)
@@ -145,14 +134,9 @@ def _launch_scan(fn_name: str, key: str, bT: torch.Tensor, used: torch.Tensor,
     prow = torch.empty((K,), dtype=I32, device=dev)
     used_o = torch.empty_like(used)
     cT = torch.empty_like(bT)
-    if nblocks is None:
-        work = torch.empty_like(bT)
-        state = (cT.data_ptr(), work.data_ptr(), rows, kw, int(w0), int(cols))
-    else:
-        state = (cT.data_ptr(), rows, kw, int(w0), int(cols), int(nblocks))
     rc = getattr(_cuda.lib(), fn_name)(
-        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), *state,
-        _cuda.stream_of(bT),
+        bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(), cT.data_ptr(),
+        rows, kw, int(w0), int(cols), int(nblocks), _cuda.stream_of(bT),
     )
     _cuda.check(rc, f"{key} kernel")
     _cuda.LAUNCHES[key] += 1
@@ -182,10 +166,14 @@ _RECORD_BYTES = 16 * (2 * 256 + 256 // 4)
 
 
 class ScanRoute(NamedTuple):
-    kernel: str  # a cluster kernel ("scan", "phase1_fused", ...) or a one-block kernel
-    nblocks: int  # blocks of the cluster; 1 for a one-block kernel
+    """One launch of a cluster kernel on the whole slice: ``nblocks``
+    blocks of ``rows_per_block`` rows and ``smem_bytes`` of dynamic shared
+    memory each."""
+
+    kernel: str  # the kernel's LAUNCHES key: "scan", "scan2", "phase1_fused", ...
+    nblocks: int
     rows_per_block: int
-    smem_bytes: int  # dynamic shared memory of one block; 0 for a one-block kernel
+    smem_bytes: int
 
 
 class ChunkedScanRoute(NamedTuple):
@@ -353,17 +341,6 @@ def scan_occupancy(rows: int, kw: int, nblocks: int) -> int:
     rc = _cuda.lib().gf2_scan_occupancy(rows, kw, int(nblocks), ctypes.addressof(out))
     _cuda.check(rc, "scan occupancy query")
     return out.value
-
-
-def scan_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The 1-pivot scan by one block with its state in global memory: the
-    earlier kernel for slices taller than the largest cluster holds, on no
-    path of the default engine since :func:`scan_chunked` took them, kept to
-    be timed beside it; outputs as :func:`scan`."""
-    _check_k(bT, K)
-    if not _cuda.on_cuda(bT):
-        return scan_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan_block", "scan_block", bT, used, w0, K, cols)
 
 
 def scan_chunked_steps_plain(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int,
@@ -913,17 +890,6 @@ def _check_k2(bT: torch.Tensor, K: int) -> None:
         raise ValueError(f"K={K} must be even")
 
 
-def scan2_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The two-pivot scan by one block with its state in global memory: the
-    earlier kernel for slices taller than the largest cluster holds, on no
-    path since :func:`scan2_chunked` took them, kept to be timed beside it;
-    outputs as :func:`scan`."""
-    _check_k2(bT, K)
-    if not _cuda.on_cuda(bT):
-        return scan2_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan2_block", "scan2_block", bT, used, w0, K, cols)
-
-
 def scan2_chunked(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int,
                   chunk_rows: int | None = None):
     """The two-pivot scan as a chain of two-pivot cluster scans over row
@@ -1073,17 +1039,6 @@ def scan_minkey_cluster(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, c
     return _launch_scan("gf2_scan_minkey", "scan_minkey", bT, used, w0, K, cols, nblocks)
 
 
-def scan_minkey_block(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
-    """The min-key scan by one block with its state in global memory, the
-    kernel before the cluster one: on no solve's path, kept so that both can
-    be timed on the same inputs.  Outputs as :func:`scan`."""
-    _check_k(bT, K)
-    _check_minkey_rows(bT.shape[1])
-    if not _cuda.on_cuda(bT):
-        return scan_minkey_plain(bT, used, w0, K, cols)
-    return _launch_scan("gf2_scan_minkey_block", "scan_minkey_block", bT, used, w0, K, cols)
-
-
 def scan_minkey(bT: torch.Tensor, used: torch.Tensor, w0: int, K: int, cols: int):
     """The scan with election and pivot-word extraction in one reduction
     round; outputs as :func:`scan`.  Needs fewer than ``MINKEY_MAX_ROWS``
@@ -1220,10 +1175,13 @@ def reconstruct_plain(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tens
     return pf
 
 
-def _launch_reconstruct_coeff(fn_name: str, key: str, arows: torch.Tensor,
-                              coeff: torch.Tensor, prow: torch.Tensor, w0: int):
-    """Launch a coefficient solve alone on arows (K, wp) or (B, K, wp);
-    returns tbits (K, kw) or (B, K, kw)."""
+def reconstruct_coeff(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
+                      w0: int) -> torch.Tensor:
+    """The first launch of :func:`reconstruct` alone: the coefficient solve
+    on the slice ``arows[..., w0 : w0 + kw]`` by the blocked warp-level
+    kernel, one block per system.  arows (K, wp) or (B, K, wp); returns tbits
+    (K, kw) or (B, K, kw).  No solve calls it: it is there to time and check
+    the coefficient solve apart from the product."""
     if arows.dim() not in (2, 3):
         raise ValueError(f"arows: shape {tuple(arows.shape)}, expected (K, wp) or (B, K, wp)")
     lead, (K, wp) = arows.shape[:-2], arows.shape[-2:]
@@ -1240,34 +1198,13 @@ def _launch_reconstruct_coeff(fn_name: str, key: str, arows: torch.Tensor,
     if not 0 <= w0 <= wp - kw:
         raise ValueError(f"w0={w0} outside the {wp}-word rows")
     tbits = torch.empty((*lead, K, kw), dtype=I32, device=dev)
-    rc = getattr(_cuda.lib(), fn_name)(
+    rc = _cuda.lib().gf2_reconstruct_coeff(
         arows.data_ptr(), coeff.data_ptr(), prow.data_ptr(), tbits.data_ptr(),
         lead[0] if lead else 1, wp, kw, int(w0), _cuda.stream_of(arows),
     )
-    _cuda.check(rc, f"{key} kernel")
-    _cuda.LAUNCHES[key] += 1
+    _cuda.check(rc, "reconstruct_coeff kernel")
+    _cuda.LAUNCHES["reconstruct_coeff"] += 1
     return tbits
-
-
-def reconstruct_coeff(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
-                      w0: int) -> torch.Tensor:
-    """The first launch of :func:`reconstruct` alone: the coefficient solve
-    on the slice ``arows[..., w0 : w0 + kw]`` by the blocked warp-level
-    kernel, one block per system.  arows (K, wp) or (B, K, wp); returns tbits
-    of the same leading shape.  No solve calls it: it is there to time and
-    check the coefficient solve apart from the product."""
-    return _launch_reconstruct_coeff("gf2_reconstruct_coeff", "reconstruct_coeff",
-                                     arows, coeff, prow, w0)
-
-
-def reconstruct_coeff_steps(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
-                            w0: int) -> torch.Tensor:
-    """The coefficient solve as the rebuild ran it before the blocked
-    kernel: one block walking the 2K steps with a block barrier after each.
-    Arguments and result as :func:`reconstruct_coeff`.  It is on no solve's
-    path and is kept so that both kernels can be timed on the same inputs."""
-    return _launch_reconstruct_coeff("gf2_reconstruct_coeff_steps",
-                                     "reconstruct_coeff_steps", arows, coeff, prow, w0)
 
 
 def reconstruct(arows: torch.Tensor, coeff: torch.Tensor, prow: torch.Tensor,
@@ -1388,53 +1325,10 @@ def phase1_fused_route(rows: int, kw: int) -> ScanRoute | ChunkedScanRoute:
     return ScanRoute("phase1_fused", route.nblocks, rpb, phase1_fused_smem_bytes(rpb, kw))
 
 
-def _launch_phase1(fn_name: str, key: str, a: torch.Tensor, bT: torch.Tensor,
-                   used: torch.Tensor, w0: int, K: int, cols: int, nblocks: int | None):
-    """Launch a fused phase-1 kernel: the cluster kernel on ``nblocks``
-    blocks, or (``nblocks`` None) the one-block kernel, which takes a working
-    copy of the slice in global memory."""
-    rows, wp = a.shape
-    kw = K // 32
-    dev = a.device
-    _cuda.require(a, "a", (rows, wp), dev)
-    _cuda.require(bT, "bT", (kw, rows), dev)
-    _cuda.require(used, "used", (1, rows), dev)
-    prow = torch.empty((K,), dtype=I32, device=dev)
-    used_o = torch.empty_like(used)
-    cT = torch.empty_like(bT)
-    pf = torch.empty((K, wp), dtype=I32, device=dev)
-    if nblocks is None:
-        work = torch.empty_like(bT)
-        mid, tail = (cT.data_ptr(), work.data_ptr()), ()
-    else:
-        mid, tail = (cT.data_ptr(),), (int(nblocks),)
-    rc = getattr(_cuda.lib(), fn_name)(
-        a.data_ptr(), bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
-        *mid, pf.data_ptr(), rows, wp, kw, int(w0), int(cols), *tail, _cuda.stream_of(a),
-    )
-    _cuda.check(rc, f"{key} kernel")
-    _cuda.LAUNCHES[key] += 1
-    return pf, prow, used_o
-
-
 def _check_panel(a: torch.Tensor, bT: torch.Tensor, w0: int, K: int) -> None:
     _check_k(bT, K)
     if not 0 <= w0 <= a.shape[1] - K // 32:
         raise ValueError(f"w0={w0} outside the {a.shape[1]}-word rows")
-
-
-def phase1_panel_block(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
-                       w0: int, K: int, cols: int):
-    """The fused phase 1 by ONE block, the scan's state in global memory and
-    each panel row rebuilt per pivot step: the earlier kernel for matrices
-    taller than the largest cluster holds, on no solve's path since
-    :func:`phase1_panel_chunked` took them, kept to be timed beside it;
-    arguments and outputs as :func:`phase1_panel`."""
-    _check_panel(a, bT, w0, K)
-    if not _cuda.on_cuda(a):
-        return phase1_panel_plain(a, bT, used, w0, K, cols)
-    return _launch_phase1("gf2_phase1_fused_block", "phase1_fused_block", a, bT, used, w0, K,
-                          cols, None)
 
 
 def phase1_panel_cluster(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
@@ -1446,8 +1340,24 @@ def phase1_panel_cluster(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,
     _check_panel(a, bT, w0, K)
     if not _cuda.on_cuda(a):
         return phase1_panel_plain(a, bT, used, w0, K, cols)
-    return _launch_phase1("gf2_phase1_fused", "phase1_fused", a, bT, used, w0, K, cols,
-                          nblocks)
+    rows, wp = a.shape
+    kw = K // 32
+    dev = a.device
+    _cuda.require(a, "a", (rows, wp), dev)
+    _cuda.require(bT, "bT", (kw, rows), dev)
+    _cuda.require(used, "used", (1, rows), dev)
+    prow = torch.empty((K,), dtype=I32, device=dev)
+    used_o = torch.empty_like(used)
+    cT = torch.empty_like(bT)
+    pf = torch.empty((K, wp), dtype=I32, device=dev)
+    rc = _cuda.lib().gf2_phase1_fused(
+        a.data_ptr(), bT.data_ptr(), used.data_ptr(), prow.data_ptr(), used_o.data_ptr(),
+        cT.data_ptr(), pf.data_ptr(), rows, wp, kw, int(w0), int(cols), int(nblocks),
+        _cuda.stream_of(a),
+    )
+    _cuda.check(rc, "phase1_fused kernel")
+    _cuda.LAUNCHES["phase1_fused"] += 1
+    return pf, prow, used_o
 
 
 def phase1_panel_chunked_plain(a: torch.Tensor, bT: torch.Tensor, used: torch.Tensor,

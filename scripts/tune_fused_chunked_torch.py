@@ -8,13 +8,10 @@ NVIDIA GPU:
   the update's rows beside the chain's first link) at panel 20 of the very
   tall MT19937 system (2100 outputs: 67328 x 640 words, K = 256, 25% of the
   rows used), under the route's cut (two equal chunks) and with the largest
-  cluster filled first; beside the one-block kernels they replaced
-  (``phase1_fused_block``, ``update_scan_block``), the split engine (chained
-  scan + gathers + rebuild), the update apart, the chained scan alone and
-  each of its links alone (a chunk's rows scanned as a slice of their own),
-  and the two-pivot scan's one-block kernel (``scan2_block``) at the same
-  panel; each launch replayed from a CUDA graph after the kernel is held
-  against its twin;
+  cluster filled first; beside the split engine (chained scan + gathers +
+  rebuild), the update apart, the chained scan alone and each of its links
+  alone (a chunk's rows scanned as a slice of their own); each launch
+  replayed from a CUDA graph after the kernel is held against its twin;
 * ``--parity``: instead, the kernels that share code with this change and
   must keep their times: the fused phase 1 and the fused update + scan
   (full and trailing) on random 20224 x 640 inputs, the chained scan and the
@@ -138,17 +135,11 @@ def tune(tag: str) -> None:
         t[cut] = graph_ms(lambda: phase1.phase1_panel_chunked(*args, rows_c))
         print(f"phase1_fused_chunked {cut}: {t[cut]:.4f} ms; links alone "
               + ", ".join(f"{x:.4f}" for x in links_alone(bT, used, W0, rows_c)) + f" ms ({tag})")
-    same(phase1.phase1_panel_block(*args), want, "phase1_fused_block")
-    block = graph_ms(lambda: phase1.phase1_panel_block(*args), 2)
     split = graph_ms(lambda: phase1.phase1_panel_split(*args))
     chain = graph_ms(lambda: phase1.scan(bT, used, W0, K, COLS))
     nocol = graph_ms(lambda: phase1.phase1_panel(a, bT, used, W0, K, 0))
-    same(phase1.scan2_block(bT, used, W0, K, COLS), phase1.scan_plain(bT, used, W0, K, COLS),
-         "scan2_block")
-    scan2 = graph_ms(lambda: phase1.scan2_block(bT, used, W0, K, COLS), 2)
-    print(f"very tall panel 20: phase1_fused_block {block:.4f} ms, split engine {split:.4f} ms, "
-          f"chained scan alone {chain:.4f} ms, fused with no valid column {nocol:.4f} ms, "
-          f"scan2_block {scan2:.4f} ms ({1000 * scan2 / K:.3f} us a step) ({tag})")
+    print(f"very tall panel 20: split engine {split:.4f} ms, chained scan alone {chain:.4f} ms, "
+          f"fused with no valid column {nocol:.4f} ms ({tag})")
 
     pf, prow = want[0], want[1]
     sel = gauss_blocked.selector_from_prow(bT.T.contiguous(), prow)
@@ -173,16 +164,13 @@ def tune(tag: str) -> None:
                   + "; links alone "
                   + ", ".join(f"{x:.4f}" for x in links_alone(bTn, used, W0 + kw, rows_c))
                   + f" ms ({tag})")
-        same(panel_update.update_scan_block(a.clone(), *uargs), uwant, "update_scan_block")
-        block = graph_ms(lambda: panel_update.update_scan_block(scratch, *uargs), 2)
         upd = graph_ms((lambda: panel_update.update_full(scratch, sel, pf)) if w0t is None
                        else (lambda: panel_update.update_trailing(scratch, sel, pf, w0t)))
         chain = graph_ms(lambda: phase1.scan(bTn, used, W0 + kw, K, COLS))
         part = graph_ms(lambda: panel_update.update_scan(scratch, sel, pf, bTn, used, W0 + kw,
                                                          0, w0t))
-        print(f"update_scan w0={w0t} at the very tall panel 20: update_scan_block {block:.4f} "
-              f"ms; apart: update {upd:.4f} ms, chained scan {chain:.4f} ms; fused with no "
-              f"valid column {part:.4f} ms ({tag})")
+        print(f"update_scan w0={w0t} at the very tall panel 20, apart: update {upd:.4f} ms, "
+              f"chained scan {chain:.4f} ms; fused with no valid column {part:.4f} ms ({tag})")
 
 
 def random_inputs(rows: int, seed: int):

@@ -3,11 +3,10 @@
     python3 scripts/tune_phase1_cluster_torch.py [--ptxas] [--parity] [--repo DIR]
 
 * the min-key cluster scan on every cluster size that holds the slice, beside
-  the kept one-block kernel (``scan_minkey_block``) and the 1-pivot cluster
-  scan on the same inputs;
-* the fused phase 1 (one cluster launch) beside the kept one-block kernel
-  (``phase1_fused_block``), the split engine (scan + gathers + rebuild) and
-  the 1-pivot scan alone, on every cluster size that holds the slice.
+  the 1-pivot cluster scan on the same inputs;
+* the fused phase 1 (one cluster launch) beside the split engine (scan +
+  gathers + rebuild) and the 1-pivot scan alone, on every cluster size that
+  holds the slice.
 
 Random (rows, 640) matrices (half the bits set: the densest a solver's slice
 gets), K = 256, panel 20, 25% of the rows used; each launch replayed from a
@@ -94,11 +93,9 @@ def tune(tag: str) -> None:
             same(phase1.scan_minkey_cluster(bT, used, W0, K, COLS, nb), want, f"minkey {nb}")
             ms = graph_ms(lambda: phase1.scan_minkey_cluster(bT, used, W0, K, COLS, nb))
             parts.append(f"{nb} blocks {ms:.4f} ms ({1000 * ms / K:.3f} us a step)")
-        same(phase1.scan_minkey_block(bT, used, W0, K, COLS), want, "minkey block")
-        old = graph_ms(lambda: phase1.scan_minkey_block(bT, used, W0, K, COLS), 8)
         one = graph_ms(lambda: phase1.scan(bT, used, W0, K, COLS))
         print(f"min-key scan, {rows} rows (route: {route.nblocks} blocks): " + "; ".join(parts)
-              + f"; one-block kernel {old:.4f} ms; 1-pivot cluster scan {one:.4f} ms ({tag})")
+              + f"; 1-pivot cluster scan {one:.4f} ms ({tag})")
     for rows in (ROWS, 40192):
         a, bT, used = inputs(rows, rows + 1)
         want = phase1.phase1_panel_plain(a, bT, used, W0, K, COLS)
@@ -110,14 +107,12 @@ def tune(tag: str) -> None:
             same(phase1.phase1_panel_cluster(a, bT, used, W0, K, COLS, nb), want, f"fused {nb}")
             ms = graph_ms(lambda: phase1.phase1_panel_cluster(a, bT, used, W0, K, COLS, nb))
             parts.append(f"{nb} blocks {ms:.4f} ms")
-        same(phase1.phase1_panel_block(a, bT, used, W0, K, COLS), want, "fused block")
-        old = graph_ms(lambda: phase1.phase1_panel_block(a, bT, used, W0, K, COLS), 4)
         split = graph_ms(lambda: phase1.phase1_panel_split(a, bT, used, W0, K, COLS))
         scan = graph_ms(lambda: phase1.scan(bT, used, W0, K, COLS))
         nocol = graph_ms(lambda: phase1.phase1_panel(a, bT, used, W0, K, 0))
         print(f"fused phase 1, {rows} rows (route: {route.nblocks} blocks, "
               f"{route.smem_bytes} B a block): " + "; ".join(parts)
-              + f"; one-block kernel {old:.4f} ms; split engine {split:.4f} ms; 1-pivot scan "
+              + f"; split engine {split:.4f} ms; 1-pivot scan "
               f"alone {scan:.4f} ms; the fused kernel with no valid column (scan loads, "
               f"solve, product of zeros) {nocol:.4f} ms ({tag})")
 

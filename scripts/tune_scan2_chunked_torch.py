@@ -8,19 +8,16 @@ one NVIDIA GPU:
   tall MT19937 system (2100 outputs: 67328 x 640 words, K = 256, a quarter of
   the rows used) under the two cuts of the rows into chunks (equal chunks, the
   route's; the largest cluster filled first), each link alone (a one-chunk
-  chain of its rows), beside the one-block kernel it replaced
-  (``scan2_block``) and the 1-pivot chain (``scan_chunked``);
+  chain of its rows), beside the 1-pivot chain (``scan_chunked``);
 * the mxu4 and mxu2 updates (one kernel under two rules) on 768 words and
-  trailing on 640 words at w0 = 160 and 632, beside the table kernel, and the
-  mxu2 kernel with one cost taken out at a time (``update_mxu2_probe``);
+  trailing on 640 words at w0 = 160 and 632, beside the table kernel;
   each launch replayed from a CUDA graph after it is held against its twin.
 
 ``--check``: the new kernels against their twins at the card tests' shapes
 first (a first run of a new build).  ``--parity``: instead, the kernels whose
 code this change touched and that must keep their times (``gf2_scan2`` at the
 flagship panel, ``gf2_scan_chunked`` at the very tall panel, ``gf2_update_mxu2``
-on 768 words, trailing, and without its B build), through entry points every
-checkout has: run it with ``--repo`` naming each checkout in turn.
+on 768 words and trailing), through entry points every checkout has: run it with ``--repo`` naming each checkout in turn.
 ``--solve``: the very tall system's warm ``solve_mt19937`` under phase 1
 ``pallas_scan2`` and the flagship's under phase 2 ``mxu4``, best of 3 wall
 time and the device time of one more call under ``torch.profiler`` by kernel.
@@ -167,9 +164,7 @@ def tune(tag: str) -> None:
               f"({2000 * ms / K:.3f} us a pair); each chunk alone from the start (no record): "
               + ", ".join(f"{p:.4f}" for p in parts) + f" ms ({tag})")
     chain1 = graph_ms(lambda: phase1.scan_chunked(bT, used, W0, K, COLS))
-    block = graph_ms(lambda: phase1.scan2_block(bT, used, W0, K, COLS), 2)
-    print(f"very tall panel 20: scan_chunked {chain1:.4f} ms, scan2_block {block:.4f} ms "
-          f"({tag})")
+    print(f"very tall panel 20: scan_chunked {chain1:.4f} ms ({tag})")
     for wp, w0 in ((768, None), (640, None), (640, 160), (640, 632)):
         a, sel, pf = update_inputs(ROWS, wp, wp + (w0 or 0))
         same([pu.update_mxu4(a.clone(), sel, pf, w0)], [pu.update_mxu4_plain(a.clone(), sel, pf,
@@ -180,10 +175,6 @@ def tune(tag: str) -> None:
              "mxu4 again": graph_ms(lambda: pu.update_mxu4(scratch, sel, pf, w0), 32)}
         if w0 is None:
             t["table (update_pallas)"] = graph_ms(lambda: pu.update_pallas(scratch, sel, pf), 32)
-            for probe, what in pu.MXU2_PROBES.items():
-                if probe:
-                    t[f"mxu2, {what}"] = graph_ms(
-                        lambda: pu.update_mxu2_probe(scratch, sel, pf, probe), 32)
         print(f"update on {ROWS} x {wp} words, w0={w0}: "
               + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f" ({tag})")
 
@@ -203,8 +194,6 @@ def parity(tag: str) -> None:
         lambda: phase1.scan_chunked(vbT, vused, W0, K, COLS))
     a768, sel, pf768 = update_inputs(ROWS, 768, 11)
     t["mxu2 768 words"] = graph_ms(lambda: pu.update_mxu2(a768, sel, pf768), 32)
-    t["mxu2 768 words, no B build"] = graph_ms(
-        lambda: pu.update_mxu2_probe(a768, sel, pf768, 4), 32)
     a640, pf640 = a768[:, :640].contiguous(), pf768[:, :640].contiguous()
     t["mxu2 w0=160"] = graph_ms(lambda: pu.update_mxu2(a640, sel, pf640, 160), 32)
     print(f"parity ({tag}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items()))

@@ -4,11 +4,10 @@
         [--only scan2|mxu2] [--repo DIR]
 
 * the two-pivot scan (``gf2_scan2``) on every cluster size that holds the
-  slice, beside the kept one-block kernel (``scan2_block``) and the 1-pivot
-  cluster scan on the same inputs, in microseconds per pair of columns;
+  slice, beside the 1-pivot cluster scan on the same inputs, in microseconds
+  per pair of columns;
 * the mxu2 update (one launch) on 768 words and trailing on 640 words,
-  beside the mxu4 kernel (the earlier design) and the table kernel on the
-  same inputs, and with one cost taken out at a time (``update_mxu2_probe``).
+  beside the mxu4 kernel and the table kernel on the same inputs.
 
 Random (rows, 640 or 768) matrices (half the bits set), K = 256, panel 20,
 25% of the rows used; each launch replayed from a CUDA graph, every
@@ -151,11 +150,9 @@ def tune_scan2(tag: str) -> None:
                  f"scan2 on {nb} blocks, {rows} rows")
             ms = graph_ms(lambda: phase1.scan2_cluster(bT, used, W0, K, COLS, nb))
             parts.append(f"{nb} blocks {ms:.4f} ms ({2000 * ms / K:.3f} us a pair)")
-        same(phase1.scan2_block(bT, used, W0, K, COLS), want, "scan2_block")
-        old = graph_ms(lambda: phase1.scan2_block(bT, used, W0, K, COLS), 8)
         one = graph_ms(lambda: phase1.scan(bT, used, W0, K, COLS))
         print(f"two-pivot scan, {rows} rows (route: {route.kernel} on {route.nblocks} blocks): "
-              + "; ".join(parts) + f"; one-block kernel {old:.4f} ms; 1-pivot cluster scan "
+              + "; ".join(parts) + "; 1-pivot cluster scan "
               f"{one:.4f} ms ({1000 * one / K:.3f} us a column) ({tag})")
 
 
@@ -178,10 +175,6 @@ def tune_mxu2(tag: str) -> None:
              "mxu2 again": graph_ms(lambda: pu.update_mxu2(scratch, sel, pf, w0))}
         if w0 is None:
             t["table (update_pallas)"] = graph_ms(lambda: pu.update_pallas(scratch, sel, pf))
-            for probe, what in pu.MXU2_PROBES.items():
-                if probe:
-                    t[f"mxu2, {what}"] = graph_ms(
-                        lambda: pu.update_mxu2_probe(scratch, sel, pf, probe))
         print(f"update on {ROWS} x {wp} words, w0={w0}: "
               + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f" ({tag})")
 

@@ -4,11 +4,11 @@
 * the 1-pivot scan (`phase1.scan`) at the flagship slice, for comparing two
   checkouts in one run;
 * the batched scan for B = 1, 4, 8, 16 systems on every cluster size that
-  holds a slice, beside the one-block kernel, with the number of clusters of
-  each size the card runs at once;
-* the fused update + scan, full and trailing, beside the one-block kernel, the
-  scan alone and the update alone, and its update part alone (a scan whose
-  columns are all invalid).
+  holds a slice, with the number of clusters of each size the card runs at
+  once;
+* the fused update + scan, full and trailing, beside the scan alone and the
+  update alone, and its update part alone (a scan whose columns are all
+  invalid).
 
 Random slices (half the bits set: the densest a solver's slice gets), K = 256,
 25% of the rows used.  Every configuration is held against the plain twin
@@ -75,10 +75,8 @@ def batched(dev, card, rng):
             bT = u32_to_torch(rng.integers(0, 2**32, size=(B, KW, rows), dtype=np.uint32), dev)
             used = u32_to_torch((rng.random((B, rows)) < 0.25).astype(np.uint32), dev)
             want = gauss_batched.scan_batched_plain(bT, used, 8, K, COLS)
-            same(gauss_batched.scan_batched_block(bT, used, 8, K, COLS), want, "block")
-            old = ms_of(lambda: gauss_batched.scan_batched_block(bT, used, 8, K, COLS), 3)
             route = phase1.scan_batched_route(B, rows, KW)
-            line = [f"one block a system {old:.4f} ms"]
+            line = []
             for nb in phase1.SCAN_CLUSTER_SIZES:
                 if not phase1.scan_fits(-(-rows // nb), KW):
                     continue
@@ -102,11 +100,7 @@ def fused(dev, card, rng):
         want = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, 168, COLS, w0)
         same(panel_update.update_scan(a.clone(), sel, pf, bTn, used, 168, COLS, w0), want,
              f"update_scan w0={w0}")
-        same(panel_update.update_scan_block(a.clone(), sel, pf, bTn, used, 168, COLS, w0), want,
-             f"update_scan_block w0={w0}")
         new = ms_of(lambda: panel_update.update_scan(scratch, sel, pf, bTn, used, 168, COLS, w0))
-        old = ms_of(lambda: panel_update.update_scan_block(
-            scratch, sel, pf, bTn, used, 168, COLS, w0), 3)
         # cols = 0: no column is valid, the scan cluster only loads and stores
         part = ms_of(lambda: panel_update.update_scan(scratch, sel, pf, bTn, used, 168, 0, w0))
         alone = ms_of((lambda: panel_update.update_full(scratch, sel, pf)) if w0 is None else
@@ -119,8 +113,7 @@ def fused(dev, card, rng):
                 t = ms_of(lambda: panel_update.update_scan_cluster(
                     scratch, sel, pf, bTn, used, 168, COLS, w0, nb))
                 sizes.append(f"{nb} blocks {t:.4f}")
-        print(f"update_scan w0={w0}: fused {new:.4f} ms, one-block kernel {old:.4f} ms; scan "
-              f"alone {scan_ms:.4f} ms, update alone {alone:.4f} ms, the update part alone "
+        print(f"update_scan w0={w0}: fused {new:.4f} ms; scan alone {scan_ms:.4f} ms, update alone {alone:.4f} ms, the update part alone "
               f"inside the fused kernel {part:.4f} ms; scan cluster of other sizes, ms: "
               f"{', '.join(sizes) or 'none'} ({card})")
 

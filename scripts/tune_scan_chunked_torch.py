@@ -7,9 +7,8 @@
   K = 256, 25% of the rows used), single and for B = 2 systems, under the two
   cuts of the rows into chunks: (a) equal chunks, the fewest a cluster holds
   (``phase1.scan_chunk_rows``, the route's), and (b) the largest cluster filled
-  first; beside the one-block kernels it replaced (``scan_block``,
-  ``scan_batched_block``) and the plain twin, each launch replayed from a CUDA
-  graph after the kernel is held against its twin;
+  first; beside the plain twin, each launch replayed from a CUDA graph after
+  the kernel is held against its twin;
 * ``--check``: the chained kernels against their twins at the shapes the card
   tests use, before any timing (a first run of a new build);
 * ``--solve``: the very tall system's warm ``solve_mt19937`` and
@@ -146,15 +145,12 @@ def tune(tag: str) -> None:
               f"({1000 * ms / K:.3f} us a step), B=2 {ms2:.4f} ms; each chunk scanned alone "
               f"from the start (no record): "
               + ", ".join(f"{p:.4f}" for p in parts) + f" ms ({tag})")
-    block = graph_ms(lambda: phase1.scan_block(bT, used, W0, K, 19968), 4)
-    block2 = graph_ms(lambda: gauss_batched.scan_batched_block(bT2, used2, W0, K, 19968), 4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     phase1.scan_chunked_plain(bT, used, W0, K, 19968, cuts["(a) equal chunks"])
     torch.cuda.synchronize()
     plain = 1000 * (time.perf_counter() - t0)
-    print(f"very tall panel 20 ({VERY_TALL_ROWS} rows): scan_block {block:.4f} ms, "
-          f"scan_batched_block B=2 {block2:.4f} ms, chained twin {plain:.1f} ms ({tag})")
+    print(f"very tall panel 20 ({VERY_TALL_ROWS} rows): chained twin {plain:.1f} ms ({tag})")
 
 
 def solve(tag: str) -> None:

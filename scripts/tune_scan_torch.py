@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the cluster scan over cluster sizes, beside the one-block kernel, on one NVIDIA GPU:  python3 scripts/tune_scan_torch.py
+"""Time the cluster scan over cluster sizes on one NVIDIA GPU:  python3 scripts/tune_scan_torch.py
 
 Random slices (half the bits set: the densest a solver's slice gets), K = 256,
 25% of the rows used.  Every configuration is held against the plain twin
@@ -43,9 +43,7 @@ def main():
         bT = u32_to_torch(rng.integers(0, 2**32, size=(K // 32, rows), dtype=np.uint32), dev)
         used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
         want = phase1.scan_plain(bT, used, 8, K, 10**6)
-        block = ms_of(lambda: phase1.scan_block(bT, used, 8, K, 10**6), 3)
-        print(f"rows {rows}: scan_block {1000 * block / K:.3f} us per step; route "
-              f"{phase1.scan_route(rows, K // 32)} ({card})")
+        print(f"rows {rows}: route {phase1.scan_route(rows, K // 32)} ({card})")
         for nb in phase1.SCAN_CLUSTER_SIZES:
             rpb = -(-rows // nb)
             if not phase1.scan_fits(rpb, K // 32) or rows < 64 * nb:

@@ -187,10 +187,61 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
 
 
 def test_new_kernels_are_counted_under_their_own_names():
-    for key in ("scan_batched", "scan_batched_block", "update_scan", "update_scan_block",
-                "update_scan_chunked"):
+    for key in ("scan_batched", "update_scan", "update_scan_chunked"):
         assert key in _cuda.LAUNCHES
     assert "gf2_scan_occupancy" in _cuda._SIGNATURES
+
+
+# every ``extern "C" int gf2_*`` the sources of csrc/ define
+C_ENTRY_POINTS = sorted({m.group(1) for source in CSRC.glob("*.cu")
+                         for m in re.finditer(r'extern "C" int (gf2_\w+)\(', source.read_text())})
+
+
+# the C entry points whose launches LAUNCHES counts under another name, and the
+# one that launches nothing
+LAUNCH_KEY_OF = {"gf2_update_table": "update_pallas", "gf2_scan_occupancy": None}
+OPS = Path(phase1.__file__).resolve().parent
+
+
+@pytest.mark.parametrize("name", C_ENTRY_POINTS)
+def test_every_c_entry_point_is_declared_and_counted(name):
+    """C -> Python: an entry point compiled into the library has its ctypes
+    signature, and unless it launches nothing, a LAUNCHES key that a wrapper
+    of ops/ names, so no kernel stays compiled after its wrapper is gone."""
+    assert name in _cuda._SIGNATURES
+    key = LAUNCH_KEY_OF.get(name, name.removeprefix("gf2_"))
+    if key is None:
+        return
+    assert key in _cuda.LAUNCHES
+    wrappers = "".join(f.read_text() for f in sorted(OPS.glob("*.py")) if f.name != "_cuda.py")
+    assert f'"{key}"' in wrappers
+
+
+# (route, rows): every route function at the cells' slice heights (the flagship,
+# the SFMT system, the very tall system) at kw = 8; the min-key route takes
+# fewer than MINKEY_MAX_ROWS rows only
+ROUTES = {
+    "scan_route": phase1.scan_route,
+    "scan_chunked_route": phase1.scan_chunked_route,
+    "scan_batched_route": lambda rows, kw: phase1.scan_batched_route(4, rows, kw),
+    "scan2_route": phase1.scan2_route,
+    "scan_minkey_route": phase1.scan_minkey_route,
+    "phase1_fused_route": phase1.phase1_fused_route,
+    "update_scan_route": panel_update.update_scan_route,
+}
+CELL_ROWS = [20224, 40192, 67328]
+
+
+@pytest.mark.parametrize("route,rows", [
+    (r, rows) for r in ROUTES for rows in CELL_ROWS
+    if r != "scan_minkey_route" or rows < phase1.MINKEY_MAX_ROWS])
+def test_routes_name_a_declared_kernel(route, rows):
+    """What a route picks is a kernel the library has: a LAUNCHES key with a
+    ctypes signature and a C entry point of that name."""
+    kernel = ROUTES[route](rows, 8).kernel
+    assert kernel in _cuda.LAUNCHES
+    assert f"gf2_{kernel}" in _cuda._SIGNATURES
+    assert f"gf2_{kernel}" in C_ENTRY_POINTS
 
 
 # -- the wrappers on CPU tensors -------------------------------------------------------
@@ -210,14 +261,12 @@ def test_batched_scan_wrappers_run_the_twin_on_cpu_tensors(rows, K, w0, cols):
     want = gauss_batched.scan_batched_plain(bT, used, w0, K, cols)
     _cuda.reset_launches()
     for got in (gauss_batched.scan_batched(bT, used, w0, K, cols),
-                gauss_batched.scan_batched_block(bT, used, w0, K, cols),
                 gauss_batched.scan_batched_cluster(bT, used, w0, K, cols, 16)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert not any(_cuda.LAUNCHES.values())
-    for fn in (gauss_batched.scan_batched, gauss_batched.scan_batched_block):
-        with pytest.raises(ValueError, match="does not match"):
-            fn(bT, used, w0, K + 32, cols)
+    with pytest.raises(ValueError, match="does not match"):
+        gauss_batched.scan_batched(bT, used, w0, K + 32, cols)
     with pytest.raises(ValueError, match="does not match"):
         gauss_batched.scan_batched_cluster(bT, used, w0, K + 32, cols, 2)
 
@@ -234,15 +283,13 @@ def test_update_scan_wrappers_run_the_twin_on_cpu_tensors(w0):
     want = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, 4, 5000, w0)
     _cuda.reset_launches()
     for got in (panel_update.update_scan(a.clone(), sel, pf, bTn, used, 4, 5000, w0),
-                panel_update.update_scan_block(a.clone(), sel, pf, bTn, used, 4, 5000, w0),
                 panel_update.update_scan_cluster(a.clone(), sel, pf, bTn, used, 4, 5000, w0, 8),
                 panel_update.update_scan_chunked(a.clone(), sel, pf, bTn, used, 4, 5000, w0,
                                                  100)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert not any(_cuda.LAUNCHES.values())
-    for fn in (panel_update.update_scan, panel_update.update_scan_block,
-               panel_update.update_scan_chunked):
+    for fn in (panel_update.update_scan, panel_update.update_scan_chunked):
         with pytest.raises(ValueError, match="outside"):
             fn(a.clone(), sel, pf, bTn, used, 4, 5000, wp)
 

@@ -75,9 +75,8 @@ def test_scan_routes_are_all_taken():
 @pytest.mark.parametrize("nblocks", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("rows,K,w0,cols", [(4000, 256, 8, 10**6), (20224, 64, 160, 5150)])
 def test_scan_cluster_and_scan_block_kernels(dev, rows, K, w0, cols, nblocks):
-    """Any cluster size that holds the state, and the one-block kernel, give
-    the twin's outputs on the same inputs; a cluster that cannot hold it
-    raises instead of running something else."""
+    """Any cluster size that holds the state gives the twin's outputs; a
+    cluster that cannot hold it raises instead of running something else."""
     rng = np.random.default_rng(rows + nblocks)
     bT = _rand(rng, (K // 32, rows), dev)
     used = u32_to_torch((rng.random((1, rows)) < 0.25).astype(np.uint32), dev)
@@ -90,8 +89,6 @@ def test_scan_cluster_and_scan_block_kernels(dev, rows, K, w0, cols, nblocks):
     else:
         with pytest.raises(RuntimeError, match="scan kernel"):
             phase1.scan_cluster(bT, used, w0, K, cols, nblocks)
-    for g, w in zip(phase1.scan_block(bT, used, w0, K, cols), want):
-        assert torch.equal(g, w)
 
 
 # (K, w0, wp): the first, a middle and the last panel of 640- and 768-word rows,
@@ -146,19 +143,16 @@ def test_reconstruct_kernel(dev, K, w0, wp, kind):
 @pytest.mark.parametrize("kind", ["solver", "arbitrary"])
 @pytest.mark.parametrize("K,w0,wp", RECONSTRUCT_SHAPES)
 def test_coefficient_solves_agree(dev, K, w0, wp, kind):
-    """The blocked coefficient solve, the step-by-step kernel it replaced and
-    both plain twins give the same T, for one system and for a batch; each
-    launch is counted under its own name and never as a rebuild."""
+    """The blocked coefficient solve and both plain twins give the same T,
+    for one system and for a batch; the launch is counted under its own name
+    and never as a rebuild."""
     kw = K // 32
     for B in (None, 4):
         arows, coeff, prow = _reconstruct_inputs(dev, K, w0, wp, kind, seed=K + w0 + wp + 1, B=B)
         _cuda.reset_launches()
         new = phase1.reconstruct_coeff(arows, coeff, prow, w0)
-        old = phase1.reconstruct_coeff_steps(arows, coeff, prow, w0)
         torch.cuda.synchronize()
-        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
-            "reconstruct_coeff": 1, "reconstruct_coeff_steps": 1}
-        assert torch.equal(new, old)
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"reconstruct_coeff": 1}
         for b in range(B or 1):
             one = (lambda t: t if B is None else t[b])
             sl = one(arows)[:, w0 : w0 + kw].cpu().contiguous()
@@ -170,7 +164,7 @@ def test_coefficient_solves_agree(dev, K, w0, wp, kind):
 
 def test_coefficient_solve_rejects_what_the_kernel_does_not_take(dev):
     arows, coeff, prow = _reconstruct_inputs(dev, 64, 2, 128, "arbitrary", seed=1)
-    for fn in (phase1.reconstruct_coeff, phase1.reconstruct_coeff_steps, phase1.reconstruct):
+    for fn in (phase1.reconstruct_coeff, phase1.reconstruct):
         with pytest.raises(ValueError, match="outside"):
             fn(arows, coeff, prow, 127)
         with pytest.raises(ValueError):
@@ -197,13 +191,11 @@ def test_update_kernels(dev, rows, wp, K):
     got = panel_update.update_full(a.clone(), sel, pf)
     want = panel_update.update_full_plain(a.clone(), sel, pf)
     assert torch.equal(got, want)
-    assert torch.equal(panel_update.update_rank_k(a.clone(), sel, pf), want)
     for dead in range(1, wp // 128 if wp % 128 == 0 else 0):
         got = panel_update.update_seg(a.clone(), sel, pf, dead)
         want = panel_update.update_seg_plain(a.clone(), sel, pf, dead)
         assert torch.equal(got, want)
         assert torch.equal(got[:, 1 : 128 * dead], a[:, 1 : 128 * dead])
-        assert torch.equal(panel_update.update_rank_k(a.clone(), sel, pf, 128 * dead, True), want)
     torch.cuda.synchronize()
 
 
@@ -222,11 +214,7 @@ def test_wrapper_counts_launches(dev):
         "update_trailing": 0, "scan_batched": 0, "reconstruct_batched": 0,
         "scan2": 0, "scan_minkey": 0, "phase1_fused": 0, "update_scan": 0,
         "update_pallas": 0, "update_mxu2": 0, "update_mxu4": 0, "launch_probe": 0,
-        "scan_block": 0, "update_rank_k": 0, "update_table_probe": 0,
-        "reconstruct_coeff": 0, "reconstruct_coeff_steps": 0,
-        "scan_batched_block": 0, "update_scan_block": 0,
-        "scan_minkey_block": 0, "phase1_fused_block": 0, "scan2_block": 0,
-        "update_mxu2_probe": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
+        "reconstruct_coeff": 0, "scan_chunked": 0, "scan_batched_chunked": 0,
         "phase1_fused_chunked": 0, "update_scan_chunked": 0, "scan2_chunked": 0,
         "scan_subset": 0, "scan_subset_test": 0,
     }
@@ -273,22 +261,6 @@ def test_update_trailing_kernel(dev, rows, wp, K):
         want = panel_update.update_trailing_plain(a.clone(), sel, pf, w0)
         assert torch.equal(got, want), w0
     torch.cuda.synchronize()
-
-
-def test_table_probe_kernel(dev):
-    """Probe 0 is the table kernel as it is; the others run and are timing
-    aids whose output is wrong by design."""
-    rng = np.random.default_rng(31)
-    a = _rand(rng, (1024, 256), dev)
-    sel = _rand(rng, (1024, 8), dev)
-    pf = _rand(rng, (256, 256), dev)
-    want = panel_update.update_full_plain(a.clone(), sel, pf)
-    _cuda.reset_launches()
-    assert torch.equal(panel_update.update_table_probe(a.clone(), sel, pf, 0), want)
-    for probe in (1, 2, 4):
-        panel_update.update_table_probe(a.clone(), sel, pf, probe)
-    torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["update_table_probe"] == 4
 
 
 @pytest.mark.parametrize("trailing", [False, True])
@@ -500,10 +472,10 @@ def _panels(kw, wp):
 @pytest.mark.parametrize("rows", CLUSTER_ROWS)
 @pytest.mark.parametrize("B", [1, 3, 4, 16])
 def test_scan_batched_cluster_kernel(dev, B, rows, kw):
-    """One cluster per system against the twin and against the kept one-block
-    kernel: systems with different used rows, the last one with every row used
-    (no pivot at all), at the first, a middle and the last panel; each launch
-    is counted under its own kernel's name."""
+    """One cluster per system against the twin: systems with different used
+    rows, the last one with every row used (no pivot at all), at the first, a
+    middle and the last panel; the launch is counted under its kernel's
+    name."""
     K = 32 * kw
     rng = np.random.default_rng(B + rows + kw)
     bT = _rand(rng, (B, kw, rows), dev)
@@ -516,14 +488,11 @@ def test_scan_batched_cluster_kernel(dev, B, rows, kw):
     for w0, cols in _panels(kw, 640):
         _cuda.reset_launches()
         got = gauss_batched.scan_batched(bT, used, w0, K, cols)
-        block = gauss_batched.scan_batched_block(bT, used, w0, K, cols)
-        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
-            "scan_batched": 1, "scan_batched_block": 1}
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_batched": 1}
         want = gauss_batched.scan_batched_plain(bT, used, w0, K, cols)
         torch.cuda.synchronize()
-        for g, b, w in zip(got, block, want):
+        for g, w in zip(got, want):
             assert torch.equal(g, w), (w0, cols)
-            assert torch.equal(b, w), (w0, cols)
         assert int((got[0][B - 1] >= 0).sum()) == 0
         if B > 1:
             assert int((got[0][0] >= 0).sum()) > 0
@@ -555,10 +524,10 @@ def test_scan_batched_on_every_cluster_size(dev, B, rows, K, nblocks):
 @pytest.mark.parametrize("kw", [2, 4, 8])
 @pytest.mark.parametrize("rows", CLUSTER_ROWS)
 def test_update_scan_cluster_kernel(dev, rows, kw):
-    """The cluster scan beside the table updates against the twin and against
-    the kept one-block kernel: full and trailing at the first, a middle and
-    the last panel, the next panel's scan inside the matrix, at its last panel
-    and past cols (the look-ahead's clamped slice: no valid column)."""
+    """The cluster scan beside the table updates against the twin: full and
+    trailing at the first, a middle and the last panel, the next panel's scan
+    inside the matrix, at its last panel and past cols (the look-ahead's
+    clamped slice: no valid column)."""
     K, wp = 32 * kw, 640 if kw == 8 else 384
     rng = np.random.default_rng(rows + kw + 9)
     a = _rand(rng, (rows, wp), dev)
@@ -572,14 +541,11 @@ def test_update_scan_cluster_kernel(dev, rows, kw):
             bTn = _rand(rng, (kw, rows), dev)
             _cuda.reset_launches()
             got = panel_update.update_scan(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
-            block = panel_update.update_scan_block(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
-            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
-                "update_scan": 1, "update_scan_block": 1}
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_scan": 1}
             want = panel_update.update_scan_plain(a.clone(), sel, pf, bTn, used, w0n, cols, w0)
             torch.cuda.synchronize()
-            for g, b, w in zip(got, block, want):
+            for g, w in zip(got, want):
                 assert torch.equal(g, w), (w0, w0n)
-                assert torch.equal(b, w), (w0, w0n)
             if w0n == wp:
                 assert int((got[1] >= 0).sum()) == 0
 
@@ -611,8 +577,8 @@ def test_update_scan_on_every_cluster_size(dev, nblocks):
 
 def test_very_tall_slices_take_the_one_block_kernels(dev):
     """Past the largest cluster's rows the batched scan runs the chained scan
-    and the fused update + scan its chained kernel (a launch a chunk, the
-    one-block kernels on no path), by the route and not after a failure."""
+    and the fused update + scan its chained kernel (a launch a chunk), by the
+    route and not after a failure."""
     rows, K, kw, wp = VERY_TALL_ROWS, 256, 8, 128
     assert phase1.scan_route(rows, kw).kernel == "scan_chunked"
     assert phase1.scan_batched_route(2, rows, kw).kernel == "scan_batched_chunked"
@@ -655,10 +621,10 @@ def _panels_cases(kw, wp):
 @pytest.mark.parametrize("kw", [1, 2, 4, 8])
 @pytest.mark.parametrize("rows", MINKEY_ROWS)
 def test_scan_minkey_cluster_kernel(dev, rows, kw):
-    """The min-key cluster kernel against both twins, the 1-pivot twin and
-    the kept one-block kernel, at the first, a middle and the last panel, a
-    panel with no valid column, and a system with every row used (no pivot);
-    each launch counted under its own kernel's name."""
+    """The min-key cluster kernel against both twins, the min-key and the
+    1-pivot one, at the first, a middle and the last panel, a panel with no
+    valid column, and a system with every row used (no pivot); the launch
+    counted under its kernel's name."""
     K = 32 * kw
     rng = np.random.default_rng(rows + kw + 17)
     bT = _rand(rng, (kw, rows), dev)
@@ -669,14 +635,11 @@ def test_scan_minkey_cluster_kernel(dev, rows, kw):
         for w0, cols in _panels_cases(kw, 640):
             _cuda.reset_launches()
             got = phase1.scan(bT, used, w0, K, cols, "m")
-            block = phase1.scan_minkey_block(bT, used, w0, K, cols)
-            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
-                "scan_minkey": 1, "scan_minkey_block": 1}
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan_minkey": 1}
             want = phase1.scan_minkey_plain(bT, used, w0, K, cols)
             torch.cuda.synchronize()
-            for g, b, w, p in zip(got, block, want, phase1.scan_plain(bT, used, w0, K, cols)):
+            for g, w, p in zip(got, want, phase1.scan_plain(bT, used, w0, K, cols)):
                 assert torch.equal(g, w), (frac, w0, cols)
-                assert torch.equal(b, w), (frac, w0, cols)
                 assert torch.equal(g, p), (frac, w0, cols)
             if frac == 1.0 or cols == 0:
                 assert int((got[0] >= 0).sum()) == 0
@@ -742,8 +705,8 @@ def test_phase1_fused_cluster_kernel(dev, rows, kw):
 @pytest.mark.parametrize("rows,wp,K", [(6000, 202, 256), (3000, 640, 256), (20224, 96, 64)])
 def test_phase1_fused_on_every_cluster_size(dev, rows, wp, K, nblocks):
     """Every cluster size that holds the slice gives the twin's outputs, an
-    unaligned width (scalar accesses in the product) included, and the
-    one-block kernel the same; one that cannot hold it raises."""
+    unaligned width (scalar accesses in the product) included; one that
+    cannot hold it raises."""
     rng = np.random.default_rng(rows + wp + nblocks)
     kw = K // 32
     a = _rand(rng, (rows, wp), dev)
@@ -751,8 +714,6 @@ def test_phase1_fused_on_every_cluster_size(dev, rows, wp, K, nblocks):
     w0, cols = 2 * kw, 32 * wp - 7
     bT = a[:, w0 : w0 + kw].T.contiguous()
     want = phase1.phase1_panel_plain(a, bT, used, w0, K, cols)
-    for g, w in zip(phase1.phase1_panel_block(a, bT, used, w0, K, cols), want):
-        assert torch.equal(g, w)
     if phase1.scan_fits(-(-rows // nblocks), kw):
         got = phase1.phase1_panel_cluster(a, bT, used, w0, K, cols, nblocks)
         torch.cuda.synchronize()
@@ -984,10 +945,9 @@ def test_scan2_election_cases_on_the_card(dev, case, nblocks):
 
 
 def test_scan2_block_takes_the_very_tall_slice(dev):
-    """The kept one-block kernel still scans a slice past the largest
-    cluster's rows right when it is called, while the two-pivot scan's route
-    there is the chained kernel, taken by the route and not after a failure;
-    the largest cluster refuses the slice."""
+    """Past the largest cluster's rows the two-pivot scan's route is the
+    chained kernel, taken by the route and not after a failure; the largest
+    cluster refuses the slice."""
     rows, K, kw = VERY_TALL_ROWS, 256, 8
     route = phase1.scan2_route(rows, kw)
     assert route.kernel == "scan2_chunked"
@@ -998,9 +958,8 @@ def test_scan2_block_takes_the_very_tall_slice(dev):
     _cuda.reset_launches()
     got = phase1.scan(bT, used, 8, K, 10**6, "2")
     assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"scan2_chunked": route.chunks}
-    for g, b, w in zip(got, phase1.scan2_block(bT, used, 8, K, 10**6), want):
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
-        assert torch.equal(b, w)
     with pytest.raises(RuntimeError, match="scan2 kernel"):
         phase1.scan2_cluster(bT, used, 8, K, 10**6, 16)
 
@@ -1044,7 +1003,7 @@ def test_scan2_chunked_kernel(dev, rows, kw, chunk_rows, w0, cols, pattern):
 
 def test_scan2_chunked_raises_instead_of_falling_back(dev):
     """A chain the kernel cannot take (a cluster of 3 blocks, first or last)
-    raises; nothing else runs in its place (no one-block kernel, no twin) and
+    raises; nothing else runs in its place (no other kernel, no twin) and
     nothing is counted."""
     rng = np.random.default_rng(12)
     bT, used = _chained_inputs(rng, 1, 8, VERY_TALL_ROWS, "random", dev)
@@ -1111,22 +1070,6 @@ def test_update_mxu2_kernel(dev, rows, wp, K):
     view = big[1:].view(rows, wp)
     want = panel_update.update_mxu2_plain(view.clone(), sel, pf)
     assert torch.equal(panel_update.update_mxu2(view, sel, pf), want)
-
-
-def test_update_mxu2_probe_kernel(dev):
-    """Probe 0 is the kernel as it is; the others run and are timing aids
-    whose output is wrong by design."""
-    rng = np.random.default_rng(37)
-    a = _rand(rng, (1024, 256), dev)
-    sel = _rand(rng, (1024, 8), dev)
-    pf = _rand(rng, (256, 256), dev)
-    want = panel_update.update_mxu2_plain(a.clone(), sel, pf)
-    _cuda.reset_launches()
-    assert torch.equal(panel_update.update_mxu2_probe(a.clone(), sel, pf, 0), want)
-    for probe in (1, 2, 4):
-        panel_update.update_mxu2_probe(a.clone(), sel, pf, probe)
-    torch.cuda.synchronize()
-    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"update_mxu2_probe": 4}
 
 
 # -- the chained scan of slices taller than one cluster --------------------------------
@@ -1306,7 +1249,7 @@ def test_update_scan_chunked_kernel(dev, rows, wp, kw, chunk_rows):
 
 def test_fused_chunked_kernels_raise_instead_of_falling_back(dev):
     """A chain the kernels cannot take (a cluster of 3 blocks) raises; nothing
-    else runs in its place (no twin, no one-block kernel) and nothing is
+    else runs in its place (no twin, no other kernel) and nothing is
     counted."""
     rng = np.random.default_rng(10)
     rows, wp, K = VERY_TALL_ROWS, 128, 256

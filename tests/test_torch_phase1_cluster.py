@@ -143,7 +143,7 @@ def test_bodies_live_in_the_headers():
         text = (CSRC / source).read_text()
         assert '#include "scan_cluster.cuh"' in text
         assert "mbarrier" not in text and "st.async" not in text
-    assert "table_update_body<0, true, true>" in (CSRC / "phase1_product.cuh").read_text()
+    assert "table_update_body<true, true>" in (CSRC / "phase1_product.cuh").read_text()
     for source in ("phase1_fused.cu", "fused_chunked.cu"):
         text = (CSRC / source).read_text()
         assert '#include "phase1_product.cuh"' in text
@@ -152,17 +152,12 @@ def test_bodies_live_in_the_headers():
 
 def test_new_entry_points_are_declared_and_counted():
     for fn, key in (("gf2_scan_minkey", "scan_minkey"),
-                    ("gf2_scan_minkey_block", "scan_minkey_block"),
-                    ("gf2_phase1_fused", "phase1_fused"),
-                    ("gf2_phase1_fused_block", "phase1_fused_block")):
+                    ("gf2_phase1_fused", "phase1_fused")):
         assert fn in _cuda._SIGNATURES and key in _cuda.LAUNCHES
     # the cluster kernels take a block count and no working copy of the slice
     assert (_cuda._SIGNATURES["gf2_scan_minkey"] == _cuda._SIGNATURES["gf2_scan"]
             == _cuda._SIGNATURES["gf2_scan2"])
     assert len(_cuda._SIGNATURES["gf2_phase1_fused"]) == 14
-    # the one-block kernels take a working copy of the slice
-    assert (_cuda._SIGNATURES["gf2_scan_minkey_block"] == _cuda._SIGNATURES["gf2_scan2_block"]
-            == _cuda._SIGNATURES["gf2_scan_block"])
 
 
 # -- the min-key scan -------------------------------------------------------------------
@@ -227,8 +222,7 @@ def test_scan_minkey_cluster_matches_pallas(rows, K, w0, cols, nblocks):
             phase1.scan_minkey_cluster_plain(t32(bT), torch.from_numpy(used), w0, K, cols,
                                              nblocks),
             phase1.scan_minkey_cluster(t32(bT), torch.from_numpy(used), w0, K, cols, nblocks),
-            phase1.scan_minkey(t32(bT), torch.from_numpy(used), w0, K, cols),
-            phase1.scan_minkey_block(t32(bT), torch.from_numpy(used), w0, K, cols)):
+            phase1.scan_minkey(t32(bT), torch.from_numpy(used), w0, K, cols)):
         assert np.array_equal(prow_t.numpy(), prow_j)
         assert np.array_equal(used_t.numpy(), used_j)
         assert np.array_equal(torch_to_u32(cT_t), cT_j)
@@ -237,15 +231,13 @@ def test_scan_minkey_cluster_matches_pallas(rows, K, w0, cols, nblocks):
 
 def test_scan_minkey_wrappers_reject():
     bT, used = _slice(300, 64, 2)
-    for fn in (phase1.scan_minkey, phase1.scan_minkey_block):
-        with pytest.raises(ValueError, match="does not match"):
-            fn(t32(bT), torch.from_numpy(used), 0, 96, 90)
+    with pytest.raises(ValueError, match="does not match"):
+        phase1.scan_minkey(t32(bT), torch.from_numpy(used), 0, 96, 90)
     with pytest.raises(ValueError, match="does not match"):
         phase1.scan_minkey_cluster(t32(bT), torch.from_numpy(used), 0, 96, 90, 2)
     tall, tused = _slice(phase1.MINKEY_MAX_ROWS, 32, 3)
-    for fn in (phase1.scan_minkey, phase1.scan_minkey_block):
-        with pytest.raises(ValueError, match="fewer than"):
-            fn(t32(tall), torch.from_numpy(tused), 0, 32, 90)
+    with pytest.raises(ValueError, match="fewer than"):
+        phase1.scan_minkey(t32(tall), torch.from_numpy(tused), 0, 32, 90)
 
 
 # -- the fused phase 1 --------------------------------------------------------------------
@@ -286,7 +278,7 @@ def test_phase1_panel_matches_pallas(K, w0, cols, used_frac):
     # the cluster kernel's composition (scan, blocked coefficient solve through
     # prow, product) is the chained kernel's twin with one chunk of all the rows
     for got in (phase1.phase1_panel(*args), phase1.phase1_panel_cluster(*args, 16),
-                phase1.phase1_panel_block(*args), phase1.phase1_panel_chunked_plain(*args, ROWS)):
+                phase1.phase1_panel_chunked_plain(*args, ROWS)):
         assert np.array_equal(torch_to_u32(got[0]), want[0])
         assert np.array_equal(got[1].numpy(), want[1])
         assert np.array_equal(got[2].numpy(), want[2])
@@ -296,10 +288,9 @@ def test_phase1_panel_matches_pallas(K, w0, cols, used_frac):
 def test_phase1_panel_wrappers_reject():
     a, bT, used = _fused_inputs(64, 0, 0.3, 1)
     args = (t32(a), t32(bT), torch.from_numpy(used))
-    for fn in (phase1.phase1_panel, phase1.phase1_panel_block):
-        with pytest.raises(ValueError, match="outside"):
-            fn(*args, WP - 1, 64, 100)
-        with pytest.raises(ValueError, match="does not match"):
-            fn(*args, 0, 96, 100)
+    with pytest.raises(ValueError, match="outside"):
+        phase1.phase1_panel(*args, WP - 1, 64, 100)
+    with pytest.raises(ValueError, match="does not match"):
+        phase1.phase1_panel(*args, 0, 96, 100)
     with pytest.raises(ValueError, match="outside"):
         phase1.phase1_panel_cluster(*args, WP, 64, 100, 4)

@@ -206,10 +206,10 @@ def test_batched_rebuild_from_the_blocked_order(K):
     assert torch.equal(pf, want)
 
 
-@pytest.mark.parametrize("entry", ["reconstruct_coeff", "reconstruct_coeff_steps"])
+@pytest.mark.parametrize("entry", ["reconstruct_coeff"])
 def test_coefficient_solve_wrappers_run_the_twin_on_cpu_tensors(entry):
-    """Both launchers of a coefficient solve alone take (K, wp) or
-    (B, K, wp), give the step-by-step twin's T on CPU tensors and count no
+    """The launcher of the coefficient solve alone takes (K, wp) or
+    (B, K, wp), gives the step-by-step twin's T on CPU tensors and counts no
     launch."""
     K, wp = 64, 24
     per = [_inputs(K, "arbitrary", "sparse", seed=b, wp=wp) for b in range(2)]

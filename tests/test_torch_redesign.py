@@ -113,22 +113,16 @@ def test_route_constants_mirror_the_cuda_source():
 
 def test_new_entry_points_are_declared():
     """Every C entry point a wrapper calls has its signature and its count."""
-    for fn in ("gf2_scan", "gf2_scan_block", "gf2_update_rank_k", "gf2_update_table_probe",
-               "gf2_reconstruct_coeff", "gf2_reconstruct_coeff_steps"):
+    for fn in ("gf2_scan", "gf2_reconstruct_coeff"):
         assert fn in _cuda._SIGNATURES
-        source = "reconstruct.cu" if "reconstruct" in fn else "scan.cu" if "scan" in fn else (
-            "panel_update.cu" if fn.endswith("rank_k") else "update_table.cu")
+        source = "reconstruct.cu" if "reconstruct" in fn else "scan.cu"
         assert f'extern "C" int {fn}(' in (CSRC / source).read_text()
-    for key in ("scan", "scan_block", "update_rank_k", "update_table_probe",
-                "reconstruct_coeff", "reconstruct_coeff_steps"):
+    for key in ("scan", "reconstruct_coeff"):
         assert key in _cuda.LAUNCHES
-    # the two coefficient solves share a signature: four pointers, batch, three ints, stream
-    assert (_cuda._SIGNATURES["gf2_reconstruct_coeff"]
-            == _cuda._SIGNATURES["gf2_reconstruct_coeff_steps"])
+    # the coefficient solve: four pointers, batch, three ints, stream
     assert len(_cuda._SIGNATURES["gf2_reconstruct_coeff"]) == 9
     # gf2_scan takes no working copy: five pointers, five ints, the stream
     assert len(_cuda._SIGNATURES["gf2_scan"]) == 11
-    assert len(_cuda._SIGNATURES["gf2_scan_block"]) == 11
 
 
 # -- the update's live strips ----------------------------------------------------
@@ -192,38 +186,6 @@ def test_live_strips_reject_a_start_outside_the_row():
     assert panel_update.live_strips(640, 640, False) == []
 
 
-def _update_inputs(rows, wp, k, seed):
-    rng = np.random.default_rng(seed)
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    return t32(a), t32(sel), t32(pf)
-
-
-@pytest.mark.parametrize("wp,lo,const", [(13, 0, False), (384, 128, True), (384, 256, True),
-                                         (200, 0, True), (384, 256, False)])
-def test_update_rank_k_on_the_cpu_follows_the_rule(wp, lo, const):
-    """The mask-and-XOR kernel's wrapper on CPU tensors updates exactly the
-    words {0 if const} U [lo, wp), as the twins do."""
-    a, sel, pf = _update_inputs(40, wp, 64, seed=wp + lo)
-    got = panel_update.update_rank_k(a.clone(), sel, pf, lo, const)
-    want = a.clone()
-    full = panel_update.update_full_plain(a.clone(), sel, pf)
-    live = sorted(_strip_words(panel_update.live_strips(wp, lo, const), wp))
-    want[:, live] = full[:, live]
-    assert torch.equal(got, want)
-    if const and lo == 128 and wp % 128 == 0:
-        assert torch.equal(got, panel_update.update_seg_plain(a.clone(), sel, pf, 1))
-
-
-def test_table_probe_is_for_the_card_only():
-    a, sel, pf = _update_inputs(512, 128, 256, seed=3)
-    with pytest.raises(ValueError, match="CUDA device only"):
-        panel_update.update_table_probe(a, sel, pf, 0)
-    with pytest.raises(ValueError, match="unknown probe"):
-        panel_update.update_table_probe(a, sel, pf, 3)
-
-
 # -- the wrappers on CPU tensors against the JAX package ---------------------------
 
 
@@ -251,17 +213,17 @@ def test_scan_matches_pallas_at_ten_row_tiles():
 
 @pytest.mark.parametrize("rows,K,w0,cols", [(300, 64, 2, 80), (1000, 128, 0, 10**6)])
 def test_scan_wrappers_run_the_twin_on_cpu_tensors(rows, K, w0, cols):
-    """scan, scan_block and scan_cluster take the plain twin for a CPU tensor
-    whatever the route says, and count no launch."""
+    """scan and scan_cluster take the plain twin for a CPU tensor whatever the
+    route says, and count no launch."""
     rng = np.random.default_rng(rows)
     bT = t32(rng.integers(0, 2**32, size=(K // 32, rows), dtype=np.uint32))
     used = torch.from_numpy((rng.random((1, rows)) < 0.3).astype(np.int32))
     want = phase1.scan_plain(bT, used, w0, K, cols)
     _cuda.reset_launches()
-    for got in (phase1.scan(bT, used, w0, K, cols), phase1.scan_block(bT, used, w0, K, cols),
+    for got in (phase1.scan(bT, used, w0, K, cols),
                 phase1.scan_cluster(bT, used, w0, K, cols, 16)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert not any(_cuda.LAUNCHES.values())
     with pytest.raises(ValueError, match="does not match"):
-        phase1.scan_block(bT, used, w0, K + 32, cols)
+        phase1.scan_cluster(bT, used, w0, K + 32, cols, 16)

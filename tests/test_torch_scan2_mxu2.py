@@ -267,7 +267,7 @@ def test_scan2_constants_mirror_the_sources():
     assert "mbarrier" not in text and "st.async" not in text
     assert "gf2::scan2_cluster_body<" in text and "scan2_cluster_body" in header
     assert "scan2" not in (CSRC / "scan.cu").read_text().replace(
-        "The two-pivot scan (gf2_scan2, gf2_scan2_block) lives in scan2.cu", "")
+        "The two-pivot scan (gf2_scan2) lives in scan2.cu", "")
 
 
 def _c_parameters(name: str) -> list[str]:
@@ -278,8 +278,7 @@ def _c_parameters(name: str) -> list[str]:
     raise AssertionError(f"{name} is declared in no source")
 
 
-@pytest.mark.parametrize("name", ["gf2_scan2", "gf2_scan2_block", "gf2_update_mxu2",
-                                  "gf2_update_mxu2_probe", "gf2_update_mxu4"])
+@pytest.mark.parametrize("name", ["gf2_scan2", "gf2_update_mxu2", "gf2_update_mxu4"])
 def test_new_signatures_match_the_c_entry_points(name):
     params = _c_parameters(name)
     want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else ctypes.c_int
@@ -288,7 +287,7 @@ def test_new_signatures_match_the_c_entry_points(name):
 
 
 def test_new_kernels_are_counted_under_their_own_names():
-    for key in ("scan2", "scan2_block", "update_mxu2", "update_mxu2_probe"):
+    for key in ("scan2", "update_mxu2"):
         assert key in _cuda.LAUNCHES
     # one launch, no scratch: neither tensor-core entry point takes pf
     # transposed any more, and the two share their C signature
@@ -303,7 +302,6 @@ def test_scan2_wrappers_run_the_twins_on_cpu_tensors():
     want = phase1.scan2_plain(bt, u, 2, 64, 10**6)
     _cuda.reset_launches()
     for got in (phase1.scan(bt, u, 2, 64, 10**6, "2"), phase1.scan2(bt, u, 2, 64, 10**6),
-                phase1.scan2_block(bt, u, 2, 64, 10**6),
                 phase1.scan2_cluster(bt, u, 2, 64, 10**6, 4)):
         _same(got, want)
     assert not any(_cuda.LAUNCHES.values())
@@ -311,16 +309,6 @@ def test_scan2_wrappers_run_the_twins_on_cpu_tensors():
         phase1.scan2_cluster(bt, u, 2, 64, 10**6, 3)
     with pytest.raises(ValueError, match="does not match"):
         phase1.scan2(bt, u, 2, 96, 10**6)
-
-
-def test_mxu2_probe_is_for_the_card_only():
-    a = torch.zeros((16, 8), dtype=torch.int32)
-    sel = torch.zeros((16, 1), dtype=torch.int32)
-    pf = torch.zeros((32, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA device only"):
-        panel_update.update_mxu2_probe(a, sel, pf, 1)
-    with pytest.raises(ValueError, match="unknown probe"):
-        panel_update.update_mxu2_probe(a, sel, pf, 3)
 
 
 # -- the mxu2 kernel's fragments, modelled in numpy ---------------------------------------
