@@ -21,6 +21,21 @@ device and the resolved backend are part of the cache key, as in the
 reference, so a change of either reaches the next solve at once (as a new
 entry) and a cache hit never runs stale engines.  ``GF2BV_TPU_TRACE_CACHE``
 (read at import, default 4) is the number of structures kept.
+
+The blocked backend's matrix, where it is scanned subset-first on the card
+(:func:`_scans_subset_first`), is cached in pivot order
+(:func:`_order_by_pivots`): one elimination at build finds the rows each
+panel elects, and the rows are stored with the pivot rows first, in the
+order they are elected, then every other kept row in its present order,
+the padding last.  Each panel's pivot rows then come first among its
+unused rows, so the first ``SCAN_SUBSET_ROWS`` of them hold every pivot and
+the subset-first scan decides every panel.  Every victim of a structure
+elects the same rows, since a victim changes only column 0 and no scan
+elects on it.  The answers cannot change: the RREF of the row space, mode
+0's origin (free variables zero) and the verdict do not depend on the rows'
+order, and mode 1's basis comes from the RREF.  ``kept`` is permuted with
+the rows, so a victim's affine bits (``aff[kept]``) follow them;
+``kept_mask`` and ``struct_aff`` stay indexed by the traced rows.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ from ..core.lazy import LazyBitVec
 from ..core.words import I32, to_device, u32_to_torch
 from ..utils import profiling
 from . import gauss_jax, solver
-from .gauss_blocked import K_PANEL, _pad, _pick_engines, solve_on_device
+from .gauss_blocked import K_PANEL, _pad, _pick_engines, rref_blocked, solve_on_device
 
 # cached structures (each one device matrix, or one host matrix under native)
 _MAX_CACHED = int(os.environ.get("GF2BV_TPU_TRACE_CACHE", "4"))
@@ -89,10 +104,37 @@ def _build(system, exprs, key) -> _CachedSystem:
         cs.phase1, cs.phase2 = _pick_engines(a32.shape[1])
         cs.a_dev = u32_to_torch(a32, system._device)
         cs.a_host = None
+        if _scans_subset_first(cs):
+            _order_by_pivots(cs, system._cols)
     _CACHE[key] = cs
     while len(_CACHE) > _MAX_CACHED:
         _CACHE.popitem(last=False)
     return cs
+
+
+def _scans_subset_first(cs: _CachedSystem) -> bool:
+    """Whether the solver scans ``cs``'s matrix subset-first with the
+    kernels: the blocked backend on a CUDA device under ``pallas_scan``,
+    with any phase 2 but ``mxu_la`` (whose lookahead scans every panel in
+    its fused kernel).  On a CPU tensor the full scan runs anyway."""
+    return (cs.backend == "blocked" and cs.a_dev.device.type == "cuda"
+            and cs.phase1 == "pallas_scan" and cs.phase2 != "mxu_la")
+
+
+def _order_by_pivots(cs: _CachedSystem, cols: int) -> None:
+    """Put ``cs.a_dev``'s rows in pivot order (module docstring), and
+    ``cs.kept`` with them: one elimination with ``cs``'s engines, one
+    readback of its pivot map and one row gather on the matrix's device."""
+    _, pof, _ = rref_blocked(cs.a_dev, cols, K_PANEL, True, phase1=cs.phase1,
+                             phase2=cs.phase2)
+    pof = pof.cpu().numpy()
+    pivots = pof[pof >= 0]  # column order: the order the panels elect them
+    rest = np.ones(cs.kept.shape[0], bool)
+    rest[pivots] = False
+    order = np.concatenate([pivots, np.flatnonzero(rest)])
+    perm = np.concatenate([order, np.arange(order.shape[0], cs.rows_padded)])
+    cs.a_dev = cs.a_dev[to_device(torch.from_numpy(perm), cs.a_dev.device)]
+    cs.kept = cs.kept[order]
 
 
 def _affine_vector(exprs, widths, env=None) -> np.ndarray:

@@ -745,3 +745,37 @@ def test_a_replay_whose_plan_scans_subset_first_still_solves_a_miss(dev):
     assert torch.equal(origin, want[0]) and not bool(bad) and not bool(want[1])
     ref = gauss_ref.solve_oracle(eqs, 300, mode=0)
     assert np.array_equal(packing.from_u32(torch_to_u32(origin)[None, :])[0], ref.origin)
+
+
+@pytest.mark.cuda
+def test_the_captured_sfmt_model_is_decided_subset_first_on_every_panel(dev):
+    """SFMT19937 captured over the benchmark cell's 2496 low-16 leaks on the
+    card: the cached matrix is in pivot order (ops/lazy_solve), so the
+    shape's eager first call, the capture and a replay decide all 79 panels
+    subset-first and the graph's plan scans every panel so; the state
+    replays the leaks and equals the CPU's answer (the traced row order)."""
+    from gf2bv_tpu_torch import LinearSystem
+    from gf2bv_tpu_torch.crypto.sfmt import SFMT19937
+
+    def model(words, p):
+        sym = SFMT19937(list(words), index=624)
+        return [(sym() & 0xFFFF) ^ p[k] for k in range(2496)]
+
+    victim = SFMT19937.from_seed(2024)
+    for _ in range(3 * 624):
+        victim()
+    observed = [victim() & 0xFFFF for _ in range(2496)]
+    tmpl = LinearSystem([32] * 624, device=dev).capture(model)
+    counters = COUNTERS + ("scan_panels", "scan_subset_panels")
+    states = []
+    for _ in range(3):  # eager, capture, replay
+        state, counts = _counted(lambda: tmpl.solve_one(observed), counters)
+        assert counts["scan_panels"] == counts["scan_subset_panels"] == 79
+        states.append(state)
+    assert counts["rref_graph_replays"] == 1 and states[0] == states[1] == states[2]
+    (entry,) = gauss_blocked._graphs.values()
+    assert entry.plan == (True,) * 79 and entry.decided.tolist() == [1] * 79
+    clone = SFMT19937(list(states[0]), index=624)
+    assert [clone() & 0xFFFF for _ in range(2496)] == observed
+    assert all(clone() == victim() for _ in range(1000))
+    assert LinearSystem([32] * 624, device="cpu").capture(model).solve_one(observed) == states[0]
